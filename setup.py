@@ -7,7 +7,7 @@ from setuptools import Extension, setup
 setup(
     name="catre_tpu",
     version="0.1.0",
-    packages=["catre_tpu"],
+    packages=["catre_tpu", "catre_tpu_torch"],
     ext_modules=[
         Extension(
             "catre_tpu.native._catre_rle",
