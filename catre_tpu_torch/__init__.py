@@ -8,6 +8,9 @@ no JAX.
 Slice 1 covers test-time refinement: `engine.refiner.make_refine_fn` over
 `models.catre.refine_forward`, with the encoder tails (`ops.encoder_epilogue`)
 and the fused rotation head (`ops.rot_head`) as hand-written CUDA kernels.
+Slice 2 covers the training step: `engine.train.make_train_step` with the
+losses, Ranger and the batch augmentation, the rotation head's backward
+(`ops.rot_head_train`) as a hand-written CUDA kernel.
 """
 
 from .models.catre import CATREConfig, CATREDisRShared, init_model, refine_forward

@@ -1,1 +1,1 @@
-"""Config loading (jax-free) and the model-config bridge."""
+"""Config loading (jax-free) and the bridge to the model, loss and noise configs."""

@@ -1,8 +1,8 @@
-"""From the UPPERCASE config tree to `CATREConfig` (model part only).
+"""From the UPPERCASE config tree to the port's typed configs.
 
-Counterpart of `catre_tpu/config/build.py::model_config_from` (:93) and
-`_fused_ok` (:61). Training flags (FUSED_HEADS_TRAIN, FUSED_ENCODER_TRAIN)
-belong to the training slice and are not read yet.
+Counterpart of `catre_tpu/config/build.py`: `model_config_from` (:93) with
+`_fused_ok` (:61) and `_enc_train_ok` (:73), `loss_config_from` (:143) and
+`noise_config_from` (:167).
 """
 
 from __future__ import annotations
@@ -12,7 +12,9 @@ from pathlib import Path
 
 import torch
 
+from ..engine.train import InputNoiseConfig
 from ..geom.rotations import get_rot_dim
+from ..losses import LossConfig
 from ..models.catre import CATREConfig
 
 logger = logging.getLogger(__name__)
@@ -35,6 +37,23 @@ def _fused_ok(flag, rot_type: str) -> bool:
     return flag
 
 
+def _enc_train_ok(cfg, fused_heads_train: bool) -> bool:
+    """FUSED_ENCODER_TRAIN rides the fused training delta path, which exists
+    only under FUSED_HEADS_TRAIN (and so rot6d); otherwise it is dropped with
+    a warning."""
+    flag = bool(cfg.MODEL.get("FUSED_ENCODER_TRAIN", False))
+    if flag and not fused_heads_train:
+        logger.warning("FUSED_ENCODER_TRAIN requires FUSED_HEADS_TRAIN (and rot6d); "
+                       "training uses the plain encoder")
+        return False
+    return flag
+
+
+def _t(x):
+    """Nested lists as tuples, for the hashable dataclass fields."""
+    return tuple(_t(v) for v in x) if isinstance(x, (list, tuple)) else x
+
+
 def model_config_from(cfg) -> CATREConfig:
     net = cfg.MODEL.CATRE
     rot = net.ROT_HEAD
@@ -46,6 +65,7 @@ def model_config_from(cfg) -> CATREConfig:
         raise ValueError(
             f"ROT_HEAD.INIT_CFG.rot_dim={cfg_rot_dim} inconsistent with ROT_TYPE={rot_type} "
             f"(total width {rot_out_dim} needs per-head rot_dim {(rot_out_dim + 1) // 2})")
+    fht = _fused_ok(cfg.MODEL.get("FUSED_HEADS_TRAIN", False), rot_type)
     return CATREConfig(
         num_pcl=int(cfg.INPUT.NUM_PCL),
         num_kps=int(cfg.INPUT.NUM_KPS),
@@ -71,4 +91,46 @@ def model_config_from(cfg) -> CATREConfig:
         dtype=torch.bfloat16 if cfg.MODEL.get("BF16", False) else None,
         fused_heads=_fused_ok(cfg.MODEL.get("FUSED_HEADS", False), rot_type),
         fused_encoder_epilogue=bool(cfg.MODEL.get("FUSED_ENCODER_EPILOGUE", True)),
+        fused_heads_train=fht,
+        fused_encoder_train=_enc_train_ok(cfg, fht),
+    )
+
+
+def loss_config_from(cfg) -> LossConfig:
+    lc = cfg.MODEL.CATRE.LOSS_CFG
+    return LossConfig(
+        pm_loss_type=lc.get("PM_LOSS_TYPE", "L1"),
+        pm_smooth_l1_beta=float(lc.get("PM_SMOOTH_L1_BETA", 1.0)),
+        pm_loss_sym=bool(lc.get("PM_LOSS_SYM", False)),
+        pm_r_only=bool(lc.get("PM_R_ONLY", False)),
+        pm_with_scale=bool(lc.get("PM_WITH_SCALE", True)),
+        pm_disentangle_t=bool(lc.get("PM_DISENTANGLE_T", False)),
+        pm_disentangle_z=bool(lc.get("PM_DISENTANGLE_Z", False)),
+        pm_t_use_points=bool(lc.get("PM_T_USE_POINTS", True)),
+        pm_lw=float(lc.get("PM_LW", 1.0)),
+        pm_norm_by_extent=bool(lc.get("PM_NORM_BY_EXTENT", False)),
+        rot_loss_type=lc.get("ROT_LOSS_TYPE", "angular"),
+        rot_yaxis_loss_type=lc.get("ROT_YAXIS_LOSS_TYPE", "L1"),
+        rot_lw=float(lc.get("ROT_LW", 0.0)),
+        trans_loss_type=lc.get("TRANS_LOSS_TYPE", "L1"),
+        trans_loss_disentangle=bool(lc.get("TRANS_LOSS_DISENTANGLE", True)),
+        trans_lw=float(lc.get("TRANS_LW", 0.0)),
+        scale_loss_type=lc.get("SCALE_LOSS_TYPE", "L1"),
+        scale_lw=float(lc.get("SCALE_LW", 0.0)),
+    )
+
+
+def noise_config_from(cfg) -> InputNoiseConfig:
+    inp = cfg.INPUT
+    return InputNoiseConfig(
+        noise_rot_std=_t(inp.get("NOISE_ROT_STD_TRAIN", (15, 10, 5, 2.5))),
+        noise_trans_std=_t(inp.get("NOISE_TRANS_STD_TRAIN")),
+        noise_scale_std=_t(inp.get("NOISE_SCALE_STD_TRAIN")),
+        noise_rot_max=float(inp.get("NOISE_ROT_MAX_TRAIN", 45)),
+        init_trans_min_z=float(inp.get("INIT_TRANS_MIN_Z", 0.1)),
+        init_scale_min=float(inp.get("INIT_SCALE_MIN", 0.04)),
+        bbox3d_aug_prob=float(inp.get("BBOX3D_AUG_PROB", 0.0)),
+        rt_aug_prob=float(inp.get("RT_AUG_PROB", 0.0)),
+        init_pose_types=_t(inp.get("INIT_POSE_TYPE_TRAIN", ["gt_noise"])),
+        init_scale_types=_t(inp.get("INIT_SCALE_TYPE_TRAIN", ["gt_noise"])),
     )

@@ -275,7 +275,7 @@ __device__ __forceinline__ void acc_col_reduce(const Acc<MI>& acc, Op op, F valu
 // Ask for more than 48 KB of dynamic shared memory, then launch; returns the
 // first CUDA error.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int grid, size_t smem, void* stream, Args... args) {
+int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -33,19 +33,12 @@
 // staged by cp.async, accumulators kept in registers; every statistic is a
 // fixed-order column reduction of those registers, so the sums are
 // deterministic.
-#include "common.cuh"
+#include "rot_head.cuh"
 
 using namespace catre;
+using namespace catre::rot;
 
 namespace {
-
-constexpr int CIN = 64;    // point-feature width
-constexpr int F = 256;     // per-head width
-constexpr int C = 2 * F;   // joint width
-constexpr int G = 64;      // joint GroupNorm groups (2 heads x 32)
-constexpr int LDP = CIN + kPad;
-constexpr int LDA = C + kPad;
-constexpr float kEps = 1e-5f;
 
 struct Params {
   const float* gterm;   // (B, 2, C)
@@ -100,42 +93,6 @@ template <typename T>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (4 * kTileN + 3 * C + 4 * G) + kStageBytes<T> +
          sizeof(T) * kTileM<T> * (LDP + LDA);
-}
-
-__device__ __forceinline__ float gelu(float x) {
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));
-}
-
-// Group statistics from the per-channel sums, over n = P * 8 values per group.
-__device__ void finish_stats(const float* s1, const float* s2, float* mean, float* inv, int P) {
-  if (threadIdx.x < G) {
-    const int g = threadIdx.x;
-    float a = 0.0f, b = 0.0f;
-    for (int j = 0; j < C / G; ++j) {
-      a += s1[g * (C / G) + j];
-      b += s2[g * (C / G) + j];
-    }
-    const float n = static_cast<float>(P) * (C / G);
-    const float m = a / n;
-    mean[g] = m;
-    inv[g] = rsqrtf(b / n - m * m + kEps);
-  }
-}
-
-// Column sums of value(row, col, acc) and of its square into s1[ch0 + col]
-// and s2[ch0 + col] (value returns 0 for a row to skip).
-template <int MI, typename Fn>
-__device__ __forceinline__ void add_sums(const Acc<MI>& acc, Fn value, float* red1, float* red2,
-                                         float* s1, float* s2, int ch0) {
-  acc_col_reduce(acc, AddOp(), value, red1);
-  acc_col_reduce(acc, AddOp(), [&](int r, int c, float x) {
-    const float y = value(r, c, x);
-    return y * y;
-  }, red2);
-  __syncthreads();
-  const int c = threadIdx.x % kTileN;
-  if (threadIdx.x < kTileN) s1[ch0 + c] += red1[c] + red1[kTileN + c];
-  else s2[ch0 + c] += red2[c] + red2[kTileN + c];
 }
 
 template <typename T>

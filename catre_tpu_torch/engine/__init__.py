@@ -1,1 +1,1 @@
-"""Inference engine: the iterative refine loop."""
+"""Engines: the iterative refine loop and the training step."""

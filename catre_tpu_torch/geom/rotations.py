@@ -1,7 +1,7 @@
 """Batched rotation representations on torch tensors.
 
 Counterpart of `catre_tpu/geom/rotations.py`: `rot6d_to_mat`,
-`quat_to_mat`, `axangle_to_mat`, `allo_to_ego_mat` (:159), `qexp`,
+`quat_to_mat`, `euler_to_mat` (:105), `axangle_to_mat`, `allo_to_ego_mat` (:159), `qexp`,
 `lie_vec_to_mat`, `get_rot_dim` and `rot_rep_to_mat` (:262) for all eight
 ROT_TYPEs. Same formulas and branch guards, so the two agree to float
 rounding on the same inputs.
@@ -38,6 +38,21 @@ def quat_to_mat(quat: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
         xZ - wY, yZ + wX, 1.0 - (xX + yY),
     ], dim=-1)
     return m.reshape(quat.shape[:-1] + (3, 3))
+
+
+def euler_to_mat(angles: torch.Tensor) -> torch.Tensor:
+    """XYZ euler angles in radians (..., 3) -> Rx @ Ry @ Rz (..., 3, 3)
+    (`rotations.py:105`), used by the init-pose noise."""
+    x, y, z = angles.unbind(-1)
+    cz, sz = torch.cos(z), torch.sin(z)
+    cy, sy = torch.cos(y), torch.sin(y)
+    cx, sx = torch.cos(x), torch.sin(x)
+    zero, one = torch.zeros_like(x), torch.ones_like(x)
+    shape = angles.shape[:-1] + (3, 3)
+    zmat = torch.stack([cz, -sz, zero, sz, cz, zero, zero, zero, one], dim=-1).reshape(shape)
+    ymat = torch.stack([cy, zero, sy, zero, one, zero, -sy, zero, cy], dim=-1).reshape(shape)
+    xmat = torch.stack([one, zero, zero, zero, cx, -sx, zero, sx, cx], dim=-1).reshape(shape)
+    return xmat @ ymat @ zmat
 
 
 def axangle_to_mat(axis: torch.Tensor, angle: torch.Tensor,

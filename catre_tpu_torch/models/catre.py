@@ -6,14 +6,24 @@ Counterpart of `catre_tpu/models/catre.py`: `CATREConfig` (:31),
 and `init_params` (:388). The JAX package writes the encoder->heads trunk
 three times (the flax module :93, `delta_forward_fused` :186 and
 `delta_forward_fused_train` :274); here it is written once, in
-`CATREDisRShared.forward`, and the configuration picks its encoder tails
-and rotation head:
-  - `fused_heads` (rot6d only): rotation head kernel K3
-    (`ops.rot_head.fused_conv_per_rot_head`), and with
-    `fused_encoder_epilogue` the encoder tail kernels K1/K2
-    (`ops.encoder_epilogue.ENCODER_TAIL_KERNELS`);
-  - otherwise the plain modules, as the flax module runs.
-On a CPU tensor every kernel wrapper runs its plain twin.
+`CATREDisRShared.forward`, which picks its encoder tails and rotation head
+by what the call needs:
+  - a differentiable call (grad mode on and parameters that require grad)
+    takes the training ops: the plain encoder under autograd, as
+    `catre.py:298-305` runs the flax encoder when FUSED_ENCODER_TRAIN is off,
+    and with `fused_heads_train` (rot6d only) the rotation head
+    `ops.rot_head_train.rot_head_train` (K3 forward, K4 backward), else the
+    plain `ConvOutPerRotHead`. `fused_encoder_train` (kernels K5/K6) is not
+    ported yet and raises;
+  - any other call takes the inference ops: with `fused_heads` (rot6d only)
+    the rotation head kernel K3 (`ops.rot_head.fused_conv_per_rot_head`), and
+    with `fused_encoder_epilogue` the encoder tail kernels K1/K2
+    (`ops.encoder_epilogue.ENCODER_TAIL_KERNELS`); otherwise the plain
+    modules, as the flax module runs.
+The JAX package prefers `fused_heads_train` over `fused_heads` whatever the
+call (`catre.py:353`), so its test-time refine under the shipped TPU config
+runs the training delta path; the math is the same. On a CPU tensor every
+kernel wrapper runs its plain twin.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from ..geom.rotations import get_rot_dim, rot_rep_to_mat
 from ..geom.transforms import transform_normed_pts
 from ..ops.encoder_epilogue import ENCODER_TAIL_KERNELS, ENCODER_TAIL_TWINS
 from ..ops.rot_head import fused_conv_per_rot_head
+from ..ops.rot_head_train import rot_head_train
 from .compose import pose_scale_from_delta_init
 from .heads import ConvOutPerRotHead, FCTransSizeHead
 from .pointnet import PointNetFeat
@@ -60,6 +71,8 @@ class CATREConfig:
     dtype: torch.dtype | None = None     # compute dtype (None = float32)
     fused_heads: bool = False            # rotation head kernel K3 (rot6d only)
     fused_encoder_epilogue: bool = True  # encoder tail kernels K1/K2 (with fused_heads)
+    fused_heads_train: bool = False      # training rot head: K3 forward, K4 backward (rot6d)
+    fused_encoder_train: bool = False    # training encoder tails K5/K6: not ported yet
 
     @property
     def is_allo(self) -> bool:
@@ -80,6 +93,10 @@ class CATREConfig:
     @property
     def uses_tail_kernels(self) -> bool:
         return self.uses_rot_head_kernel and self.fused_encoder_epilogue
+
+    @property
+    def uses_rot_head_train_kernels(self) -> bool:
+        return self.fused_heads_train and self.is_rot6d
 
 
 class CATREDisRShared(nn.Module):
@@ -112,7 +129,13 @@ class CATREDisRShared(nn.Module):
     def forward(self, x, tfd_kps, init_scale, init_trans=None):
         cfg = self.cfg
         B = x.shape[0]
-        tails = ENCODER_TAIL_KERNELS if cfg.uses_tail_kernels else ENCODER_TAIL_TWINS
+        training = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
+        if training and cfg.fused_encoder_train:
+            raise NotImplementedError(
+                "fused_encoder_train: the training encoder-tail kernels K5/K6 are the next slice "
+                "of the port (ROADMAP.md item 12); set it False to train on the plain encoder")
+        tails = (ENCODER_TAIL_KERNELS if cfg.uses_tail_kernels and not training
+                 else ENCODER_TAIL_TWINS)
         # one encoder call over both clouds (2B) when the point counts match
         if x.shape[1] == tfd_kps.shape[1]:
             pf, gf = self.pcl_net(torch.cat([x, tfd_kps], dim=0), tails)
@@ -135,8 +158,10 @@ class CATREDisRShared(nn.Module):
 
         point_feats = torch.cat([pcl_pf, kps_pf], dim=1)              # (B, P+K, 64)
         n_pcl = x.shape[1]
-        if cfg.uses_rot_head_kernel:
-            cdt = cfg.dtype or torch.float32
+        cdt = cfg.dtype or torch.float32
+        if training and cfg.uses_rot_head_train_kernels:
+            rot_deltas = rot_head_train(point_feats, g_pcl, g_kps, self.rot_head, n_pcl, cdt)
+        elif not training and cfg.uses_rot_head_kernel:
             rot_deltas = fused_conv_per_rot_head(point_feats, g_pcl, g_kps, self.rot_head,
                                                  n_pcl, cdt)
         else:

@@ -4,14 +4,16 @@ On a CPU tensor every wrapper runs its twin; on a CUDA tensor it launches
 its kernel or raises. `launch_counts()` reports how often each kernel ran.
 """
 
-from . import encoder_epilogue, rot_head
+from . import encoder_epilogue, rot_head, rot_head_train
+
+_COUNTERS = (encoder_epilogue.LAUNCHES, rot_head.LAUNCHES, rot_head_train.LAUNCHES)
 
 
 def launch_counts() -> dict:
-    return {**encoder_epilogue.LAUNCHES, **rot_head.LAUNCHES}
+    return {k: v for counts in _COUNTERS for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (encoder_epilogue.LAUNCHES, rot_head.LAUNCHES):
+    for counts in _COUNTERS:
         for k in counts:
             counts[k] = 0

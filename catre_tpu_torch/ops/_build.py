@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "catre_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("encoder_epilogue", "rot_head")
+KERNEL_SOURCES = ("encoder_epilogue", "rot_head", "rot_head_bwd")
 
 
 class KernelBuildError(RuntimeError):
@@ -111,3 +111,13 @@ def cuda_inputs(kernel: str, *tensors) -> None:
             raise ValueError(f"{kernel}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: non-contiguous input of shape {tuple(t.shape)}")
+
+
+def refuse_grad(kernel: str, train_op: str, *tensors) -> None:
+    """An inference kernel returns a tensor with no `grad_fn`: under grad mode
+    a differentiable input or weight would silently get no gradient. Raise
+    instead, naming the op that serves training."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an inference kernel got a tensor that requires grad under grad mode; "
+            f"it returns no gradient. Training takes {train_op}")

@@ -54,8 +54,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+_TRAIN_OP = "the plain encoder layers (ENCODER_TAIL_TWINS under autograd)"
+
+
 def _kernel_operands(name, x, cdt, weights, biases):
     """Validate x and return (weights in cdt, biases rounded to cdt as f32)."""
+    _build.refuse_grad(name, _TRAIN_OP, x, *weights, *biases)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if cdt not in (torch.float32, torch.bfloat16):

@@ -57,8 +57,11 @@ class RotHeadPack:
     cdt: torch.dtype
 
 
-def pack_rot_head(head, cdt: torch.dtype) -> RotHeadPack:
-    """Merge a flagship-width `ConvOutPerRotHead` into a `RotHeadPack`."""
+def pack_rot_head(head, cdt: torch.dtype, weight_dtype: torch.dtype | None = None) -> RotHeadPack:
+    """Merge a flagship-width `ConvOutPerRotHead` into a `RotHeadPack`. The
+    matmul weights w_pt and w1 take `weight_dtype` (default `cdt`); the
+    training op keeps them f32 so that autograd does not round their
+    gradients through a cast. Differentiable in the head's parameters."""
     hx, hy = head.rot_head_x, head.rot_head_y
     for h in (hx, hy):
         if (h.layer0_global_weight.shape != (FEAT, IN_GLOBAL)
@@ -67,6 +70,7 @@ def pack_rot_head(head, cdt: torch.dtype) -> RotHeadPack:
                 or any(gn.num_groups != GROUPS for gn in h.gns)):
             raise ValueError("the fused rot head takes the flagship widths only: 1024 + 64 -> "
                              "256 -> 256 (GN 32) -> 3 per head")
+    wdt = cdt if weight_dtype is None else weight_dtype
 
     def cat(fn):
         return torch.cat([fn(hx).float(), fn(hy).float()], dim=0)
@@ -76,10 +80,10 @@ def pack_rot_head(head, cdt: torch.dtype) -> RotHeadPack:
                        pw[1].sum() * hy.neck.bias + hy.point_bias]).float()
     return RotHeadPack(
         w_g=cat(lambda h: h.layer0_global_weight),
-        w_pt=cat(lambda h: h.layer0_point_weight).to(cdt),
+        w_pt=cat(lambda h: h.layer0_point_weight).to(wdt),
         b0=cat(lambda h: h.layer0_bias),
         gn0s=cat(lambda h: h.gns[0].weight), gn0b=cat(lambda h: h.gns[0].bias),
-        w1=torch.stack([hx.layers[0].weight, hy.layers[0].weight]).to(cdt),
+        w1=torch.stack([hx.layers[0].weight, hy.layers[0].weight]).to(wdt),
         b1=cat(lambda h: h.layers[0].bias),
         gn1s=cat(lambda h: h.gns[1].weight), gn1b=cat(lambda h: h.gns[1].bias),
         pw=pw, neck=cat(lambda h: h.neck.weight), bias6=bias6, cdt=cdt,
@@ -115,19 +119,23 @@ def rot_head(pf, gterm, p: RotHeadPack, n_pcl: int):
     -> (B, 6) f32."""
     if pf.device.type == "cpu":
         return rot_head_twin(pf, gterm, p, n_pcl)
+    args = [pf, gterm, p.w_pt, p.b0, p.gn0s, p.gn0b, p.w1, p.b1, p.gn1s, p.gn1b,
+            p.pw, p.neck, p.bias6]
+    _build.refuse_grad("rot_head", "ops.rot_head_train.rot_head_train (K3 forward, K4 backward)",
+                       *args)
     if pf.device.type != "cuda":
         raise ValueError(f"rot_head: no kernel for device {pf.device}")
     B, P, cin = pf.shape
-    if p.cdt not in (torch.float32, torch.bfloat16) or pf.dtype != p.cdt:
-        raise ValueError(f"rot_head: pf is {pf.dtype}, compute dtype {p.cdt}")
+    if (p.cdt not in (torch.float32, torch.bfloat16) or pf.dtype != p.cdt
+            or p.w_pt.dtype != p.cdt or p.w1.dtype != p.cdt):
+        raise ValueError(f"rot_head: pf {pf.dtype}, weights {p.w_pt.dtype}/{p.w1.dtype}, "
+                         f"compute dtype {p.cdt}")
     if cin != IN_POINT or gterm.shape != (B, 2, 2 * FEAT) or gterm.dtype != torch.float32:
         raise ValueError(f"rot_head: pf {tuple(pf.shape)} / gterm {tuple(gterm.shape)} "
                          f"{gterm.dtype} are not the flagship widths")
     if p.pw.shape != (2, P) or not 0 <= n_pcl <= P:
         raise ValueError(f"rot_head: {P} points, point weights {tuple(p.pw.shape)}, "
                          f"n_pcl={n_pcl}")
-    args = [pf, gterm, p.w_pt, p.b0, p.gn0s, p.gn0b, p.w1, p.b1, p.gn1s, p.gn1b,
-            p.pw, p.neck, p.bias6]
     _build.cuda_inputs("rot_head", *args)
     out = torch.empty(B, 6, device=pf.device, dtype=torch.float32)
     rc = _lib().catre_rot_head(*[t.data_ptr() for t in args], out.data_ptr(), B, P, n_pcl,

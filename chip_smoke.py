@@ -18,7 +18,17 @@ code is non-zero):
                points, 4 iterations, seeded weights) at B = 256 and 2048:
                finite outputs, obj/s from CUDA events, and exactly K1 = 4,
                K2 = 8, K3 = 4 launches per call;
-               plus a B = 8 f32 run of the kernel path against the plain path.
+               plus a B = 8 f32 run of the kernel path against the plain path;
+  6. K4:       the rotation-head backward kernel vs its plain version
+               (autograd of the K3 twin), B = 64 objects x 2048 points, f32
+               (tight) and bf16 (loose), per gradient tensor; times at B = 512;
+  7. train:    the flagship training step from `catre_tpu_torch.entry.train_entry`
+               (bf16, B = 512, 4 inner iterations, FUSED_ENCODER_TRAIN off):
+               one warm-up and 3 timed steps, finite losses and parameters,
+               exactly K3 = 4, K4 = 4, K1 = K2 = 0 launches per step, ms per
+               step, train obj/s and peak memory; fused_encoder_train raises;
+               plus one B = 8 f32 step on the card (kernels) against the same
+               step on a CPU copy (plain path).
 Then one JSON line of per-kernel results, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.
 """
@@ -35,6 +45,9 @@ import torch
 KERNEL_B = 256               # objects for the kernel checks (512 clouds)
 REFINE_BATCHES = (256, 2048)
 REFINE_CALLS = 3             # timed refine calls per batch size, after one warm-up
+K4_CHECK_B, K4_TIME_B = 64, 512
+TRAIN_B, TRAIN_STEPS = 512, 3     # timed train steps, after one warm-up
+TRAIN_LOSS_RTOL, TRAIN_PARAM_TOL = 2e-3, 1e-3   # kernel vs plain train step (tests/test_fused_train.py)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}   # x max(1, max|twin|)
 PATH_TOL = 5e-4              # kernel path vs plain path, f32 (the CPU slice tolerance)
 IDENTITY_TOL = 1e-5
@@ -83,6 +96,129 @@ def check_kernel(name, kernel, twin, make_args):
     log("kernels", f"{name} bf16 kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms")
     return {"max_abs_err": errs[torch.bfloat16], "max_abs_err_f32": errs[torch.float32],
             "ms": ms, "plain_ms": plain_ms}
+
+
+def check_k4(head, dev, gen):
+    """K4 vs its plain version (autograd of the K3 twin), per gradient tensor,
+    in f32 and bf16 at B = K4_CHECK_B; times in bf16 at B = K4_TIME_B."""
+    from catre_tpu_torch.ops import rot_head as rot_ops
+    from catre_tpu_torch.ops import rot_head_train as train_ops
+
+    n_pts = head.rot_head_x.point_weight.shape[0]
+
+    def args(cdt, b):
+        with torch.no_grad():
+            pack = rot_ops.pack_rot_head(head, cdt, weight_dtype=torch.float32)
+            pf = torch.randn(b, n_pts, 64, device=dev, generator=gen) * 0.5
+            g2 = torch.randn(b, 2, 1024, device=dev, generator=gen) * 0.5
+            d_out = torch.randn(b, 6, device=dev, generator=gen)
+            return pf.to(cdt), (g2 @ pack.w_g.T).contiguous(), pack, n_pts // 2, d_out
+
+    errs = {}
+    for cdt in (torch.float32, torch.bfloat16):
+        a = args(cdt, K4_CHECK_B)
+        ref = train_ops.rot_head_bwd_twin(*a)
+        with torch.no_grad():
+            out = train_ops.rot_head_bwd(*a)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for name in train_ops.GRAD_NAMES:
+            o, r = out[name], ref[name]
+            if o.shape != r.shape or not torch.isfinite(o).all():
+                raise RuntimeError(f"K4 {cdt} d_{name}: shape {tuple(o.shape)} or non-finite")
+            err = (o - r).abs().max().item()
+            limit = TOL[cdt] * max(1.0, r.abs().max().item())
+            log("K4", f"{str(cdt)[6:]} d_{name} {tuple(o.shape)} max_abs_err={err:.3e} "
+                      f"limit={limit:.3e}")
+            if not err <= limit:
+                raise RuntimeError(f"K4 {cdt} d_{name}: kernel disagrees with its plain "
+                                   f"version: {err} > {limit}")
+            worst = max(worst, err)
+        errs[cdt] = worst
+    a = args(torch.bfloat16, K4_TIME_B)
+    with torch.no_grad():
+        ms = time_ms(lambda: train_ops.rot_head_bwd(*a))
+    plain_ms = time_ms(lambda: train_ops.rot_head_bwd_twin(*a), iters=3, warmup=1)
+    log("K4", f"B={K4_TIME_B} bf16 kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms")
+    return {"max_abs_err": errs[torch.bfloat16], "max_abs_err_f32": errs[torch.float32],
+            "ms": ms, "plain_ms": plain_ms}
+
+
+def train_phase(dev, per_step):
+    """The flagship training step through `entry.train_entry` at B = TRAIN_B,
+    bf16: one warm-up and TRAIN_STEPS timed steps; returns its launch counts."""
+    from catre_tpu_torch import ops
+    from catre_tpu_torch.entry import train_entry
+
+    events, counts = [], []
+
+    def on_step(i, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        counts.append(ops.launch_counts())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, history = train_entry(dev, batch_size=TRAIN_B, steps=1 + TRAIN_STEPS, seed=0,
+                                 callback=on_step)
+    torch.cuda.synchronize()
+    total = ops.launch_counts()
+    ms = events[0].elapsed_time(events[-1]) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prev = dict.fromkeys(per_step, 0)
+    for i, c in enumerate(counts):
+        step_counts = {k: c[k] - prev[k] for k in per_step}
+        if step_counts != per_step:
+            raise RuntimeError(f"train step {i}: launches {step_counts}, want {per_step}")
+        prev = c
+    for i, m in enumerate(history):
+        if not all(torch.isfinite(v).all() for v in m.values()):
+            raise RuntimeError(f"train step {i}: non-finite metrics {m}")
+    if not all(torch.isfinite(p).all() for p in state.params.values()):
+        raise RuntimeError("non-finite parameters after training")
+    loss = [round(m["loss_total"][-1].item(), 5) for m in history]
+    log("train", f"B={TRAIN_B} bf16 {history[0]['loss_total'].numel()} inner iterations: "
+                 f"{ms:.3f} ms/step, {TRAIN_B / ms * 1e3:.1f} train obj/s, peak {peak:.2f} GiB, "
+                 f"launches per step {per_step}, last-iteration loss per step {loss}")
+    try:
+        train_entry(dev, batch_size=2, steps=1, fused_encoder_train=True)
+    except NotImplementedError as e:
+        log("train", f"fused_encoder_train=True raises NotImplementedError: {e}")
+    else:
+        raise RuntimeError("fused_encoder_train=True trained without its kernels")
+    return total
+
+
+def train_kernel_vs_plain(dev):
+    """One B = 8 f32 train step on the card (K3/K4) against the same step on a
+    CPU copy of the model, optimizer and prepared batch (plain path)."""
+    from catre_tpu_torch.engine.train import init_train_state, make_train_step, prepare_train_batch
+    from catre_tpu_torch.entry import flagship_trainer
+    from catre_tpu_torch.solver.ranger import Ranger
+
+    t = flagship_trainer(dev, batch_size=8, seed=1, dtype=None)
+    model, opt = t.step.model, t.step.optimizer
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_opt = Ranger(cpu_model.named_parameters(), **opt.defaults)
+    cpu_step = make_train_step(cpu_model, t.step.loss_cfg, t.step.noise_cfg, cpu_opt,
+                               t.step.sym_bank.cpu(), t.step.n_iter)
+    prepared = prepare_train_batch(t.generator, t.batch, t.step.noise_cfg)
+    _, m_card = t.step.step_on_prepared(t.state, prepared, t.lr)
+    _, m_cpu = cpu_step.step_on_prepared(init_train_state(cpu_model, cpu_opt),
+                                         {k: v.cpu() for k, v in prepared.items()}, t.lr)
+    torch.cuda.synchronize()
+    loss_err = max(((m_card[k].cpu() - m_cpu[k]).abs() / m_cpu[k].abs().clamp(min=1e-12)).max()
+                   .item() for k in m_cpu)
+    card_params = dict(model.named_parameters())
+    param_err = max((card_params[n].detach().cpu() - p.detach()).abs().max().item()
+                    for n, p in cpu_model.named_parameters())
+    log("train", f"B=8 f32 kernel step vs plain step: metrics max rel err {loss_err:.3e} "
+                 f"(rtol {TRAIN_LOSS_RTOL:.0e}), parameters max abs err {param_err:.3e} "
+                 f"(limit {TRAIN_PARAM_TOL:.0e})")
+    if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_TOL):
+        raise RuntimeError("the kernel train step disagrees with the plain train step")
 
 
 def main():
@@ -184,7 +320,7 @@ def main():
 
     # ---- 5b. the main path, through the port's entry point: flagship refine, bf16, kernels
     per_call = {"dense_relu_dense_max": N_ITER, "dense_relu_max": 2 * N_ITER,
-                "rot_head": N_ITER}
+                "rot_head": N_ITER, "rot_head_bwd": 0}
     launches = dict.fromkeys(per_call, 0)
     for B in REFINE_BATCHES:
         refine, args = entry(dev, batch_size=B, seed=0)
@@ -213,6 +349,17 @@ def main():
                       f"{B / ms * 1e3:.1f} obj/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
                       f" GiB, launches per call {dict((k, v // REFINE_CALLS) for k, v in counts.items())}")
 
+    # ---- 6. K4 vs its plain version, per gradient tensor
+    results["K4"] = check_k4(head, dev, gen)
+
+    # ---- 7. the training main path, through the port's entry point
+    train_per_step = {"dense_relu_dense_max": 0, "dense_relu_max": 0, "rot_head": N_ITER,
+                      "rot_head_bwd": N_ITER}
+    train_launches = train_phase(dev, train_per_step)
+    for k in launches:
+        launches[k] += train_launches[k]
+    train_kernel_vs_plain(dev)
+
     kernels = [
         dict(name="K1 dense_relu_dense_max", route="cuda",
              source="catre_tpu_torch/csrc/encoder_epilogue.cu",
@@ -225,6 +372,9 @@ def main():
         dict(name="K3 rot_head", route="cuda", source="catre_tpu_torch/csrc/rot_head.cu",
              replaces="catre_tpu/ops/pallas_heads.py:276",
              launches=launches["rot_head"], **results["K3"]),
+        dict(name="K4 rot_head_bwd", route="cuda", source="catre_tpu_torch/csrc/rot_head_bwd.cu",
+             replaces="catre_tpu/ops/pallas_heads_vjp.py:100",
+             launches=launches["rot_head_bwd"], **results["K4"]),
     ]
     if any(k["launches"] == 0 for k in kernels):
         raise RuntimeError("a kernel of the main path never launched")

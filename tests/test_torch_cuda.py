@@ -1,4 +1,6 @@
-"""CUDA kernels K1, K2 and K3 vs their plain PyTorch twins on the card.
+"""CUDA kernels K1-K4 vs their plain PyTorch versions on the card, the
+inference kernels' refusal of a differentiable call, and a train step's
+launch counts.
 
 Every test here is marked `cuda` and skips without a card. The file imports
 no JAX, so it runs on a machine without it; `tests/conftest.py` sets up JAX,
@@ -16,6 +18,7 @@ from catre_tpu_torch.models.heads import ConvOutPerRotHead
 from catre_tpu_torch.models.layers import Dense
 from catre_tpu_torch.ops import encoder_epilogue as enc_ops
 from catre_tpu_torch.ops import rot_head as rot_ops
+from catre_tpu_torch.ops import rot_head_train as train_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -96,3 +99,64 @@ def test_wrappers_raise_on_bad_input(dev):
         enc_ops.dense_relu_max(x, w, b, torch.bfloat16)                  # x not in cdt
     with pytest.raises(ValueError):
         enc_ops.dense_relu_max(x, w[:1000], b[:1000], torch.float32)     # width
+
+
+def _scaled_head(gen, n_points, dev):
+    head = ConvOutPerRotHead(gen, num_points=n_points)
+    with torch.no_grad():
+        for prm in head.parameters():
+            prm.mul_(50.0)   # signal well above the 1e-3 init
+    return head.to(dev)
+
+
+@pytest.mark.parametrize("cdt", DTYPES)
+@pytest.mark.parametrize("b,p,k", [(4, 1024, 1024), (3, 96, 40)])
+def test_rot_head_bwd_kernel(dev, cdt, b, p, k):
+    gen = torch.Generator().manual_seed(10 + b)
+    head = _scaled_head(gen, p + k, dev)
+    pf = (torch.randn(b, p + k, 64, generator=gen) * 0.5).to(dev, cdt)
+    g2 = (torch.randn(b, 2, 1024, generator=gen) * 0.5).to(dev)
+    d_out = torch.randn(b, 6, generator=gen).to(dev)
+    with torch.no_grad():
+        pack = rot_ops.pack_rot_head(head, cdt, weight_dtype=torch.float32)
+        gterm = (g2 @ pack.w_g.T).contiguous()
+        before = train_ops.LAUNCHES["rot_head_bwd"]
+        out = train_ops.rot_head_bwd(pf, gterm, pack, p, d_out)
+        assert train_ops.LAUNCHES["rot_head_bwd"] == before + 1
+        ref = train_ops.rot_head_bwd_twin(pf, gterm, pack, p, d_out)
+    for name in train_ops.GRAD_NAMES:
+        assert out[name].shape == ref[name].shape and torch.isfinite(out[name]).all(), name
+        _assert_close(out[name], ref[name], cdt)
+
+
+def test_inference_kernels_refuse_a_differentiable_call(dev):
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 64, 128, generator=gen).to(dev)
+    w, b = _dense(gen, 128, 1024, dev)
+    w3, b3 = _dense(gen, 128, 512, dev)
+    w4, b4 = _dense(gen, 512, 1024, dev)
+    w.requires_grad_()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        enc_ops.dense_relu_max(x, w, b, torch.float32)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        enc_ops.dense_relu_dense_max(x.requires_grad_(), w3, b3, w4, b4, torch.float32)
+    head = _scaled_head(gen, 128, dev)
+    pack = rot_ops.pack_rot_head(head, torch.float32)          # differentiable in the head
+    pf = torch.randn(2, 128, 64, generator=gen).to(dev)
+    gterm = torch.randn(2, 2, 512, generator=gen).to(dev)
+    with pytest.raises(RuntimeError, match="rot_head_train"):
+        rot_ops.rot_head(pf, gterm, pack, 64)
+    with torch.no_grad():
+        rot_ops.rot_head(pf, gterm, rot_ops.pack_rot_head(head, torch.float32), 64)
+
+
+def test_train_step_launches_k3_and_k4(dev):
+    from catre_tpu_torch import ops
+    from catre_tpu_torch.entry import train_entry
+
+    ops.reset_launch_counts()
+    state, history = train_entry(dev, batch_size=4, steps=1, num_pcl=256, num_kps=256)
+    assert ops.launch_counts() == {"dense_relu_dense_max": 0, "dense_relu_max": 0,
+                                   "rot_head": 4, "rot_head_bwd": 4}
+    assert all(torch.isfinite(v).all() for v in history[0].values())
+    assert all(torch.isfinite(p).all() for p in state.params.values())

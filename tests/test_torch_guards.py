@@ -42,6 +42,24 @@ def test_port_runs_with_jax_blocked():
     assert "port ok" in proc.stdout
 
 
+def test_port_trains_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "from catre_tpu_torch.entry import train_entry\n"
+        "state, hist = train_entry(device='cpu', batch_size=2, steps=1, num_pcl=64, num_kps=64)\n"
+        "assert state.step == 1 and hist[0]['loss_total'].shape == (4,)\n"
+        "assert all(torch.isfinite(v).all() for m in hist for v in m.values())\n"
+        "assert all(torch.isfinite(p).all() for p in state.params.values())\n"
+        "assert not any(m == 'catre_tpu' or m.startswith('catre_tpu.') for m in sys.modules)\n"
+        "print('train ok')\n"
+    )
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "train ok" in proc.stdout
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
@@ -65,7 +83,7 @@ def test_wrappers_route_cpu_to_twin_and_refuse_other_devices():
     out = enc_ops.dense_relu_max(x, w, b, torch.float32)
     torch.testing.assert_close(out, enc_ops.dense_relu_max_twin(x, w, b, torch.float32))
     assert ops.launch_counts() == {"dense_relu_max": 0, "dense_relu_dense_max": 0,
-                                   "rot_head": 0}
+                                   "rot_head": 0, "rot_head_bwd": 0}
     with pytest.raises(ValueError, match="no kernel"):
         enc_ops.dense_relu_max(x.to("meta"), w, b, torch.float32)
 
