@@ -22,17 +22,18 @@ __device__ __forceinline__ float gelu(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));
 }
 
-// d gelu / dx = Phi(x) + x phi(x), exact erf and exp
-__device__ __forceinline__ float gelu_grad(float x) {
-  return 0.5f * (1.0f + erff(x * 0.70710678118654752440f)) +
-         x * 0.39894228040143267794f * expf(-0.5f * x * x);
-}
-
-// gelu(x) and its derivative from one erf
+// gelu(x) = x Phi(x) and its derivative Phi(x) + x phi(x), from one erf
 __device__ __forceinline__ void gelu_and_grad(float x, float& g, float& dg) {
   const float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752440f));
   g = x * cdf;
   dg = cdf + x * 0.39894228040143267794f * expf(-0.5f * x * x);
+}
+
+// d gelu / dx alone (the unused gelu value is dead code)
+__device__ __forceinline__ float gelu_grad(float x) {
+  float g, dg;
+  gelu_and_grad(x, g, dg);
+  return dg;
 }
 
 // Group statistics from the per-channel sums, over n = P * 8 values per group.

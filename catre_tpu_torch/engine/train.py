@@ -51,6 +51,11 @@ class InputNoiseConfig:
 
 
 class TrainState(NamedTuple):
+    """The step's optimizer and the parameters it updates in place: the step
+    zeroes, scrubs and steps through these, and refuses a state whose
+    parameters are not its model's (the forward runs that model) or whose
+    optimizer is not the one it was built with."""
+
     params: dict              # name -> the model's parameter, updated in place
     optimizer: Ranger
     step: int                 # outer step counter
@@ -105,6 +110,13 @@ class TrainStep:
 
     def step_on_prepared(self, state: TrainState, batch: dict, lr: float):
         cfg = self.model.cfg
+        model_params = dict(self.model.named_parameters())
+        if (state.params.keys() != model_params.keys()
+                or any(state.params[n] is not p for n, p in model_params.items())):
+            raise ValueError("train state: its parameters are not the step's model's")
+        if state.optimizer is not self.optimizer:
+            raise ValueError("train state: its optimizer is not the one the step was built with")
+        optimizer, params = state.optimizer, list(state.params.values())
         batch = dict(batch)
         if not cfg.refine_scale:
             # REFINE_SCLAE=False: the estimate is the unperturbed gt scale
@@ -112,7 +124,7 @@ class TrainStep:
         if "obj_fps_points" in batch:
             # KPS_TYPE="fps": normalised once by the iteration-0 scale estimate
             batch["obj_kps"] = batch["obj_fps_points"] / batch["obj_scale_est"][:, None, :]
-        for group in self.optimizer.param_groups:
+        for group in optimizer.param_groups:
             group["lr"] = float(lr)
         valid = batch.get("valid")
         w = None if valid is None else valid.float()
@@ -120,7 +132,7 @@ class TrainStep:
         pose_est, scale_est = batch["obj_pose_est"], batch["obj_scale_est"]
         per_iter = []
         for _ in range(self.n_iter):
-            self.optimizer.zero_grad(set_to_none=True)
+            optimizer.zero_grad(set_to_none=True)
             with record_function("train.forward"):
                 pose, scale = refine_forward(self.model, batch["pcl"], batch["obj_kps"],
                                              pose_est, scale_est, batch["K"],
@@ -134,10 +146,10 @@ class TrainStep:
             with record_function("train.backward"):
                 total.backward()
             with record_function("train.optimizer"):
-                for p in self.model.parameters():
+                for p in params:
                     if p.grad is not None:
                         torch.nan_to_num(p.grad, out=p.grad)
-                self.optimizer.step()
+                optimizer.step()
             pose_est, scale_est = pose.detach(), scale.detach()
             metrics = {k: v.detach() for k, v in loss_dict.items()}
             metrics["loss_total"] = total.detach()

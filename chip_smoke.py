@@ -20,15 +20,17 @@ code is non-zero):
                K2 = 8, K3 = 4 launches per call;
                plus a B = 8 f32 run of the kernel path against the plain path;
   6. K4:       the rotation-head backward kernel vs its plain version
-               (autograd of the K3 twin), B = 64 objects x 2048 points, f32
-               (tight) and bf16 (loose), per gradient tensor; times at B = 512;
+               (autograd of the K3 twin), B = 64 and the main path's B = 512
+               objects x 2048 points, f32 (tight) and bf16 (loose), per
+               gradient tensor; times at B = 512;
   7. train:    the flagship training step from `catre_tpu_torch.entry.train_entry`
                (bf16, B = 512, 4 inner iterations, FUSED_ENCODER_TRAIN off):
                one warm-up and 3 timed steps, finite losses and parameters,
                exactly K3 = 4, K4 = 4, K1 = K2 = 0 launches per step, ms per
                step, train obj/s and peak memory; fused_encoder_train raises;
                plus one B = 8 f32 step on the card (kernels) against the same
-               step on a CPU copy (plain path).
+               step on a CPU copy (plain path): metrics, parameters, and each
+               parameter's gradient and change relative to its norm.
 Then one JSON line of per-kernel results, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.
 """
@@ -48,6 +50,10 @@ REFINE_CALLS = 3             # timed refine calls per batch size, after one warm
 K4_CHECK_B, K4_TIME_B = 64, 512
 TRAIN_B, TRAIN_STEPS = 512, 3     # timed train steps, after one warm-up
 TRAIN_LOSS_RTOL, TRAIN_PARAM_TOL = 2e-3, 1e-3   # kernel vs plain train step (tests/test_fused_train.py)
+# the same step's first-backward gradients, per parameter relative to its
+# norm: Ranger's first, unrectified updates move a parameter by only
+# lr x gradient, which the two tolerances above cannot tell from zero
+TRAIN_GRAD_RTOL = 1e-2
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}   # x max(1, max|twin|)
 PATH_TOL = 5e-4              # kernel path vs plain path, f32 (the CPU slice tolerance)
 IDENTITY_TOL = 1e-5
@@ -100,7 +106,9 @@ def check_kernel(name, kernel, twin, make_args):
 
 def check_k4(head, dev, gen):
     """K4 vs its plain version (autograd of the K3 twin), per gradient tensor,
-    in f32 and bf16 at B = K4_CHECK_B; times in bf16 at B = K4_TIME_B."""
+    in f32 and bf16 at B = K4_CHECK_B and at the main path's B = K4_TIME_B
+    (where the weight-gradient products take their capped split-K schedule);
+    times in bf16 at B = K4_TIME_B."""
     from catre_tpu_torch.ops import rot_head as rot_ops
     from catre_tpu_torch.ops import rot_head_train as train_ops
 
@@ -114,27 +122,28 @@ def check_k4(head, dev, gen):
             d_out = torch.randn(b, 6, device=dev, generator=gen)
             return pf.to(cdt), (g2 @ pack.w_g.T).contiguous(), pack, n_pts // 2, d_out
 
-    errs = {}
-    for cdt in (torch.float32, torch.bfloat16):
-        a = args(cdt, K4_CHECK_B)
-        ref = train_ops.rot_head_bwd_twin(*a)
-        with torch.no_grad():
-            out = train_ops.rot_head_bwd(*a)
-        torch.cuda.synchronize()
-        worst = 0.0
-        for name in train_ops.GRAD_NAMES:
-            o, r = out[name], ref[name]
-            if o.shape != r.shape or not torch.isfinite(o).all():
-                raise RuntimeError(f"K4 {cdt} d_{name}: shape {tuple(o.shape)} or non-finite")
-            err = (o - r).abs().max().item()
-            limit = TOL[cdt] * max(1.0, r.abs().max().item())
-            log("K4", f"{str(cdt)[6:]} d_{name} {tuple(o.shape)} max_abs_err={err:.3e} "
-                      f"limit={limit:.3e}")
-            if not err <= limit:
-                raise RuntimeError(f"K4 {cdt} d_{name}: kernel disagrees with its plain "
-                                   f"version: {err} > {limit}")
-            worst = max(worst, err)
-        errs[cdt] = worst
+    errs = dict.fromkeys((torch.float32, torch.bfloat16), 0.0)
+    for b in (K4_CHECK_B, K4_TIME_B):
+        for cdt in (torch.float32, torch.bfloat16):
+            a = args(cdt, b)
+            ref = train_ops.rot_head_bwd_twin(*a)
+            with torch.no_grad():
+                out = train_ops.rot_head_bwd(*a)
+            torch.cuda.synchronize()
+            for name in train_ops.GRAD_NAMES:
+                o, r = out[name], ref[name]
+                if o.shape != r.shape or not torch.isfinite(o).all():
+                    raise RuntimeError(f"K4 B={b} {cdt} d_{name}: shape {tuple(o.shape)} "
+                                       "or non-finite")
+                err = (o - r).abs().max().item()
+                limit = TOL[cdt] * max(1.0, r.abs().max().item())
+                log("K4", f"B={b} {str(cdt)[6:]} d_{name} {tuple(o.shape)} "
+                          f"max_abs_err={err:.3e} limit={limit:.3e}")
+                if not err <= limit:
+                    raise RuntimeError(f"K4 B={b} {cdt} d_{name}: kernel disagrees with its "
+                                       f"plain version: {err} > {limit}")
+                errs[cdt] = max(errs[cdt], err)
+            del a, ref, out
     a = args(torch.bfloat16, K4_TIME_B)
     with torch.no_grad():
         ms = time_ms(lambda: train_ops.rot_head_bwd(*a))
@@ -191,9 +200,35 @@ def train_phase(dev, per_step):
     return total
 
 
+def first_grads(model, optimizer):
+    """Record the gradients the first optimizer step of `model` is given
+    (the first inner iteration's backward): -> (name -> gradient, hook)."""
+    grads = {}
+
+    def hook(opt, args, kwargs):
+        if not grads:
+            grads.update({n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
+                          if p.grad is not None})
+
+    return grads, optimizer.register_step_pre_hook(hook)
+
+
+def grad_error(grads_a, grads_b):
+    """Worst per-parameter ||a - b|| / ||b|| -> (error, parameter)."""
+    if grads_a.keys() != grads_b.keys() or not grads_b:
+        raise RuntimeError("gradients of different parameters: "
+                           f"{sorted(grads_a.keys() ^ grads_b.keys())}")
+    errs = {n: ((grads_a[n] - g).norm() / g.norm().clamp(min=1e-30)).item()
+            for n, g in grads_b.items()}
+    worst = max(errs, key=lambda n: errs[n] if errs[n] == errs[n] else float("inf"))
+    return errs[worst], worst
+
+
 def train_kernel_vs_plain(dev):
     """One B = 8 f32 train step on the card (K3/K4) against the same step on a
-    CPU copy of the model, optimizer and prepared batch (plain path)."""
+    CPU copy of the model, optimizer and prepared batch (plain path): the
+    metrics, the parameters, and the first backward's gradients relative to
+    their norms."""
     from catre_tpu_torch.engine.train import init_train_state, make_train_step, prepare_train_batch
     from catre_tpu_torch.entry import flagship_trainer
     from catre_tpu_torch.solver.ranger import Ranger
@@ -204,20 +239,27 @@ def train_kernel_vs_plain(dev):
     cpu_opt = Ranger(cpu_model.named_parameters(), **opt.defaults)
     cpu_step = make_train_step(cpu_model, t.step.loss_cfg, t.step.noise_cfg, cpu_opt,
                                t.step.sym_bank.cpu(), t.step.n_iter)
+    (g_card, h_card), (g_cpu, h_cpu) = first_grads(model, opt), first_grads(cpu_model, cpu_opt)
     prepared = prepare_train_batch(t.generator, t.batch, t.step.noise_cfg)
     _, m_card = t.step.step_on_prepared(t.state, prepared, t.lr)
     _, m_cpu = cpu_step.step_on_prepared(init_train_state(cpu_model, cpu_opt),
                                          {k: v.cpu() for k, v in prepared.items()}, t.lr)
     torch.cuda.synchronize()
+    h_card.remove()
+    h_cpu.remove()
     loss_err = max(((m_card[k].cpu() - m_cpu[k]).abs() / m_cpu[k].abs().clamp(min=1e-12)).max()
                    .item() for k in m_cpu)
     card_params = dict(model.named_parameters())
     param_err = max((card_params[n].detach().cpu() - p.detach()).abs().max().item()
                     for n, p in cpu_model.named_parameters())
+    grad_err, grad_worst = grad_error(g_card, g_cpu)
     log("train", f"B=8 f32 kernel step vs plain step: metrics max rel err {loss_err:.3e} "
                  f"(rtol {TRAIN_LOSS_RTOL:.0e}), parameters max abs err {param_err:.3e} "
-                 f"(limit {TRAIN_PARAM_TOL:.0e})")
-    if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_TOL):
+                 f"(limit {TRAIN_PARAM_TOL:.0e}), first backward's gradients over "
+                 f"{len(g_cpu)} parameters max rel err {grad_err:.3e} ({grad_worst}; "
+                 f"limit {TRAIN_GRAD_RTOL:.0e})")
+    if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_TOL
+            and grad_err <= TRAIN_GRAD_RTOL):
         raise RuntimeError("the kernel train step disagrees with the plain train step")
 
 

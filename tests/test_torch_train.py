@@ -183,6 +183,23 @@ def test_train_step_matches_jax():
     _assert_params_close(jstate.params, model, atol=1e-3)
 
 
+def test_train_step_refuses_a_state_of_another_model_or_optimizer():
+    model = init_model(CATREConfig(num_pcl=32, num_kps=32), seed=0)
+    other = init_model(CATREConfig(num_pcl=32, num_kps=32), seed=0)
+    opt = Ranger(model.named_parameters(), lr=1e-3)
+    step = make_train_step(model, LossConfig(), InputNoiseConfig(), opt,
+                           np.eye(3, dtype=np.float32)[None], n_iter=1)
+    batch = prepare_train_batch(torch.Generator().manual_seed(0), train_batch(2, 32, 32, seed=0),
+                                InputNoiseConfig())
+    with pytest.raises(ValueError, match="parameters"):
+        step.step_on_prepared(init_train_state(other, opt), batch, 1e-3)
+    with pytest.raises(ValueError, match="optimizer"):
+        step.step_on_prepared(init_train_state(model, Ranger(model.named_parameters())), batch,
+                              1e-3)
+    state, _ = step.step_on_prepared(init_train_state(model, opt), batch, 1e-3)
+    assert state.step == 1
+
+
 def test_prepare_train_batch_draws_from_the_generator():
     batch = train_batch(4, 64, 64, seed=1)
     noise = InputNoiseConfig(bbox3d_aug_prob=1.0, rt_aug_prob=1.0)
