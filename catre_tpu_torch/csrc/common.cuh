@@ -240,6 +240,25 @@ __device__ __forceinline__ void acc_for_each(const Acc<MI>& acc, F f) {
       for (int e = 0; e < 4; ++e) f(acc_row<MI>(l, i, e), acc_col(l, j, e), acc.v[i][j][e]);
 }
 
+// dst[r * ld + c] = value(r, c, acc) for the accumulator elements of rows
+// r < rows, a lane's two neighbouring columns in one 8-byte store.
+template <int MI, typename Fn>
+__device__ __forceinline__ void acc_store_rows(const Acc<MI>& acc, float* dst, int ld, int rows,
+                                               Fn value) {
+  const Lane l;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = acc_row<MI>(l, i, 2 * h), c = acc_col(l, j, 0);
+        if (r < rows)
+          *reinterpret_cast<float2*>(dst + static_cast<size_t>(r) * ld + c) = make_float2(
+              value(r, c, acc.v[i][j][2 * h]), value(r, c + 1, acc.v[i][j][2 * h + 1]));
+      }
+}
+
 struct MaxOp {
   __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
 };

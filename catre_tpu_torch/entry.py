@@ -4,9 +4,8 @@ step, built from the shipped production config.
 Counterpart of `__graft_entry__.py` (`entry` :83, `_flagship` :6,
 `_example_batch` :21, `_near_identity_params` :44). The model configuration
 comes from `catre_tpu/configs/nocs_real/..._120e_tpu.py` (bf16, fused rot
-head, fused encoder tails, FUSED_HEADS_TRAIN) read through the port's own
-loader; the weights are random, from a seed. `train_entry` turns
-FUSED_ENCODER_TRAIN off: its kernels K5/K6 are not ported yet.
+head, fused encoder tails, FUSED_HEADS_TRAIN, FUSED_ENCODER_TRAIN) read
+through the port's own loader; the weights are random, from a seed.
 """
 
 from __future__ import annotations
@@ -127,11 +126,12 @@ class Trainer:
 
 def flagship_trainer(device="cuda", batch_size: int = 512, seed: int = 0,
                      **model_overrides) -> Trainer:
-    """The shipped config's training set-up with FUSED_ENCODER_TRAIN off: a
-    seeded model on `device`, Ranger at the shipped lr, the train step at
-    N_ITER_TRAIN inner iterations and a synthetic batch."""
+    """The shipped config's training set-up (rot head K3/K4, encoder tails
+    K5/K6): a seeded model on `device`, Ranger at the shipped lr, the train
+    step at N_ITER_TRAIN inner iterations and a synthetic batch.
+    `model_overrides` replace fields of the model's `CATREConfig`, e.g.
+    `fused_encoder_train=False` for the plain encoder under autograd."""
     cfg = load_config(str(FLAGSHIP_CONFIG))
-    cfg.MODEL.FUSED_ENCODER_TRAIN = False
     mcfg = dataclasses.replace(model_config_from(cfg), **model_overrides)
     model = init_model(mcfg, seed=seed, device=device)
     optimizer = build_optimizer(cfg.SOLVER, model.named_parameters())

@@ -9,12 +9,13 @@ three times (the flax module :93, `delta_forward_fused` :186 and
 `CATREDisRShared.forward`, which picks its encoder tails and rotation head
 by what the call needs:
   - a differentiable call (grad mode on and parameters that require grad)
-    takes the training ops: the plain encoder under autograd, as
-    `catre.py:298-305` runs the flax encoder when FUSED_ENCODER_TRAIN is off,
-    and with `fused_heads_train` (rot6d only) the rotation head
-    `ops.rot_head_train.rot_head_train` (K3 forward, K4 backward), else the
-    plain `ConvOutPerRotHead`. `fused_encoder_train` (kernels K5/K6) is not
-    ported yet and raises;
+    takes the training ops: with `fused_heads_train` (rot6d only) the
+    rotation head `ops.rot_head_train.rot_head_train` (K3 forward, K4
+    backward), else the plain `ConvOutPerRotHead`; on that path with
+    `fused_encoder_train` the encoder tails
+    `ops.encoder_epilogue_train.ENCODER_TAIL_TRAIN` (K5/K6 forward with
+    argmax, routed backward), as `catre.py:287-297` does, else the plain
+    encoder under autograd, as `catre.py:298-305` runs the flax encoder;
   - any other call takes the inference ops: with `fused_heads` (rot6d only)
     the rotation head kernel K3 (`ops.rot_head.fused_conv_per_rot_head`), and
     with `fused_encoder_epilogue` the encoder tail kernels K1/K2
@@ -36,6 +37,7 @@ import torch.nn as nn
 from ..geom.rotations import get_rot_dim, rot_rep_to_mat
 from ..geom.transforms import transform_normed_pts
 from ..ops.encoder_epilogue import ENCODER_TAIL_KERNELS, ENCODER_TAIL_TWINS
+from ..ops.encoder_epilogue_train import ENCODER_TAIL_TRAIN
 from ..ops.rot_head import fused_conv_per_rot_head
 from ..ops.rot_head_train import rot_head_train
 from .compose import pose_scale_from_delta_init
@@ -72,7 +74,7 @@ class CATREConfig:
     fused_heads: bool = False            # rotation head kernel K3 (rot6d only)
     fused_encoder_epilogue: bool = True  # encoder tail kernels K1/K2 (with fused_heads)
     fused_heads_train: bool = False      # training rot head: K3 forward, K4 backward (rot6d)
-    fused_encoder_train: bool = False    # training encoder tails K5/K6: not ported yet
+    fused_encoder_train: bool = False    # training encoder tails K5/K6 (with fused_heads_train)
 
     @property
     def is_allo(self) -> bool:
@@ -97,6 +99,10 @@ class CATREConfig:
     @property
     def uses_rot_head_train_kernels(self) -> bool:
         return self.fused_heads_train and self.is_rot6d
+
+    @property
+    def uses_tail_train_kernels(self) -> bool:
+        return self.uses_rot_head_train_kernels and self.fused_encoder_train
 
 
 class CATREDisRShared(nn.Module):
@@ -130,12 +136,10 @@ class CATREDisRShared(nn.Module):
         cfg = self.cfg
         B = x.shape[0]
         training = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
-        if training and cfg.fused_encoder_train:
-            raise NotImplementedError(
-                "fused_encoder_train: the training encoder-tail kernels K5/K6 are the next slice "
-                "of the port (ROADMAP.md item 12); set it False to train on the plain encoder")
-        tails = (ENCODER_TAIL_KERNELS if cfg.uses_tail_kernels and not training
-                 else ENCODER_TAIL_TWINS)
+        if training:
+            tails = ENCODER_TAIL_TRAIN if cfg.uses_tail_train_kernels else ENCODER_TAIL_TWINS
+        else:
+            tails = ENCODER_TAIL_KERNELS if cfg.uses_tail_kernels else ENCODER_TAIL_TWINS
         # one encoder call over both clouds (2B) when the point counts match
         if x.shape[1] == tfd_kps.shape[1]:
             pf, gf = self.pcl_net(torch.cat([x, tfd_kps], dim=0), tails)

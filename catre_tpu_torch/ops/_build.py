@@ -10,6 +10,7 @@ is no fallback: without `nvcc` or without a card, `load` raises
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "catre_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("encoder_epilogue", "rot_head", "rot_head_bwd")
+KERNEL_SOURCES = ("encoder_epilogue", "rot_head", "rot_head_bwd", "encoder_epilogue_train")
 
 
 class KernelBuildError(RuntimeError):
@@ -79,6 +80,15 @@ def build(name: str) -> Path:
     return out
 
 
+def build_all(names=KERNEL_SOURCES) -> None:
+    """Compile several libraries at once, one `nvcc` process each (a cold
+    start pays for the slowest source, not for their sum); raises the first
+    failure."""
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(names)) as pool:
+        for done in [pool.submit(build, name) for name in names]:
+            done.result()
+
+
 def build_log(name: str) -> str:
     path = library_path(name).with_suffix(".log")
     return path.read_text() if path.exists() else ""
@@ -114,10 +124,11 @@ def cuda_inputs(kernel: str, *tensors) -> None:
 
 
 def refuse_grad(kernel: str, train_op: str, *tensors) -> None:
-    """An inference kernel returns a tensor with no `grad_fn`: under grad mode
-    a differentiable input or weight would silently get no gradient. Raise
-    instead, naming the op that serves training."""
+    """A kernel launched through ctypes returns a tensor with no `grad_fn`:
+    under grad mode a differentiable input or weight would silently get no
+    gradient. Raise instead, naming the op that serves training. (Inside a
+    `torch.autograd.Function` grad mode is off, so its forward passes.)"""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{kernel}: an inference kernel got a tensor that requires grad under grad mode; "
+            f"{kernel}: a bare kernel call got a tensor that requires grad under grad mode; "
             f"it returns no gradient. Training takes {train_op}")

@@ -7,11 +7,14 @@ Counterpart of `catre_tpu/ops/pallas_encoder_epilogue.py`:
     max over P of (relu(x @ W3^T + b3) @ W4^T + b4), the main conv3->conv4 tail.
 The encoder body (`encode_body`, :107) is `models.pointnet.PointNetFeat`,
 which takes a pair of tails: `ENCODER_TAIL_TWINS` (plain PyTorch) or
-`ENCODER_TAIL_KERNELS` (these wrappers).
+`ENCODER_TAIL_KERNELS` (these wrappers). Both kernels are for inference:
+they return no gradient and refuse a differentiable call. Their
+differentiable counterparts, K5 and K6 with a routed backward, are in
+`ops/encoder_epilogue_train.py` (`ENCODER_TAIL_TRAIN`).
 
 Each wrapper runs its plain twin for a CPU tensor and launches its CUDA
-kernel (`csrc/encoder_epilogue.cu`) for a CUDA tensor; it never falls back.
-x is (N, P, Cin) in the compute dtype `cdt` (float32 or bfloat16); weights
+kernel (`csrc/encoder_epilogue.cu`, device code in
+`csrc/encoder_epilogue.cuh`) for a CUDA tensor; it never falls back. x is (N, P, Cin) in the compute dtype `cdt` (float32 or bfloat16); weights
 are (out, in) and are cast to `cdt`; the result is (N, Cout) float32.
 Rounding follows flax `Dense(dtype=cdt)`: product rounded to `cdt`, bias
 added in `cdt`.
@@ -54,7 +57,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-_TRAIN_OP = "the plain encoder layers (ENCODER_TAIL_TWINS under autograd)"
+_TRAIN_OP = ("ops.encoder_epilogue_train.ENCODER_TAIL_TRAIN (kernels K5/K6), or the plain "
+             "encoder layers (ENCODER_TAIL_TWINS under autograd)")
 
 
 def _kernel_operands(name, x, cdt, weights, biases):

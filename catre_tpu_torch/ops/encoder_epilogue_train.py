@@ -1,0 +1,339 @@
+"""Differentiable PointNet encoder tails: kernels K5 and K6.
+
+Counterpart of `catre_tpu/ops/pallas_encoder_epilogue_vjp.py`:
+  - `DenseReluMaxTrain` (K5) replaces `dense_relu_max_t` (:263): max over P
+    of relu(x @ W^T + b), the STN conv3 tails;
+  - `DenseReluDenseMaxTrain` (K6) replaces `dense_relu_dense_max_t` (:294):
+    max over P of (relu(x @ W3^T + b3) @ W4^T + b4), the main tail;
+  - `ENCODER_TAIL_TRAIN`, the pair `models.pointnet.PointNetFeat` takes for a
+    differentiable call, as `pointnet_encode_fused_train` (:326) hands its
+    pair to `encode_body`.
+Each is a `torch.autograd.Function` whose forward launches the forward
+kernel, which also returns idx (N, C) int32, the lowest point row that
+attains the max of each (cloud, channel), and saves only (x, weights,
+biases, idx) (the JAX residuals, :279, :311). The backward launches the
+backward kernel, which sends each d_out[n, c] to row idx[n, c] alone. That
+is the JAX kernels' tie rule (:17-19); `amax` under autograd splits a
+gradient evenly across tied rows instead. No (N, P, C) activation, ReLU
+mask or max mask reaches device memory.
+
+The Functions take the f32 parameters and cast them inside, so weight and
+bias gradients are f32 (:275-276, :287, :320); dx comes back in x's dtype.
+Rounding points differ between forward and backward, as in the Pallas
+bodies: the forward rounds each product to `cdt` and adds the bias in `cdt`
+(flax `Dense(dtype=cdt)`); the backward's recompute takes the f32 product,
+the unrounded f32 bias and rounds once, after the ReLU (:81-86, :125-127).
+
+Beside each kernel its plain PyTorch version, which the wrappers run for a
+CPU tensor; for a CUDA tensor they launch `csrc/encoder_epilogue_train.cu`
+or raise, never fall back. The plain backwards are routed like the kernels
+(gather the argmax rows, scatter-add the row gradients) where the Pallas
+bodies multiply by a dense one-hot matrix: the function is the same.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..models.layers import dense
+from . import _build
+from .encoder_epilogue import _check_widths
+
+LAUNCHES = {"dense_relu_max_train_fwd": 0, "dense_relu_max_train_bwd": 0,
+            "dense_relu_dense_max_train_fwd": 0, "dense_relu_dense_max_train_bwd": 0}
+
+# pointer slots of catre_dense_relu_dense_max_train_bwd, the order of `Slot`
+# in csrc/encoder_epilogue_train.cu
+K6_BWD_SLOTS = ("x", "w3", "b3", "w3t", "w4", "idx", "dout", "dh3", "pdb3", "part_w4", "part_b4",
+                "gpart", "dx", "dw3", "db3", "dw4", "db4")
+CLOUD_GROUPS = 16    # groups of clouds whose weight-gradient partials are summed in order
+SPLIT_ROWS = 4096    # K rows per range of the dW3 product, at most 128 ranges
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+# ---- plain versions -----------------------------------------------------------
+
+def max_argmax(h):
+    """(N, P, C) -> (max over P (N, C) f32, lowest row attaining it (N, C) int32)."""
+    P = h.shape[1]
+    m = h.amax(dim=1, keepdim=True)
+    rows = torch.arange(P, device=h.device, dtype=torch.int32).view(1, P, 1)
+    idx = torch.where(h == m, rows, P).amin(dim=1)
+    return m[:, 0].float(), idx
+
+
+def _rows_at(t, idx):
+    """t (N, P, K), idx (N, C) -> t[n, idx[n, c], :] as (N, C, K)."""
+    return torch.gather(t, 1, idx.long()[:, :, None].expand(-1, -1, t.shape[2]))
+
+
+def _route(rows, idx, P):
+    """rows (N, C, K) -> (N, P, K) f32 with rows[n, c] added onto row idx[n, c]."""
+    N, _, K = rows.shape
+    out = torch.zeros(N, P, K, device=rows.device, dtype=torch.float32)
+    return out.scatter_add_(1, idx.long()[:, :, None].expand(-1, -1, K), rows)
+
+
+def dense_relu_max_fwd_plain(x, w, b, cdt):
+    """Plain K5 forward: materialises the (N, P, Cout) activation."""
+    return max_argmax(dense(x, w, b, cdt, act=True))
+
+
+def dense_relu_max_bwd_plain(x, w, b, idx, d_out, cdt):
+    """Plain K5 backward -> (dx (N, P, Cin), dW (Cout, Cin), db (Cout)), f32."""
+    wc = w.to(cdt).float()
+    xr = _rows_at(x.to(cdt), idx).float()                           # (N, C, Cin)
+    pre = (xr * wc).sum(dim=2) + b.float()                          # f32 product, f32 bias
+    d = torch.where(pre > 0, d_out.float(), 0.0).to(cdt).float()    # (N, C)
+    dx = _route(d[:, :, None] * wc, idx, x.shape[1])
+    return dx, torch.einsum("nc,nck->ck", d, xr), d.sum(dim=0)
+
+
+def dense_relu_dense_max_fwd_plain(x, w3, b3, w4, b4, cdt):
+    """Plain K6 forward: materialises both activations."""
+    return max_argmax(dense(dense(x, w3, b3, cdt, act=True), w4, b4, cdt))
+
+
+def dense_relu_dense_max_bwd_plain(x, w3, b3, w4, b4, idx, d_out, cdt):
+    """Plain K6 backward -> (dx, dW3, db3, dW4, db4), f32; b4 gives db4's shape only."""
+    xc, w3c, w4c = x.to(cdt).float(), w3.to(cdt).float(), w4.to(cdt).float()
+    h3p = xc @ w3c.T + b3.float()                                   # (N, P, C3) f32, unrounded
+    h3 = torch.relu(h3p).to(cdt).float()
+    d4 = d_out.to(cdt).float()                                      # conv4 has no ReLU
+    dw4 = torch.einsum("nc,ncj->cj", d4, _rows_at(h3, idx))
+    d_h3 = _route(d4[:, :, None] * w4c, idx, x.shape[1])
+    d_h3 = torch.where(h3p > 0, d_h3, 0.0).to(cdt).float()
+    dw3 = torch.einsum("npj,npk->jk", d_h3, xc)
+    return d_h3 @ w3c, dw3, d_h3.sum(dim=(0, 1)), dw4, d4.sum(dim=0).reshape(b4.shape)
+
+
+# ---- kernels -------------------------------------------------------------------------
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("encoder_epilogue_train")
+    lib.catre_dense_relu_max_train_fwd.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+    lib.catre_dense_relu_dense_max_train_fwd.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+    lib.catre_dense_relu_max_train_bwd.argtypes = [_P] * 11 + [_I] * 7 + [_P]
+    lib.catre_dense_relu_dense_max_train_bwd.argtypes = [_P] + [_I] * 10 + [_P]
+    for fn in (lib.catre_dense_relu_max_train_fwd, lib.catre_dense_relu_dense_max_train_fwd,
+               lib.catre_dense_relu_max_train_bwd, lib.catre_dense_relu_dense_max_train_bwd,
+               lib.catre_dense_relu_dense_max_train_bwd_slots):
+        fn.restype = _I
+    if lib.catre_dense_relu_dense_max_train_bwd_slots() != len(K6_BWD_SLOTS):
+        raise _build.KernelBuildError(
+            "encoder_epilogue_train: the library's pointer slots differ from K6_BWD_SLOTS")
+    return lib
+
+
+def _operands(name, x, cdt, shapes, f32=()):
+    """Validate a kernel call: x (N, P, Cin) in `cdt` on a CUDA device, each
+    (tensor, shape) of `shapes` of that shape, each of `f32` float32,
+    everything contiguous on x's device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if cdt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: compute dtype {cdt} is not float32 or bfloat16")
+    if x.dtype != cdt or x.dim() != 3:
+        raise ValueError(f"{name}: x must be (N, P, C) {cdt}, got {tuple(x.shape)} {x.dtype}")
+    bad = [tuple(t.shape) for t, shape in shapes if tuple(t.shape) != tuple(shape)]
+    if bad:
+        raise ValueError(f"{name}: shapes {bad} do not fit x {tuple(x.shape)}")
+    if any(t.dtype != torch.float32 for t in f32):
+        raise ValueError(f"{name}: gradients, weights and biases must be float32")
+    _build.cuda_inputs(name, x, *(t for t, _ in shapes))
+
+
+def _cast(x, cdt, weights, biases=()):
+    """(weights in cdt, biases rounded to cdt as f32), contiguous on x's device."""
+    return ([w.detach().to(device=x.device, dtype=cdt).contiguous() for w in weights],
+            [b.detach().to(device=x.device, dtype=cdt).float().contiguous() for b in biases])
+
+
+def _check_routing(name, P, cout):
+    if P * cout >= 2 ** 31:
+        raise ValueError(f"{name}: P x Cout = {P} x {cout} overflows the routing keys")
+
+
+def dense_relu_max_fwd(x, w, b, cdt):
+    """K5 forward: x (N, P, Cin) in cdt, w (Cout, Cin), b (Cout) ->
+    (max over P of relu(x @ w^T + b) (N, Cout) f32, idx (N, Cout) int32)."""
+    if x.device.type == "cpu":
+        return dense_relu_max_fwd_plain(x, w, b, cdt)
+    name = "dense_relu_max_train_fwd"
+    _build.refuse_grad(name, "dense_relu_max_train (the autograd Function around it)", x, w, b)
+    N, P, cin = x.shape if x.dim() == 3 else (0, 0, 0)
+    cout = w.shape[0]
+    _operands(name, x, cdt, [(w, (cout, cin)), (b, (cout,))])
+    _check_widths(name, cin, cout)
+    (wc,), (bc,) = _cast(x, cdt, [w], [b])
+    out = torch.empty(N, cout, device=x.device, dtype=torch.float32)
+    idx = torch.empty(N, cout, device=x.device, dtype=torch.int32)
+    rc = _lib().catre_dense_relu_max_train_fwd(
+        x.data_ptr(), wc.data_ptr(), bc.data_ptr(), out.data_ptr(), idx.data_ptr(), N, P, cin,
+        cout, int(cdt == torch.bfloat16), _build.stream_handle(x.device))
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
+    return out, idx
+
+
+def dense_relu_dense_max_fwd(x, w3, b3, w4, b4, cdt):
+    """K6 forward -> (max over P of (relu(x @ w3^T + b3) @ w4^T + b4) (N, C4)
+    f32, idx (N, C4) int32)."""
+    if x.device.type == "cpu":
+        return dense_relu_dense_max_fwd_plain(x, w3, b3, w4, b4, cdt)
+    name = "dense_relu_dense_max_train_fwd"
+    _build.refuse_grad(name, "dense_relu_dense_max_train (the autograd Function around it)", x,
+                       w3, b3, w4, b4)
+    N, P, cin = x.shape if x.dim() == 3 else (0, 0, 0)
+    chid, cout = w3.shape[0], w4.shape[0]
+    _operands(name, x, cdt, [(w3, (chid, cin)), (b3, (chid,)), (w4, (cout, chid)), (b4, (cout,))])
+    _check_widths(name, cin, chid, cout)
+    (w3c, w4c), (b3c, b4c) = _cast(x, cdt, [w3, w4], [b3, b4])
+    out = torch.empty(N, cout, device=x.device, dtype=torch.float32)
+    idx = torch.empty(N, cout, device=x.device, dtype=torch.int32)
+    rc = _lib().catre_dense_relu_dense_max_train_fwd(
+        x.data_ptr(), w3c.data_ptr(), b3c.data_ptr(), w4c.data_ptr(), b4c.data_ptr(),
+        out.data_ptr(), idx.data_ptr(), N, P, cin, chid, cout, int(cdt == torch.bfloat16),
+        _build.stream_handle(x.device))
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
+    return out, idx
+
+
+def dense_relu_max_bwd(x, w, b, idx, d_out, cdt):
+    """K5 backward: x (N, P, Cin) in cdt, w (Cout, Cin) and b (Cout) f32, idx
+    (N, Cout) int32 from the forward, d_out (N, Cout) f32 ->
+    (dx (N, P, Cin), dW (Cout, Cin), db (Cout)), f32."""
+    if x.device.type == "cpu":
+        return dense_relu_max_bwd_plain(x, w, b, idx, d_out, cdt)
+    name = "dense_relu_max_train_bwd"
+    N, P, cin = x.shape if x.dim() == 3 else (0, 0, 0)
+    cout = w.shape[0]
+    _operands(name, x, cdt, [(w, (cout, cin)), (b, (cout,)), (idx, (N, cout)),
+                             (d_out, (N, cout))], f32=(w, b, d_out))
+    if idx.dtype != torch.int32:
+        raise ValueError(f"{name}: idx must be int32, got {idx.dtype}")
+    _check_widths(name, cin, cout)
+    _check_routing(name, P, cout)
+    (wc,), _ = _cast(x, cdt, [w])
+    dev = x.device
+
+    def empty(*shape):
+        return torch.empty(*shape, device=dev, dtype=torch.float32)
+
+    groups = min(N, CLOUD_GROUPS)
+    d_scratch, part_w, part_b = empty(N, cout), empty(groups, cout, cin), empty(groups, cout)
+    dx, dw, db = empty(N, P, cin), empty(cout, cin), empty(cout)
+    rc = _lib().catre_dense_relu_max_train_bwd(
+        x.data_ptr(), wc.data_ptr(), b.data_ptr(), idx.data_ptr(), d_out.data_ptr(),
+        d_scratch.data_ptr(), part_w.data_ptr(), part_b.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+        db.data_ptr(), N, P, cin, cout, _pow2(cout), groups, int(cdt == torch.bfloat16),
+        _build.stream_handle(dev))
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
+    return dx, dw, db
+
+
+def dense_relu_dense_max_bwd(x, w3, b3, w4, b4, idx, d_out, cdt):
+    """K6 backward: weights and biases f32, idx (N, C4) int32 from the
+    forward, d_out (N, C4) f32 -> (dx (N, P, Cin), dW3 (C3, Cin), db3 (C3),
+    dW4 (C4, C3), db4 (C4)), f32."""
+    if x.device.type == "cpu":
+        return dense_relu_dense_max_bwd_plain(x, w3, b3, w4, b4, idx, d_out, cdt)
+    name = "dense_relu_dense_max_train_bwd"
+    N, P, cin = x.shape if x.dim() == 3 else (0, 0, 0)
+    chid, cout = w3.shape[0], w4.shape[0]
+    _operands(name, x, cdt, [(w3, (chid, cin)), (b3, (chid,)), (w4, (cout, chid)), (b4, (cout,)),
+                             (idx, (N, cout)), (d_out, (N, cout))], f32=(w3, b3, w4, b4, d_out))
+    if idx.dtype != torch.int32:
+        raise ValueError(f"{name}: idx must be int32, got {idx.dtype}")
+    _check_widths(name, cin, chid, cout)
+    _check_routing(name, P, cout)
+    (w3c, w4c), _ = _cast(x, cdt, [w3, w4])
+    dev = x.device
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(*shape, device=dev, dtype=dtype)
+
+    cin_pad = -(-cin // 128) * 128
+    w3t = torch.zeros(cin_pad, chid, device=dev, dtype=cdt)   # W3^T, zero rows past cin
+    w3t[:cin] = w3c.T
+    groups = min(N, CLOUD_GROUPS)
+    splits = max(1, min(128, -(-(N * P) // SPLIT_ROWS)))
+    bufs = dict(
+        x=x, w3=w3c, b3=b3, w3t=w3t, w4=w4c, idx=idx, dout=d_out,
+        dh3=empty(N, P, chid, dtype=cdt), pdb3=empty(N, chid),
+        part_w4=empty(groups, cout, chid), part_b4=empty(groups, cout),
+        gpart=empty(splits, chid, cin),
+        dx=empty(N, P, cin), dw3=empty(chid, cin), db3=empty(chid), dw4=empty(cout, chid),
+        db4=empty(cout))
+    ptrs = (ctypes.c_void_p * len(K6_BWD_SLOTS))(*[bufs[n].data_ptr() for n in K6_BWD_SLOTS])
+    rc = _lib().catre_dense_relu_dense_max_train_bwd(
+        ptrs, N, P, cin, cin_pad, chid, cout, _pow2(cout), groups, splits,
+        int(cdt == torch.bfloat16), _build.stream_handle(dev))
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
+    return bufs["dx"], bufs["dw3"], bufs["db3"], bufs["dw4"], bufs["db4"]
+
+
+def _pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+# ---- autograd ------------------------------------------------------------------------
+
+class DenseReluMaxTrain(torch.autograd.Function):
+    """out (N, Cout) f32 = K5 forward(x in cdt, f32 w and b cast to cdt); the
+    backward is K5 backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, cdt):
+        out, idx = dense_relu_max_fwd(x, w, b, cdt)
+        ctx.save_for_backward(x, w, b, idx)
+        ctx.cdt = cdt
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        x, w, b, idx = ctx.saved_tensors
+        dx, dw, db = dense_relu_max_bwd(x, w.float(), b.float(), idx,
+                                        d_out.float().contiguous(), ctx.cdt)
+        return dx.to(x.dtype), dw, db, None
+
+
+class DenseReluDenseMaxTrain(torch.autograd.Function):
+    """out (N, C4) f32 = K6 forward; the backward is K6 backward."""
+
+    @staticmethod
+    def forward(ctx, x, w3, b3, w4, b4, cdt):
+        out, idx = dense_relu_dense_max_fwd(x, w3, b3, w4, b4, cdt)
+        ctx.save_for_backward(x, w3, b3, w4, b4, idx)
+        ctx.cdt = cdt
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        x, w3, b3, w4, b4, idx = ctx.saved_tensors
+        dx, dw3, db3, dw4, db4 = dense_relu_dense_max_bwd(
+            x, w3.float(), b3.float(), w4.float(), b4.float(), idx, d_out.float().contiguous(),
+            ctx.cdt)
+        return dx.to(x.dtype), dw3, db3, dw4, db4, None
+
+
+def dense_relu_max_train(h, w, b, cdt):
+    """Differentiable K5: max over P of relu(h @ w^T + b) -> (N, Cout) f32."""
+    return DenseReluMaxTrain.apply(h.to(cdt).contiguous(), w, b, cdt)
+
+
+def dense_relu_dense_max_train(h, w3, b3, w4, b4, cdt):
+    """Differentiable K6: max over P of (relu(h @ w3^T + b3) @ w4^T + b4)."""
+    return DenseReluDenseMaxTrain.apply(h.to(cdt).contiguous(), w3, b3, w4, b4, cdt)
+
+
+ENCODER_TAIL_TRAIN = (dense_relu_max_train, dense_relu_dense_max_train)

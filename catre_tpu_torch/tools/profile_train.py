@@ -1,16 +1,21 @@
 """Where the time of one flagship training step goes, on one CUDA card.
 
-    python -m catre_tpu_torch.tools.profile_train [--batch 512] [--trace PATH]
+    python -m catre_tpu_torch.tools.profile_train [--batch 512] [--plain-encoder] [--trace PATH]
 
 Builds the flagship trainer (`entry.flagship_trainer`: bf16, K3 forward and
-K4 backward in the rotation head, plain encoder), takes one warm-up step,
+K4 backward in the rotation head, K5/K6 encoder tails; `--plain-encoder`
+turns FUSED_ENCODER_TRAIN off), takes one warm-up step,
 then one step under `torch.profiler` (CPU and CUDA activities). Prints the
 card's name and power limit, the step's wall time, the summed device time of
 its kernels and the idle share (1 - device / wall), the host time and GPU
 span of each train-step range (train.forward, train.backward,
 train.optimizer), and the kernels ranked by device time with their
-launches and share. `--trace`
-writes the Chrome trace.
+launches and share. A second profiled step records input shapes and lists
+the library matrix products (`aten::mm`, `addmm`, `bmm`, `baddbmm`) by
+shape, so that one can see which products did not go through a kernel of
+this package: with K5/K6 on, none has a tail's shape (128 -> 1024,
+128 -> 512 or 512 -> 1024 over all N x P point rows). `--trace` writes the
+Chrome trace of the first step.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..entry import flagship_trainer
+from ..ops import launch_counts, reset_launch_counts
 
 
 def _device_us(evt, total: bool = False) -> float:
@@ -38,14 +44,18 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--trace", default="")
+    ap.add_argument("--plain-encoder", action="store_true",
+                    help="train the encoder as plain layers under autograd")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    t = flagship_trainer("cuda", batch_size=args.batch, seed=0)
+    overrides = {"fused_encoder_train": False} if args.plain_encoder else {}
+    t = flagship_trainer("cuda", batch_size=args.batch, seed=0, **overrides)
     t.state, _ = t.step(t.state, t.batch, t.generator, t.lr)        # warm-up
     torch.cuda.synchronize()
+    reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         t.state, _ = t.step(t.state, t.batch, t.generator, t.lr)
@@ -58,6 +68,8 @@ def main(argv=None) -> int:
                and not getattr(e, "is_user_annotation", False)]
     device_ms = sum(_device_us(e) for e in kernels) / 1e3
     print(f"card: {card}")
+    print(f"B={args.batch} {'plain' if args.plain_encoder else 'K5/K6'} encoder tails, "
+          f"launches in the step {launch_counts()}")
     print(f"B={args.batch} one train step: wall {wall_ms:.3f} ms, device kernels "
           f"{device_ms:.3f} ms, idle share {1 - device_ms / wall_ms:.4f}")
     # a range's GPU span (kernels launched from the main thread inside it);
@@ -72,6 +84,16 @@ def main(argv=None) -> int:
     for e in sorted(kernels, key=_device_us, reverse=True)[:args.top]:
         ms = _device_us(e) / 1e3
         print(f"{ms:10.3f} {e.count:8d} {ms / device_ms:6.1%}  {e.key[:110]}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t.state, _ = t.step(t.state, t.batch, t.generator, t.lr)
+        torch.cuda.synchronize()
+    products = [e for e in prof.key_averages(group_by_input_shape=True)
+                if e.key in ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")]
+    print(f"library matrix products by input shape: {sum(e.count for e in products)} calls, "
+          f"{sum(_device_us(e) for e in products) / 1e3:.3f} ms")
+    for e in sorted(products, key=_device_us, reverse=True)[:args.top]:
+        print(f"{_device_us(e) / 1e3:10.3f} {e.count:8d}  {e.key} {e.input_shapes}")
     return 0
 
 

@@ -23,16 +23,26 @@ code is non-zero):
                (autograd of the K3 twin), B = 64 and the main path's B = 512
                objects x 2048 points, f32 (tight) and bf16 (loose), per
                gradient tensor; times at B = 512;
+  6b. K5, K6:  the training encoder tails, forward (with argmax) and backward,
+               vs their plain versions at the main path's N = 1024 clouds x
+               1024 points, f32 (tight) and bf16 (loose), per output tensor;
+               forward `out` bit-equal to K2 / K1, two backward launches
+               bit-equal; times in bf16;
   7. train:    the flagship training step from `catre_tpu_torch.entry.train_entry`
-               (bf16, B = 512, 4 inner iterations, FUSED_ENCODER_TRAIN off):
-               one warm-up and 3 timed steps, finite losses and parameters,
-               exactly K3 = 4, K4 = 4, K1 = K2 = 0 launches per step, ms per
-               step, train obj/s and peak memory; fused_encoder_train raises;
+               at the shipped flags (bf16, B = 512, 4 inner iterations,
+               FUSED_HEADS_TRAIN and FUSED_ENCODER_TRAIN): one warm-up and 3
+               timed steps, finite losses and parameters, exactly K5 = 8 + 8,
+               K6 = 4 + 4, K3 = 4, K4 = 4, K1 = K2 = 0 launches per step, ms
+               per step, train obj/s and peak memory; the same with
+               fused_encoder_train=False (the plain encoder under autograd),
+               one warm-up and one timed step;
                plus one B = 8 f32 step on the card (kernels) against the same
-               step on a CPU copy (plain path): metrics, parameters, and each
-               parameter's gradient and change relative to its norm.
-Then one JSON line of per-kernel results, the card's name and power limit,
-and as the last line {"ok": true, "device": {...}}.
+               step on a CPU copy (plain versions): metrics, parameters, and
+               each parameter's gradient and change relative to its norm.
+Then one JSON line of per-kernel results (each with its time, its plain
+version's time and its bound: the larger of its bytes over 3.35 TB/s and its
+operations over the card's peak for their type), the card's name and power
+limit, and as the last line {"ok": true, "device": {...}}.
 """
 
 import copy
@@ -49,6 +59,10 @@ REFINE_BATCHES = (256, 2048)
 REFINE_CALLS = 3             # timed refine calls per batch size, after one warm-up
 K4_CHECK_B, K4_TIME_B = 64, 512
 TRAIN_B, TRAIN_STEPS = 512, 3     # timed train steps, after one warm-up
+NEAR_TIE = 1e-6              # f32 argmax rows may differ where two rows are this close
+# published peaks of one H100 SXM: device memory bytes/s, dense bf16 tensor-core
+# FLOP/s, f32 FLOP/s outside the tensor cores
+PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 TRAIN_LOSS_RTOL, TRAIN_PARAM_TOL = 2e-3, 1e-3   # kernel vs plain train step (tests/test_fused_train.py)
 # the same step's first-backward gradients, per parameter relative to its
 # norm: Ranger's first, unrectified updates move a parameter by only
@@ -129,20 +143,10 @@ def check_k4(head, dev, gen):
             ref = train_ops.rot_head_bwd_twin(*a)
             with torch.no_grad():
                 out = train_ops.rot_head_bwd(*a)
-            torch.cuda.synchronize()
-            for name in train_ops.GRAD_NAMES:
-                o, r = out[name], ref[name]
-                if o.shape != r.shape or not torch.isfinite(o).all():
-                    raise RuntimeError(f"K4 B={b} {cdt} d_{name}: shape {tuple(o.shape)} "
-                                       "or non-finite")
-                err = (o - r).abs().max().item()
-                limit = TOL[cdt] * max(1.0, r.abs().max().item())
-                log("K4", f"B={b} {str(cdt)[6:]} d_{name} {tuple(o.shape)} "
-                          f"max_abs_err={err:.3e} limit={limit:.3e}")
-                if not err <= limit:
-                    raise RuntimeError(f"K4 B={b} {cdt} d_{name}: kernel disagrees with its "
-                                       f"plain version: {err} > {limit}")
-                errs[cdt] = max(errs[cdt], err)
+            names = train_ops.GRAD_NAMES
+            errs[cdt] = max(errs[cdt], tensor_errors(
+                "K4", f"B={b}", cdt, [out[n] for n in names], [ref[n] for n in names],
+                [f"d_{n}" for n in names]))
             del a, ref, out
     a = args(torch.bfloat16, K4_TIME_B)
     with torch.no_grad():
@@ -153,9 +157,138 @@ def check_k4(head, dev, gen):
             "ms": ms, "plain_ms": plain_ms}
 
 
-def train_phase(dev, per_step):
+def bound(nbytes, flops, peak_flops=PEAK_BF16):
+    """The least time the card could take, {bound_ms, bound_by}; library_ms is
+    None for every kernel here: no single PyTorch call computes any of them."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+
+
+def tensor_errors(phase, tag, cdt, outs, refs, names):
+    """Per-tensor max-abs error of a kernel's `outs` against its plain
+    version's `refs`, each held to TOL[cdt] x max(1, max|ref|); returns the
+    largest error."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, o, r in zip(names, outs, refs):
+        if o.shape != r.shape or not torch.isfinite(o).all():
+            raise RuntimeError(f"{phase} {tag} {cdt} {name}: shape {tuple(o.shape)} or non-finite")
+        err = (o.float() - r.float()).abs().max().item()
+        limit = TOL[cdt] * max(1.0, r.abs().max().item())
+        log(phase, f"{tag} {str(cdt)[6:]} {name} {tuple(o.shape)} max_abs_err={err:.3e} "
+                   f"limit={limit:.3e}")
+        if not err <= limit:
+            raise RuntimeError(f"{phase} {tag} {cdt} {name}: kernel disagrees with its plain "
+                               f"version: {err} > {limit}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_argmax(tag, cdt, h_plain, out_plain, idx_plain, idx):
+    """The kernel's argmax rows against the plain version's: equal, or (where
+    the two products rounded differently) the plain activation at the
+    kernel's row is the plain max to within NEAR_TIE (f32) / TOL (bf16)."""
+    if idx.dtype != torch.int32 or idx.min() < 0 or idx.max() >= h_plain.shape[1]:
+        raise RuntimeError(f"{tag} {cdt}: idx out of range or not int32")
+    at_idx = h_plain.gather(1, idx.long()[:, None, :])[:, 0].float()
+    gap = (out_plain - at_idx).abs().max().item()
+    differ = (idx != idx_plain).sum().item()
+    rel = NEAR_TIE if cdt == torch.float32 else TOL[cdt]
+    limit = rel * max(1.0, out_plain.abs().max().item())
+    log("K5K6", f"{tag} {str(cdt)[6:]} idx: {differ} of {idx.numel()} rows differ from the plain "
+                f"argmax, plain activation there within {gap:.3e} of the max (limit {limit:.3e})")
+    if not gap <= limit:
+        raise RuntimeError(f"{tag} {cdt}: the kernel's argmax row does not hold the max")
+
+
+def check_train_tails(enc, dev, gen, n_clouds, n_pts):
+    """K5 and K6, forward and backward, vs their plain versions at the main
+    path's shape; -> {kernel name: results}."""
+    from catre_tpu_torch.models.layers import dense
+    from catre_tpu_torch.ops import encoder_epilogue as enc_ops
+    from catre_tpu_torch.ops import encoder_epilogue_train as tt
+
+    def weights(*layers):
+        return [t.detach() for layer in layers for t in (layer.weight, layer.bias)]
+
+    cases = {
+        "K5": (weights(enc.stn.conv3), tt.dense_relu_max_fwd, tt.dense_relu_max_fwd_plain,
+               tt.dense_relu_max_bwd, tt.dense_relu_max_bwd_plain, enc_ops.dense_relu_max,
+               ("dx", "dW", "db")),
+        "K6": (weights(enc.conv3, enc.conv4), tt.dense_relu_dense_max_fwd,
+               tt.dense_relu_dense_max_fwd_plain, tt.dense_relu_dense_max_bwd,
+               tt.dense_relu_dense_max_bwd_plain, enc_ops.dense_relu_dense_max,
+               ("dx", "dW3", "db3", "dW4", "db4")),
+    }
+    results = {}
+    x32 = torch.relu(torch.randn(n_clouds, n_pts, 128, device=dev, generator=gen))
+    for tag, (ws, fwd, fwd_plain, bwd, bwd_plain, infer, names) in cases.items():
+        cout = ws[-1].shape[0]
+        d_out = torch.randn(n_clouds, cout, device=dev, generator=gen)
+        errs_f, errs_b = {}, {}
+        for cdt in (torch.float32, torch.bfloat16):
+            x = x32.to(cdt)
+            with torch.no_grad():
+                out, idx = fwd(x, *ws, cdt)
+                if not torch.equal(out, infer(x, *ws, cdt)):
+                    raise RuntimeError(f"{tag} {cdt}: forward out is not bit-equal to its "
+                                       "inference kernel")
+                h = dense(x, ws[0], ws[1], cdt, act=True)
+                if tag == "K6":
+                    h = dense(h, ws[2], ws[3], cdt)
+                out_p, idx_p = tt.max_argmax(h)
+                errs_f[cdt] = tensor_errors("K5K6", f"{tag} fwd", cdt, [out], [out_p], ["out"])
+                check_argmax(f"{tag} fwd", cdt, h, out_p, idx_p, idx)
+                del h
+                grads = bwd(x, *ws, idx, d_out, cdt)
+                again = bwd(x, *ws, idx, d_out, cdt)
+                if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                    raise RuntimeError(f"{tag} {cdt}: two backward launches differ")
+                ref = bwd_plain(x, *ws, idx, d_out, cdt)
+                errs_b[cdt] = tensor_errors("K5K6", f"{tag} bwd", cdt, grads, ref, names)
+                del grads, again, ref
+        with torch.no_grad():      # x, idx: the bf16 case's
+            times = {
+                "fwd": (time_ms(lambda: fwd(x, *ws, torch.bfloat16)),
+                        time_ms(lambda: fwd_plain(x, *ws, torch.bfloat16), iters=3, warmup=1)),
+                "bwd": (time_ms(lambda: bwd(x, *ws, idx, d_out, torch.bfloat16)),
+                        time_ms(lambda: bwd_plain(x, *ws, idx, d_out, torch.bfloat16), iters=3,
+                                warmup=1)),
+            }
+        for which, (ms, plain_ms) in times.items():
+            log("K5K6", f"{tag} {which} bf16 kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms")
+        # bounds, bf16: the forward's dense products; the backward routed, counted
+        # from this run's argmax rows (rows no channel points at need no reading)
+        cin, n_rows = 128, n_clouds * n_pts
+        crit = (idx.long() + torch.arange(n_clouds, device=dev)[:, None] * n_pts).unique().numel()
+        if tag == "K5":
+            fwd_flops = 2 * n_rows * cin * cout
+            w_bytes = 2 * cout * cin
+            # gate, dx and dW: one length-cin product each per (cloud, channel), f32 FMA
+            bwd_bound = bound(2 * crit * cin + 4 * n_rows * cin + 8 * n_clouds * cout
+                              + w_bytes + 4 * cout * (cin + 1), 3 * 2 * n_clouds * cout * cin,
+                              PEAK_F32)
+        else:
+            chid = ws[0].shape[0]
+            fwd_flops = 2 * n_rows * (cin * chid + chid * cout)
+            w_bytes = 2 * (chid * cin + cout * chid)
+            # h3p, dx and dW3 on the critical rows (tensor cores); g and dW4 per (cloud, channel)
+            bwd_bound = bound(2 * crit * cin + 4 * n_rows * cin + 8 * n_clouds * cout
+                              + w_bytes + 4 * (chid * (cin + 1) + cout * (chid + 1)),
+                              2 * (3 * crit * cin * chid + 2 * n_clouds * cout * chid))
+        log("K5K6", f"{tag}: {crit} critical rows of {n_rows} ({crit / n_clouds:.1f} per cloud)")
+        fwd_bound = bound(2 * n_rows * cin + w_bytes + 8 * n_clouds * cout, fwd_flops)
+        for which, errs, bnd in (("fwd", errs_f, fwd_bound), ("bwd", errs_b, bwd_bound)):
+            results[f"{tag} {which}"] = {
+                "max_abs_err": errs[torch.bfloat16], "max_abs_err_f32": errs[torch.float32],
+                "ms": times[which][0], "plain_ms": times[which][1], **bnd}
+    return results
+
+
+def train_phase(dev, per_step, steps=TRAIN_STEPS, **model_overrides):
     """The flagship training step through `entry.train_entry` at B = TRAIN_B,
-    bf16: one warm-up and TRAIN_STEPS timed steps; returns its launch counts."""
+    bf16: one warm-up and `steps` timed steps; returns its launch counts."""
     from catre_tpu_torch import ops
     from catre_tpu_torch.entry import train_entry
 
@@ -170,11 +303,11 @@ def train_phase(dev, per_step):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    state, history = train_entry(dev, batch_size=TRAIN_B, steps=1 + TRAIN_STEPS, seed=0,
-                                 callback=on_step)
+    state, history = train_entry(dev, batch_size=TRAIN_B, steps=1 + steps, seed=0,
+                                 callback=on_step, **model_overrides)
     torch.cuda.synchronize()
     total = ops.launch_counts()
-    ms = events[0].elapsed_time(events[-1]) / TRAIN_STEPS
+    ms = events[0].elapsed_time(events[-1]) / steps
     peak = torch.cuda.max_memory_allocated() / 2**30
     prev = dict.fromkeys(per_step, 0)
     for i, c in enumerate(counts):
@@ -188,15 +321,10 @@ def train_phase(dev, per_step):
     if not all(torch.isfinite(p).all() for p in state.params.values()):
         raise RuntimeError("non-finite parameters after training")
     loss = [round(m["loss_total"][-1].item(), 5) for m in history]
-    log("train", f"B={TRAIN_B} bf16 {history[0]['loss_total'].numel()} inner iterations: "
+    log("train", f"B={TRAIN_B} bf16 {model_overrides or 'shipped flags'} "
+                 f"{history[0]['loss_total'].numel()} inner iterations, {steps} timed steps: "
                  f"{ms:.3f} ms/step, {TRAIN_B / ms * 1e3:.1f} train obj/s, peak {peak:.2f} GiB, "
                  f"launches per step {per_step}, last-iteration loss per step {loss}")
-    try:
-        train_entry(dev, batch_size=2, steps=1, fused_encoder_train=True)
-    except NotImplementedError as e:
-        log("train", f"fused_encoder_train=True raises NotImplementedError: {e}")
-    else:
-        raise RuntimeError("fused_encoder_train=True trained without its kernels")
     return total
 
 
@@ -225,10 +353,10 @@ def grad_error(grads_a, grads_b):
 
 
 def train_kernel_vs_plain(dev):
-    """One B = 8 f32 train step on the card (K3/K4) against the same step on a
-    CPU copy of the model, optimizer and prepared batch (plain path): the
-    metrics, the parameters, and the first backward's gradients relative to
-    their norms."""
+    """One B = 8 f32 train step on the card (K3-K6) against the same step on a
+    CPU copy of the model, optimizer and prepared batch (the kernels' plain
+    versions): the metrics, the parameters, and the first backward's
+    gradients relative to their norms."""
     from catre_tpu_torch.engine.train import init_train_state, make_train_step, prepare_train_batch
     from catre_tpu_torch.entry import flagship_trainer
     from catre_tpu_torch.solver.ranger import Ranger
@@ -290,6 +418,7 @@ def main():
 
     # ---- 2. build
     t0 = time.perf_counter()
+    _build.build_all()
     for name in _build.KERNEL_SOURCES:
         _build.load(name)
         for line in _build.build_log(name).splitlines():
@@ -361,8 +490,9 @@ def main():
         raise RuntimeError("the kernel path disagrees with the plain path")
 
     # ---- 5b. the main path, through the port's entry point: flagship refine, bf16, kernels
-    per_call = {"dense_relu_dense_max": N_ITER, "dense_relu_max": 2 * N_ITER,
-                "rot_head": N_ITER, "rot_head_bwd": 0}
+    per_call = dict.fromkeys(ops.launch_counts(), 0)
+    per_call.update({"dense_relu_dense_max": N_ITER, "dense_relu_max": 2 * N_ITER,
+                     "rot_head": N_ITER})
     launches = dict.fromkeys(per_call, 0)
     for B in REFINE_BATCHES:
         refine, args = entry(dev, batch_size=B, seed=0)
@@ -394,29 +524,64 @@ def main():
     # ---- 6. K4 vs its plain version, per gradient tensor
     results["K4"] = check_k4(head, dev, gen)
 
-    # ---- 7. the training main path, through the port's entry point
-    train_per_step = {"dense_relu_dense_max": 0, "dense_relu_max": 0, "rot_head": N_ITER,
-                      "rot_head_bwd": N_ITER}
-    train_launches = train_phase(dev, train_per_step)
-    for k in launches:
-        launches[k] += train_launches[k]
+    # ---- 6b. K5 and K6 vs their plain versions, forward and backward
+    results.update(check_train_tails(enc, dev, gen, 2 * TRAIN_B, cfg.num_pcl))
+
+    # ---- 7. the training main path, through the port's entry point, at the shipped
+    # flags; then with the plain encoder under autograd, in the same run
+    plain_per_step = dict.fromkeys(per_call, 0)
+    plain_per_step.update({"rot_head": N_ITER, "rot_head_bwd": N_ITER})
+    train_per_step = dict(plain_per_step)
+    train_per_step.update({"dense_relu_max_train_fwd": 2 * N_ITER,
+                           "dense_relu_max_train_bwd": 2 * N_ITER,
+                           "dense_relu_dense_max_train_fwd": N_ITER,
+                           "dense_relu_dense_max_train_bwd": N_ITER})
+    for counts in (train_phase(dev, train_per_step),
+                   train_phase(dev, plain_per_step, steps=1, fused_encoder_train=False)):
+        for k in launches:
+            launches[k] += counts[k]
     train_kernel_vs_plain(dev)
 
+    # bounds of K1-K4 at the shapes they were timed at, bf16: their dense products
+    # (K3 once forward, K4 the forward again and two products per forward product)
+    rows, n_obj_pts = n_clouds * n_pts, 2 * n_pts
+    head_flops = 2 * n_obj_pts * (64 * 512 + 2 * 256 * 256)      # per object
+    w_tail, w_head = 2 * (128 * 512 + 512 * 1024), 2 * (64 * 512 + 2 * 256 * 256)
+    results["K1"].update(bound(2 * rows * 128 + w_tail + 4 * n_clouds * 1024,
+                               2 * rows * (128 * 512 + 512 * 1024)))
+    results["K2"].update(bound(2 * rows * 128 + 2 * 128 * 1024 + 4 * n_clouds * 1024,
+                               2 * rows * 128 * 1024))
+    results["K3"].update(bound(KERNEL_B * (2 * n_obj_pts * 64 + 4 * 2 * 512) + w_head,
+                               KERNEL_B * head_flops))
+    results["K4"].update(bound(K4_TIME_B * ((2 + 4) * n_obj_pts * 64 + 4 * 4 * 512) + 3 * w_head,
+                               K4_TIME_B * 3 * head_flops))
+    src = "catre_tpu_torch/csrc/"
+    vjp = "catre_tpu/ops/pallas_encoder_epilogue_vjp.py:"
     kernels = [
-        dict(name="K1 dense_relu_dense_max", route="cuda",
-             source="catre_tpu_torch/csrc/encoder_epilogue.cu",
+        dict(name="K1 dense_relu_dense_max", route="cuda", source=src + "encoder_epilogue.cu",
              replaces="catre_tpu/ops/pallas_encoder_epilogue.py:98",
              launches=launches["dense_relu_dense_max"], **results["K1"]),
-        dict(name="K2 dense_relu_max", route="cuda",
-             source="catre_tpu_torch/csrc/encoder_epilogue.cu",
+        dict(name="K2 dense_relu_max", route="cuda", source=src + "encoder_epilogue.cu",
              replaces="catre_tpu/ops/pallas_encoder_epilogue.py:89",
              launches=launches["dense_relu_max"], **results["K2"]),
-        dict(name="K3 rot_head", route="cuda", source="catre_tpu_torch/csrc/rot_head.cu",
+        dict(name="K3 rot_head", route="cuda", source=src + "rot_head.cu",
              replaces="catre_tpu/ops/pallas_heads.py:276",
              launches=launches["rot_head"], **results["K3"]),
-        dict(name="K4 rot_head_bwd", route="cuda", source="catre_tpu_torch/csrc/rot_head_bwd.cu",
+        dict(name="K4 rot_head_bwd", route="cuda", source=src + "rot_head_bwd.cu",
              replaces="catre_tpu/ops/pallas_heads_vjp.py:100",
              launches=launches["rot_head_bwd"], **results["K4"]),
+        dict(name="K5 dense_relu_max_train_fwd", route="cuda",
+             source=src + "encoder_epilogue_train.cu", replaces=vjp + "67",
+             launches=launches["dense_relu_max_train_fwd"], **results["K5 fwd"]),
+        dict(name="K5 dense_relu_max_train_bwd", route="cuda",
+             source=src + "encoder_epilogue_train.cu", replaces=vjp + "77",
+             launches=launches["dense_relu_max_train_bwd"], **results["K5 bwd"]),
+        dict(name="K6 dense_relu_dense_max_train_fwd", route="cuda",
+             source=src + "encoder_epilogue_train.cu", replaces=vjp + "107",
+             launches=launches["dense_relu_dense_max_train_fwd"], **results["K6 fwd"]),
+        dict(name="K6 dense_relu_dense_max_train_bwd", route="cuda",
+             source=src + "encoder_epilogue_train.cu", replaces=vjp + "121",
+             launches=launches["dense_relu_dense_max_train_bwd"], **results["K6 bwd"]),
     ]
     if any(k["launches"] == 0 for k in kernels):
         raise RuntimeError("a kernel of the main path never launched")

@@ -1,4 +1,4 @@
-"""CUDA kernels K1-K4 vs their plain PyTorch versions on the card, the
+"""CUDA kernels K1-K6 vs their plain PyTorch versions on the card, the
 inference kernels' refusal of a differentiable call, and a train step's
 launch counts.
 
@@ -17,6 +17,7 @@ import torch
 from catre_tpu_torch.models.heads import ConvOutPerRotHead
 from catre_tpu_torch.models.layers import Dense
 from catre_tpu_torch.ops import encoder_epilogue as enc_ops
+from catre_tpu_torch.ops import encoder_epilogue_train as tail_ops
 from catre_tpu_torch.ops import rot_head as rot_ops
 from catre_tpu_torch.ops import rot_head_train as train_ops
 
@@ -150,13 +151,106 @@ def test_inference_kernels_refuse_a_differentiable_call(dev):
         rot_ops.rot_head(pf, gterm, rot_ops.pack_rot_head(head, torch.float32), 64)
 
 
-def test_train_step_launches_k3_and_k4(dev):
+def _tail_case(kind, gen, n, p, dev, cdt, ties, widths=(128, 512, 1024)):
+    """-> (x in cdt, [f32 weights and biases], d_out); with `ties` every point
+    is there twice and, for K5, 16 channels are negative on every row."""
+    cin, chid, cout = widths
+    x = torch.relu(torch.randn(n, p, cin, generator=gen))
+    if ties:
+        x[:, p // 2:2 * (p // 2)] = x[:, :p // 2]
+    if kind == "K5":
+        ws = list(_dense(gen, cin, cout, dev))
+        if ties:
+            ws[1][:16] = -50.0
+    else:
+        ws = [*_dense(gen, cin, chid, dev), *_dense(gen, chid, cout, dev)]
+    return x.to(dev, cdt), ws, torch.randn(n, cout, generator=gen).to(dev)
+
+
+TAIL_OPS = {
+    "K5": (tail_ops.dense_relu_max_fwd, tail_ops.dense_relu_max_fwd_plain,
+           tail_ops.dense_relu_max_bwd, tail_ops.dense_relu_max_bwd_plain,
+           enc_ops.dense_relu_max, "dense_relu_max_train"),
+    "K6": (tail_ops.dense_relu_dense_max_fwd, tail_ops.dense_relu_dense_max_fwd_plain,
+           tail_ops.dense_relu_dense_max_bwd, tail_ops.dense_relu_dense_max_bwd_plain,
+           enc_ops.dense_relu_dense_max, "dense_relu_dense_max_train"),
+}
+
+
+# the last case: widths other than the flagship's (cout not a power of two,
+# cin below one 128-column tile, chid not a multiple of 256)
+@pytest.mark.parametrize("cdt", DTYPES)
+@pytest.mark.parametrize("n,p,ties,widths", [
+    (16, 1024, False, (128, 512, 1024)), (5, 100, False, (128, 512, 1024)),
+    (6, 200, True, (128, 512, 1024)), (20, 150, False, (64, 384, 640))])
+@pytest.mark.parametrize("kind", ["K5", "K6"])
+def test_train_tail_kernels(dev, kind, cdt, n, p, ties, widths):
+    fwd, fwd_plain, bwd, bwd_plain, infer, counter = TAIL_OPS[kind]
+    x, ws, d_out = _tail_case(kind, torch.Generator().manual_seed(n), n, p, dev, cdt, ties,
+                              widths)
+    before = dict(tail_ops.LAUNCHES)
+    with torch.no_grad():
+        out, idx = fwd(x, *ws, cdt)
+        grads = bwd(x, *ws, idx, d_out, cdt)
+        assert tail_ops.LAUNCHES[counter + "_fwd"] == before[counter + "_fwd"] + 1
+        assert tail_ops.LAUNCHES[counter + "_bwd"] == before[counter + "_bwd"] + 1
+        out_p, idx_p = fwd_plain(x, *ws, cdt)
+        assert torch.equal(out, infer(x, *ws, cdt))          # bit-equal to K2 / K1
+        _assert_close(out, out_p, cdt)
+        assert idx.dtype == torch.int32 and idx.min() >= 0 and idx.max() < p
+        if cdt == torch.float32 and not ties:
+            # rows may differ only where two rows are within an f32 rounding of each other
+            assert (idx != idx_p).float().mean().item() < 1e-4
+        if ties:
+            assert idx.max() < p // 2                         # the lowest of two equal rows
+            if kind == "K5":
+                assert (idx[:, :16] == 0).all()
+        again = bwd(x, *ws, idx, d_out, cdt)                  # no float atomics
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+        for g, ref in zip(grads, bwd_plain(x, *ws, idx, d_out, cdt)):
+            assert g.shape == ref.shape and g.dtype == torch.float32
+            _assert_close(g, ref, cdt)
+        if ties:
+            assert grads[0][:, p // 2:].abs().max() == 0      # dx only on the lowest rows
+
+
+def test_train_tail_wrappers_raise_on_bad_input(dev):
+    x, ws, d_out = _tail_case("K5", torch.Generator().manual_seed(0), 4, 64, dev, torch.float32,
+                              False)
+    w, b = ws
+    idx = torch.zeros(4, 1024, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        tail_ops.dense_relu_max_fwd(x, w, b, torch.bfloat16)                 # x not in cdt
+    with pytest.raises(ValueError):
+        tail_ops.dense_relu_max_fwd(x, w[:1000], b[:1000], torch.float32)    # width
+    with pytest.raises(ValueError):
+        tail_ops.dense_relu_max_fwd(x.transpose(0, 1), w, b, torch.float32)  # not contiguous
+    with pytest.raises(ValueError):
+        tail_ops.dense_relu_max_bwd(x, w, b, idx.long(), d_out, torch.float32)   # idx not int32
+    with pytest.raises(ValueError):
+        tail_ops.dense_relu_max_bwd(x, w, b, idx.cpu(), d_out, torch.float32)    # idx on the CPU
+    with pytest.raises(ValueError):
+        tail_ops.dense_relu_max_bwd(x, w.bfloat16(), b, idx, d_out, torch.float32)   # weight dtype
+    with pytest.raises(ValueError):
+        tail_ops.dense_relu_max_bwd(x, w, b, idx, d_out[:, :512], torch.float32)     # d_out shape
+    with pytest.raises(RuntimeError, match="requires grad"):                         # bare call
+        tail_ops.dense_relu_max_fwd(x, w.clone().requires_grad_(), b, torch.float32)
+    out = tail_ops.dense_relu_max_train(x, w.clone().requires_grad_(), b, torch.float32)
+    assert out.grad_fn is not None
+
+
+@pytest.mark.parametrize("fused_encoder_train", [True, False])
+def test_train_step_launches_k3_and_k4(dev, fused_encoder_train):
     from catre_tpu_torch import ops
     from catre_tpu_torch.entry import train_entry
 
     ops.reset_launch_counts()
-    state, history = train_entry(dev, batch_size=4, steps=1, num_pcl=256, num_kps=256)
-    assert ops.launch_counts() == {"dense_relu_dense_max": 0, "dense_relu_max": 0,
-                                   "rot_head": 4, "rot_head_bwd": 4}
+    state, history = train_entry(dev, batch_size=4, steps=1, num_pcl=256, num_kps=256,
+                                 fused_encoder_train=fused_encoder_train)
+    k5, k6 = (8, 4) if fused_encoder_train else (0, 0)
+    assert ops.launch_counts() == {
+        "dense_relu_dense_max": 0, "dense_relu_max": 0, "rot_head": 4, "rot_head_bwd": 4,
+        "dense_relu_max_train_fwd": k5, "dense_relu_max_train_bwd": k5,
+        "dense_relu_dense_max_train_fwd": k6, "dense_relu_dense_max_train_bwd": k6}
     assert all(torch.isfinite(v).all() for v in history[0].values())
     assert all(torch.isfinite(p).all() for p in state.params.values())

@@ -1,0 +1,209 @@
+"""The port's differentiable encoder tails (K5/K6, `ops/encoder_epilogue_train.py`)
+on the CPU, where they run their plain versions, vs the JAX package's
+custom-VJP Pallas kernels in interpret mode (f32), same numpy inputs:
+  - `DenseReluMaxTrain` vs `dense_relu_max_t`, `DenseReluDenseMaxTrain` vs
+    `dense_relu_dense_max_t`: values 1e-5, argmax rows equal, gradients 2e-4
+    (the tolerances of `tests/test_encoder_vjp.py`), one shape with P not a
+    multiple of 64;
+  - ties (duplicated points, an all-negative channel): both packages send the
+    gradient to the lowest row only, where `amax` under autograd splits it;
+  - `PointNetFeat(..., ENCODER_TAIL_TRAIN)` vs `pointnet_encode_fused_train`:
+    outputs 1e-5, gradients to every parameter and to x 5e-4.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from catre_tpu.models.pointnet import PointNetFeat as JaxPointNetFeat
+from catre_tpu.ops import pallas_encoder_epilogue_vjp as jax_vjp
+from catre_tpu_torch import ops
+from catre_tpu_torch.models.pointnet import PointNetFeat
+from catre_tpu_torch.ops import encoder_epilogue as enc_ops
+from catre_tpu_torch.ops import encoder_epilogue_train as train_ops
+from catre_tpu_torch.utils.convert import params_from_jax
+
+F32 = torch.float32
+
+
+def _t(a, grad=False):
+    return torch.from_numpy(np.array(a)).requires_grad_(grad)
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.array, tree)
+
+
+def _k5_case(seed, n, p, cout=256):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(n, p, 128)) * 0.3).astype(np.float32)
+    w = (rng.normal(size=(128, cout)) * 0.1).astype(np.float32)   # flax (in, out)
+    b = (rng.normal(size=(cout,)) * 0.1).astype(np.float32)
+    co = rng.normal(size=(n, cout)).astype(np.float32)
+    return x, w, b, co
+
+
+def _k6_case(seed, n, p, c3=256, c4=384):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(n, p, 128)) * 0.3).astype(np.float32)
+    w3 = (rng.normal(size=(128, c3)) * 0.1).astype(np.float32)
+    b3 = (rng.normal(size=(c3,)) * 0.1).astype(np.float32)
+    w4 = (rng.normal(size=(c3, c4)) * 0.1).astype(np.float32)
+    b4 = (rng.normal(size=(c4,)) * 0.1).astype(np.float32)
+    co = rng.normal(size=(n, c4)).astype(np.float32)
+    return x, w3, b3, w4, b4, co
+
+
+def _jax_k5(x, w, b, co):
+    """-> (out, idx, (dx, dw, db)) of `dense_relu_max_t` in interpret mode."""
+    args = tuple(map(jnp.asarray, (x, w, b)))
+    out, idx = jax_vjp._fwd_call(jax_vjp._fwd_kernel_1, args[0], [args[1], args[2].reshape(1, -1)],
+                                 w.shape[1], jax_vjp._FWD_BLOCK, True, jnp.float32)
+    grads = jax.grad(lambda *a: jnp.sum(jax_vjp.dense_relu_max_t(*a, True, jnp.float32) * co),
+                     argnums=(0, 1, 2))(*args)
+    return np.asarray(out), np.asarray(idx), [np.asarray(g) for g in grads]
+
+
+def _jax_k6(x, w3, b3, w4, b4, co):
+    args = tuple(map(jnp.asarray, (x, w3, b3, w4, b4)))
+    params = [args[1], args[2].reshape(1, -1), args[3], args[4].reshape(1, -1)]
+    out, idx = jax_vjp._fwd_call(jax_vjp._fwd_kernel_2, args[0], params, w4.shape[1],
+                                 jax_vjp._FWD_BLOCK, True, jnp.float32)
+    grads = jax.grad(
+        lambda *a: jnp.sum(jax_vjp.dense_relu_dense_max_t(*a, True, jnp.float32) * co),
+        argnums=tuple(range(5)))(*args)
+    return np.asarray(out), np.asarray(idx), [np.asarray(g) for g in grads]
+
+
+def _port_k5(x, w, b, co):
+    """-> (out, idx, (dx, dw in flax layout, db)) of `DenseReluMaxTrain` on the CPU."""
+    xt, wt, bt = _t(x, True), _t(w.T, True), _t(b, True)
+    ops.reset_launch_counts()
+    out = train_ops.dense_relu_max_train(xt, wt, bt, F32)
+    (out * _t(co)).sum().backward()
+    assert not any(ops.launch_counts().values())       # the CPU runs the plain versions
+    with torch.no_grad():
+        out2, idx = train_ops.dense_relu_max_fwd(xt, wt, bt, F32)
+    assert torch.equal(out, out2) and idx.dtype == torch.int32
+    return (out.detach().numpy(), idx.numpy(),
+            [xt.grad.numpy(), wt.grad.numpy().T, bt.grad.numpy()])
+
+
+def _port_k6(x, w3, b3, w4, b4, co):
+    ts = [_t(x, True), _t(w3.T, True), _t(b3, True), _t(w4.T, True), _t(b4, True)]
+    ops.reset_launch_counts()
+    out = train_ops.dense_relu_dense_max_train(*ts, F32)
+    (out * _t(co)).sum().backward()
+    assert not any(ops.launch_counts().values())
+    with torch.no_grad():
+        out2, idx = train_ops.dense_relu_dense_max_fwd(*ts, F32)
+    assert torch.equal(out, out2) and idx.dtype == torch.int32
+    g = [t.grad.numpy() for t in ts]
+    return out.detach().numpy(), idx.numpy(), [g[0], g[1].T, g[2], g[3].T, g[4]]
+
+
+def _assert_matches(port, ref):
+    np.testing.assert_allclose(port[0], ref[0], atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(port[1], ref[1])
+    assert len(port[2]) == len(ref[2])
+    for i, (a, r) in enumerate(zip(port[2], ref[2])):
+        assert a.shape == r.shape and a.dtype == np.float32
+        np.testing.assert_allclose(a, r, atol=2e-4, rtol=0, err_msg=f"gradient {i}")
+
+
+@pytest.mark.parametrize("n,p", [(4, 64), (3, 100)])
+def test_dense_relu_max_train_matches_jax(n, p):
+    case = _k5_case(20 + n, n, p)
+    _assert_matches(_port_k5(*case), _jax_k5(*case))
+
+
+@pytest.mark.parametrize("n,p", [(4, 64), (3, 100)])
+def test_dense_relu_dense_max_train_matches_jax(n, p):
+    case = _k6_case(30 + n, n, p)
+    _assert_matches(_port_k6(*case), _jax_k6(*case))
+
+
+def _amax_dx(tail, x, *weights_and_co):
+    """dx of the plain tail (`amax` under autograd) for the same cotangent."""
+    *weights, co = weights_and_co
+    xt = _t(x, True)
+    ws = [_t(w.T if w.ndim == 2 else w) for w in weights]
+    (tail(xt, *ws, F32) * _t(co)).sum().backward()
+    return xt.grad.numpy()
+
+
+def test_dense_relu_max_train_routes_ties_to_the_lowest_row():
+    n, p = 3, 48
+    x, w, b, co = _k5_case(41, n, p)
+    x[:, p // 2:] = x[:, :p // 2]          # every point twice: every max is tied
+    b[:16] = -50.0                         # channels negative everywhere: relu ties at 0 on all rows
+    port, ref = _port_k5(x, w, b, co), _jax_k5(x, w, b, co)
+    _assert_matches(port, ref)
+    assert port[1].max() < p // 2                      # the lowest of the tied rows
+    assert (port[1][:, :16] == 0).all() and (port[0][:, :16] == 0).all()
+    dx = port[2][0]
+    assert np.abs(dx[:, p // 2:]).max() == 0 and np.abs(dx[:, :p // 2]).max() > 0
+    assert np.abs(port[2][1][:, :16]).max() == 0       # dW of the gated channels
+    split = _amax_dx(enc_ops.dense_relu_max_twin, x, w, b, co)
+    np.testing.assert_allclose(split[:, p // 2:], split[:, :p // 2], atol=1e-6)   # amax splits
+    np.testing.assert_allclose(2 * split[:, :p // 2], dx[:, :p // 2], atol=2e-4)
+    assert np.abs(split - dx).max() > 1e-2
+
+
+def test_dense_relu_dense_max_train_routes_ties_to_the_lowest_row():
+    n, p = 2, 40
+    x, w3, b3, w4, b4, co = _k6_case(42, n, p)
+    x[:, p // 2:] = x[:, :p // 2]
+    port, ref = _port_k6(x, w3, b3, w4, b4, co), _jax_k6(x, w3, b3, w4, b4, co)
+    _assert_matches(port, ref)
+    assert port[1].max() < p // 2
+    dx = port[2][0]
+    assert np.abs(dx[:, p // 2:]).max() == 0 and np.abs(dx[:, :p // 2]).max() > 0
+    split = _amax_dx(enc_ops.dense_relu_dense_max_twin, x, w3, b3, w4, b4, co)
+    np.testing.assert_allclose(split[:, p // 2:], split[:, :p // 2], atol=1e-6)
+    assert np.abs(split - dx).max() > 1e-2
+
+
+def test_train_tails_refuse_other_devices_and_dtypes():
+    x = torch.randn(2, 16, 128)
+    w, b = torch.randn(256, 128), torch.randn(256)
+    with pytest.raises(ValueError, match="no kernel"):
+        train_ops.dense_relu_max_fwd(x.to("meta"), w, b, F32)
+    with pytest.raises(ValueError, match="no kernel"):
+        train_ops.dense_relu_max_bwd(x.to("meta"), w, b, torch.zeros(2, 256, dtype=torch.int32),
+                                     torch.zeros(2, 256), F32)
+
+
+@pytest.mark.parametrize("feature_transform", [True, False])
+def test_encoder_train_tails_match_pointnet_encode_fused_train(feature_transform):
+    rng = np.random.default_rng(5)
+    n, p = 2, 64
+    x = (rng.normal(size=(n, p, 3)) * 0.2).astype(np.float32)
+    jenc = JaxPointNetFeat(out_dim=1024, global_feat=False, feature_transform=feature_transform,
+                           return_parts=True)
+    params = jenc.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    c1 = rng.normal(size=(n, p, 64)).astype(np.float32)
+    c2 = rng.normal(size=(n, 1024)).astype(np.float32)
+
+    def loss(prm, xx):
+        pf, gf = jax_vjp.pointnet_encode_fused_train(prm, xx, feature_transform, True, jnp.float32)
+        return jnp.sum(pf * c1) + jnp.sum(gf * c2), (pf, gf)
+
+    (_, (pf_ref, gf_ref)), (g_params, g_x) = jax.value_and_grad(loss, argnums=(0, 1),
+                                                                has_aux=True)(params, jnp.asarray(x))
+
+    enc = PointNetFeat(torch.Generator().manual_seed(0), feature_transform=feature_transform)
+    enc.load_state_dict(params_from_jax(_np_tree(params), enc))
+    xt = _t(x, True)
+    pf, gf = enc(xt, train_ops.ENCODER_TAIL_TRAIN)
+    np.testing.assert_allclose(pf.detach().numpy(), np.asarray(pf_ref), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(gf.detach().numpy(), np.asarray(gf_ref), atol=1e-5, rtol=0)
+    ((pf * _t(c1)).sum() + (gf * _t(c2)).sum()).backward()
+    want = params_from_jax(_np_tree(g_params), enc)
+    for name, prm in enc.named_parameters():
+        np.testing.assert_allclose(prm.grad.numpy(), want[name].numpy(), atol=5e-4, rtol=0,
+                                   err_msg=name)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(g_x), atol=5e-4, rtol=0)

@@ -47,7 +47,9 @@ def test_port_trains_with_jax_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import torch\n"
-        "from catre_tpu_torch.entry import train_entry\n"
+        "from catre_tpu_torch.entry import flagship_config, train_entry\n"
+        "cfg = flagship_config()\n"
+        "assert cfg.uses_rot_head_train_kernels and cfg.uses_tail_train_kernels\n"
         "state, hist = train_entry(device='cpu', batch_size=2, steps=1, num_pcl=64, num_kps=64)\n"
         "assert state.step == 1 and hist[0]['loss_total'].shape == (4,)\n"
         "assert all(torch.isfinite(v).all() for m in hist for v in m.values())\n"
@@ -82,8 +84,10 @@ def test_wrappers_route_cpu_to_twin_and_refuse_other_devices():
     w, b = torch.randn(1024, 128) * 0.05, torch.randn(1024) * 0.1
     out = enc_ops.dense_relu_max(x, w, b, torch.float32)
     torch.testing.assert_close(out, enc_ops.dense_relu_max_twin(x, w, b, torch.float32))
-    assert ops.launch_counts() == {"dense_relu_max": 0, "dense_relu_dense_max": 0,
-                                   "rot_head": 0, "rot_head_bwd": 0}
+    assert ops.launch_counts() == {
+        "dense_relu_max": 0, "dense_relu_dense_max": 0, "rot_head": 0, "rot_head_bwd": 0,
+        "dense_relu_max_train_fwd": 0, "dense_relu_max_train_bwd": 0,
+        "dense_relu_dense_max_train_fwd": 0, "dense_relu_dense_max_train_bwd": 0}
     with pytest.raises(ValueError, match="no kernel"):
         enc_ops.dense_relu_max(x.to("meta"), w, b, torch.float32)
 

@@ -147,6 +147,7 @@ def test_model_config_matches_jax(name):
 def test_flagship_config_is_production():
     cfg = model_config_from(load_config(str(FLAGSHIP_CONFIG)))
     assert cfg.dtype == torch.bfloat16 and cfg.uses_rot_head_kernel and cfg.uses_tail_kernels
+    assert cfg.fused_heads_train and cfg.fused_encoder_train and cfg.uses_tail_train_kernels
     assert (cfg.num_pcl, cfg.num_kps, cfg.pclnet_out_dim) == (1024, 1024, 1024)
 
 

@@ -6,9 +6,11 @@
     port model's converted parameters (lookahead fires at step 6,
     rectification turns on): 2e-5, as `tests/test_solver.py`; one case
     fails if the rot heads' layer-0 halves are centralised apart;
-  - `step_on_prepared` vs JAX `make_train_step` with fused_heads_train, the
-    batch JAX prepared, n_iter = 2, 2 outer steps: losses rtol 2e-3,
-    parameters 1e-3, as `tests/test_fused_train.py`;
+  - `step_on_prepared` vs JAX `make_train_step` with fused_heads_train, with
+    and without fused_encoder_train, the batch JAX prepared, n_iter = 2, 2
+    outer steps: losses rtol 2e-3, parameters 1e-3, as
+    `tests/test_fused_train.py`; and the port's fused-encoder trajectory
+    against its own plain-encoder trajectory at the same tolerances;
   - the config bridge's loss and noise configs, and the guards of the
     training path.
 """
@@ -155,8 +157,10 @@ def _to_torch(batch):
     return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
 
 
-def test_train_step_matches_jax():
-    jcfg, params, model = _port_pair(fused_heads_train=True)
+@pytest.mark.parametrize("fused_encoder_train", [False, True])
+def test_train_step_matches_jax(fused_encoder_train):
+    jcfg, params, model = _port_pair(fused_heads_train=True,
+                                     fused_encoder_train=fused_encoder_train)
     batch = _synthetic_batch(seed=7)   # the batch of tests/test_fused_train.py
     sym_bank = axis_symmetry_rotation_bank(max_sym_disc_step=0.1)
     jnoise = JaxNoiseConfig(bbox3d_aug_prob=0.0, rt_aug_prob=0.0)
@@ -225,15 +229,51 @@ def test_loss_and_noise_configs_match_jax(name):
     assert port_noise == {k: jax_noise[k] for k in port_noise}
 
 
-def test_fused_encoder_train_raises_in_a_training_call():
+def _port_trajectory(batch, steps, **overrides):
+    """`steps` outer steps (n_iter = 2) of a seeded small port model on a
+    prepared batch -> (mean loss per step, parameters)."""
+    model = init_model(CATREConfig(num_pcl=P, num_kps=K, **overrides), seed=3)
+    opt = build_optimizer({"OPTIMIZER_CFG": {"type": "Ranger", "lr": 1e-3}},
+                          model.named_parameters())
+    noise = InputNoiseConfig(bbox3d_aug_prob=0.0, rt_aug_prob=0.0)
+    step = make_train_step(model, LossConfig(), noise, opt,
+                           axis_symmetry_rotation_bank(max_sym_disc_step=0.1), n_iter=2)
+    state = init_train_state(model, opt)
+    gen = torch.Generator().manual_seed(2)
+    losses = []
+    for _ in range(steps):
+        state, m = step.step_on_prepared(state, prepare_train_batch(gen, batch, noise), 1e-3)
+        losses.append(m["loss_total"].mean().item())
+    return losses, {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def test_fused_encoder_train_matches_the_plain_encoder():
+    batch = _to_torch(_synthetic_batch(seed=9))   # the batch of tests/test_fused_train.py:61
+    plain = _port_trajectory(batch, 3, fused_heads_train=True)
+    fused = _port_trajectory(batch, 3, fused_heads_train=True, fused_encoder_train=True)
+    np.testing.assert_allclose(fused[0], plain[0], rtol=2e-3)
+    for name, prm in plain[1].items():
+        np.testing.assert_allclose(fused[1][name].numpy(), prm.numpy(), atol=1e-3, err_msg=name)
+
+
+def test_fused_encoder_train_trains_in_a_training_call():
+    from catre_tpu_torch import ops
+
     model = init_model(CATREConfig(num_pcl=32, num_kps=32, fused_heads_train=True,
                                    fused_encoder_train=True), seed=0)
     args = (torch.randn(2, 32, 3) * 0.1, torch.randn(2, 32, 3) * 0.1, torch.full((2, 3), 0.2),
             torch.zeros(2, 3))
-    with pytest.raises(NotImplementedError, match="K5/K6"):
-        model(*args)
+    ops.reset_launch_counts()
+    sum(o.sum() for o in model(*args)).backward()
+    enc = model.pcl_net
+    for layer in (enc.stn.conv3, enc.fstn.conv3, enc.conv3, enc.conv4):
+        assert layer.weight.grad is not None and layer.weight.grad.abs().sum() > 0
+        assert layer.bias.grad is not None and torch.isfinite(layer.bias.grad).all()
+    assert not any(ops.launch_counts().values())     # on the CPU the plain versions ran
     with torch.no_grad():
-        model(*args)    # inference calls do not need the training kernels
+        model(*args)    # an inference call takes the inference tails
+    plain = init_model(CATREConfig(num_pcl=32, num_kps=32, fused_encoder_train=True), seed=0)
+    assert not plain.cfg.uses_tail_train_kernels     # rides fused_heads_train, as in the JAX package
 
 
 def test_inference_kernel_guard_raises_on_a_differentiable_cpu_tensor():
