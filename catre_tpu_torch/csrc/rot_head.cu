@@ -1,8 +1,9 @@
 // Fused rotation heads (both per-axis heads of ConvOutPerRotHead) per object.
 //
 // Replaces the Pallas kernel catre_tpu/ops/pallas_heads.py::
-// fused_conv_per_rot_head (:276) on its group=1 path (body _kernel :132).
-// Per object, with the two heads joint as 512 channels ([0:256] head x,
+// fused_conv_per_rot_head (:276) on its group=1 path (body _kernel :132);
+// group > 1 and the blocked form (several objects per block, K7/K8) are in
+// rot_head_multi.cu. Per object, with the two heads joint as 512 channels ([0:256] head x,
 // [256:512] head y) over P = n_pcl + n_kps points:
 //   x0 = pf @ W_pt^T + gterm[p < n_pcl ? 0 : 1] + b0        (P, 512), f32
 //   a  = GELU(GN64(x0))  rounded to T                       64 groups of 8

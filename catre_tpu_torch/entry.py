@@ -76,11 +76,13 @@ def near_identity_model(model: CATREDisRShared) -> CATREDisRShared:
     return m
 
 
-def entry(device="cuda", batch_size: int = 8, seed: int = 0):
+def entry(device="cuda", batch_size: int = 8, seed: int = 0, **overrides):
     """(fn, example_args): the flagship 4-iteration refine (1024 observed
     points + 1024 prior keypoints) on `device`; fn(*example_args) returns
-    (poses (5, B, 3, 4), scales (5, B, 3))."""
-    cfg = flagship_config()
+    (poses (5, B, 3, 4), scales (5, B, 3)). `overrides` replace fields of
+    the model's `CATREConfig`: `fused_encoder=True` runs the encoder columns
+    through K9, `fused_block_size=4` the rot head through K8."""
+    cfg = flagship_config(**overrides)
     model = init_model(cfg, seed=seed, device=device)
     refine = make_refine_fn(model, n_iter=N_ITER)
     b = example_batch(batch_size, cfg.num_pcl, cfg.num_kps, device=device, seed=seed)

@@ -17,10 +17,16 @@ by what the call needs:
     argmax, routed backward), as `catre.py:287-297` does, else the plain
     encoder under autograd, as `catre.py:298-305` runs the flax encoder;
   - any other call takes the inference ops: with `fused_heads` (rot6d only)
-    the rotation head kernel K3 (`ops.rot_head.fused_conv_per_rot_head`), and
-    with `fused_encoder_epilogue` the encoder tail kernels K1/K2
-    (`ops.encoder_epilogue.ENCODER_TAIL_KERNELS`); otherwise the plain
-    modules, as the flax module runs.
+    the rotation head kernel K3 (`ops.rot_head.fused_conv_per_rot_head`), or,
+    with `fused_block_size` > 1 dividing B, its objects-per-block form K8
+    (`fused_conv_per_rot_head_blocked`, `catre.py:255-261`); and for the
+    encoder, with `fused_encoder` the column kernel K9
+    (`PointNetFeat.forward_fused` over `ops.encoder_chain.chain3_max`,
+    `catre.py:202-209`), else with `fused_encoder_epilogue` the encoder tail
+    kernels K1/K2 (`ops.encoder_epilogue.ENCODER_TAIL_KERNELS`); otherwise
+    the plain modules, as the flax module runs. A differentiable call
+    ignores `fused_block_size` and `fused_encoder`, as
+    `delta_forward_fused_train` does.
 The JAX package prefers `fused_heads_train` over `fused_heads` whatever the
 call (`catre.py:353`), so its test-time refine under the shipped TPU config
 runs the training delta path; the math is the same. On a CPU tensor every
@@ -38,7 +44,7 @@ from ..geom.rotations import get_rot_dim, rot_rep_to_mat
 from ..geom.transforms import transform_normed_pts
 from ..ops.encoder_epilogue import ENCODER_TAIL_KERNELS, ENCODER_TAIL_TWINS
 from ..ops.encoder_epilogue_train import ENCODER_TAIL_TRAIN
-from ..ops.rot_head import fused_conv_per_rot_head
+from ..ops.rot_head import fused_conv_per_rot_head, fused_conv_per_rot_head_blocked
 from ..ops.rot_head_train import rot_head_train
 from .compose import pose_scale_from_delta_init
 from .heads import ConvOutPerRotHead, FCTransSizeHead
@@ -75,6 +81,8 @@ class CATREConfig:
     fused_encoder_epilogue: bool = True  # encoder tail kernels K1/K2 (with fused_heads)
     fused_heads_train: bool = False      # training rot head: K3 forward, K4 backward (rot6d)
     fused_encoder_train: bool = False    # training encoder tails K5/K6 (with fused_heads_train)
+    fused_block_size: int = 1            # objects per rot-head block, K8 (with fused_heads)
+    fused_encoder: bool = False          # encoder column kernel K9 (with fused_heads)
 
     @property
     def is_allo(self) -> bool:
@@ -91,6 +99,10 @@ class CATREConfig:
     @property
     def uses_rot_head_kernel(self) -> bool:
         return self.fused_heads and self.is_rot6d
+
+    @property
+    def uses_column_kernels(self) -> bool:
+        return self.uses_rot_head_kernel and self.fused_encoder
 
     @property
     def uses_tail_kernels(self) -> bool:
@@ -136,17 +148,24 @@ class CATREDisRShared(nn.Module):
         cfg = self.cfg
         B = x.shape[0]
         training = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
+        cdt = cfg.dtype or torch.float32
         if training:
             tails = ENCODER_TAIL_TRAIN if cfg.uses_tail_train_kernels else ENCODER_TAIL_TWINS
         else:
             tails = ENCODER_TAIL_KERNELS if cfg.uses_tail_kernels else ENCODER_TAIL_TWINS
+        if not training and cfg.uses_column_kernels:
+            def encode(clouds):
+                return self.pcl_net.forward_fused(clouds, cdt)
+        else:
+            def encode(clouds):
+                return self.pcl_net(clouds, tails)
         # one encoder call over both clouds (2B) when the point counts match
         if x.shape[1] == tfd_kps.shape[1]:
-            pf, gf = self.pcl_net(torch.cat([x, tfd_kps], dim=0), tails)
+            pf, gf = encode(torch.cat([x, tfd_kps], dim=0))
             pcl_pf, kps_pf, g_pcl, g_kps = pf[:B], pf[B:], gf[:B], gf[B:]
         else:
-            pcl_pf, g_pcl = self.pcl_net(x, tails)
-            kps_pf, g_kps = self.pcl_net(tfd_kps, tails)
+            pcl_pf, g_pcl = encode(x)
+            kps_pf, g_kps = encode(tfd_kps)
 
         # flat feature = max over points of [global ⊕ point] = [g, max(point)]
         ts_parts = [g_pcl, pcl_pf.amax(dim=1).float()]
@@ -162,12 +181,15 @@ class CATREDisRShared(nn.Module):
 
         point_feats = torch.cat([pcl_pf, kps_pf], dim=1)              # (B, P+K, 64)
         n_pcl = x.shape[1]
-        cdt = cfg.dtype or torch.float32
         if training and cfg.uses_rot_head_train_kernels:
             rot_deltas = rot_head_train(point_feats, g_pcl, g_kps, self.rot_head, n_pcl, cdt)
         elif not training and cfg.uses_rot_head_kernel:
-            rot_deltas = fused_conv_per_rot_head(point_feats, g_pcl, g_kps, self.rot_head,
-                                                 n_pcl, cdt)
+            if cfg.fused_block_size > 1 and B % cfg.fused_block_size == 0:
+                rot_deltas = fused_conv_per_rot_head_blocked(
+                    point_feats, g_pcl, g_kps, self.rot_head, n_pcl, cdt, cfg.fused_block_size)
+            else:
+                rot_deltas = fused_conv_per_rot_head(point_feats, g_pcl, g_kps, self.rot_head,
+                                                     n_pcl, cdt)
         else:
             rot_deltas = self.rot_head(point_feats, g_pcl, g_kps, n_pcl)
         return rot_deltas.float(), trans_deltas.float(), scale_deltas.float()

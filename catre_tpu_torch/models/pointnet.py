@@ -9,15 +9,36 @@ as arguments, so the plain path and the kernel path
 A tail pair is `(relu_max, relu_dense_max)`:
   relu_max(h, w, b, cdt)               -> (N, Cout) f32   (STN conv3 tails)
   relu_dense_max(h, w3, b3, w4, b4, cdt) -> (N, C4) f32   (main conv3->conv4)
+
+`forward_fused` is the other inference form, counterpart of
+`catre_tpu/ops/pallas_encoder.py` (`stn_forward_fused` :98,
+`pointnet_forward_fused` :118): the three conv columns that end in a max
+run through `ops.encoder_chain.chain3_max` (K9) in the compute dtype, and
+every layer around them (conv1, the two transforms, fc1-fc3) runs in f32 on
+the same parameters, as the JAX functions do by promotion whatever the
+model's dtype; the point features come back f32.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from ..ops.encoder_chain import chain3_max
 from ..ops.encoder_epilogue import ENCODER_TAIL_TWINS
 from .layers import Dense
+
+
+def _column(x, layers, cdt, relu_last):
+    """`chain3_max` over three `Dense` layers' parameters."""
+    params = [t for layer in layers for t in (layer.weight, layer.bias)]
+    return chain3_max(x, *params, cdt, relu_last=relu_last)
+
+
+def _dense_f32(layer, x, act=False):
+    out = F.linear(x, layer.weight, layer.bias)
+    return torch.relu(out) if act else out
 
 
 class STN(nn.Module):
@@ -38,6 +59,15 @@ class STN(nn.Module):
         g = self.conv2(self.conv1(x, act=True), act=True)         # (N, P, 128)
         pooled = tails[0](g, self.conv3.weight, self.conv3.bias, cdt).to(cdt)
         f = self.fc3(self.fc2(self.fc1(pooled, act=True), act=True))
+        return self._add_identity(f)
+
+    def forward_fused(self, x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+        """The conv column through K9 in `cdt`, fc1-fc3 in f32."""
+        g = _column(x, (self.conv1, self.conv2, self.conv3), cdt, relu_last=True)
+        f = _dense_f32(self.fc3, _dense_f32(self.fc2, _dense_f32(self.fc1, g, True), True))
+        return self._add_identity(f)
+
+    def _add_identity(self, f: torch.Tensor) -> torch.Tensor:
         iden = torch.eye(self.k, dtype=f.dtype, device=f.device).reshape(1, -1)
         return (f + iden).reshape(-1, self.k, self.k)
 
@@ -70,4 +100,15 @@ class PointNetFeat(nn.Module):
         h = self.conv2(x, act=True)                               # (N, P, 128)
         gfeat = tails[1](h, self.conv3.weight, self.conv3.bias,
                          self.conv4.weight, self.conv4.bias, cdt)
+        return x, gfeat
+
+    def forward_fused(self, x: torch.Tensor, cdt: torch.dtype):
+        """Both STN columns and the main conv2 -> conv3 -> conv4 column through
+        K9 in `cdt`; conv1 and the transforms in f32. -> (pointfeat (N, P, 64)
+        f32, gfeat (N, out_dim) f32, not rounded to `cdt`)."""
+        x = torch.bmm(x.float(), self.stn.forward_fused(x, cdt))
+        x = _dense_f32(self.conv1, x, act=True)                   # (N, P, 64)
+        if self.feature_transform:
+            x = torch.bmm(x, self.fstn.forward_fused(x, cdt))
+        gfeat = _column(x, (self.conv2, self.conv3, self.conv4), cdt, relu_last=False)
         return x, gfeat

@@ -4,10 +4,11 @@ On a CPU tensor every wrapper runs its twin; on a CUDA tensor it launches
 its kernel or raises. `launch_counts()` reports how often each kernel ran.
 """
 
-from . import encoder_epilogue, encoder_epilogue_train, rot_head, rot_head_train
+from . import (encoder_chain, encoder_epilogue, encoder_epilogue_train, rot_head,
+               rot_head_multi, rot_head_train)
 
 _COUNTERS = (encoder_epilogue.LAUNCHES, rot_head.LAUNCHES, rot_head_train.LAUNCHES,
-             encoder_epilogue_train.LAUNCHES)
+             encoder_epilogue_train.LAUNCHES, rot_head_multi.LAUNCHES, encoder_chain.LAUNCHES)
 
 
 def launch_counts() -> dict:

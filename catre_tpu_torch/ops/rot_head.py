@@ -1,13 +1,16 @@
 """Both rotation heads in one pass per object: kernel K3.
 
 Counterpart of `catre_tpu/ops/pallas_heads.py::fused_conv_per_rot_head`
-(:276), `group=1` path. `fused_conv_per_rot_head` packs the two per-axis
-`RotHead`s of a `ConvOutPerRotHead` into joint 512-channel blocks
-(`pack_rot_head`, as `pallas_heads.py:294-322` does), computes the
-per-object global terms `gterm = [g_pcl; g_kps] @ W_g^T` (B, 2, 512) outside
-the kernel (:326-329), and calls `rot_head`, which runs the plain twin for a
+(:276). `fused_conv_per_rot_head` packs the two per-axis `RotHead`s of a
+`ConvOutPerRotHead` into joint 512-channel blocks (`pack_rot_head`, as
+`pallas_heads.py:294-322` does), computes the per-object global terms
+`gterm = [g_pcl; g_kps] @ W_g^T` (B, 2, 512) outside the kernel (:326-329),
+and on its `group=1` path calls `rot_head`, which runs the plain twin for a
 CPU tensor and launches `csrc/rot_head.cu` for a CUDA tensor, never falling
-back.
+back. With `group > 1` (K7), and in the blocked form
+`fused_conv_per_rot_head_blocked` (K8, counterpart of
+`pallas_heads_blocked.py:112`), several objects share a block: those run
+`ops/rot_head_multi.py` over `csrc/rot_head_multi.cu`.
 
 The kernel hard-codes the flagship widths: 64-d point features, 1024-d
 globals, two layers of 256 per head, 32 GroupNorm groups per head and a
@@ -90,9 +93,11 @@ def pack_rot_head(head, cdt: torch.dtype, weight_dtype: torch.dtype | None = Non
     )
 
 
-def rot_head_twin(pf, gterm, p: RotHeadPack, n_pcl: int):
+def rot_head_twin(pf, gterm, p: RotHeadPack, n_pcl: int, round_reduction: bool = False):
     """Plain version of K3: pf (B, P, 64) cdt, gterm (B, 2, 512) f32 -> (B, 6)
-    f32. Operands rounded to cdt, products in f32, as the kernel does."""
+    f32. Operands rounded to cdt, products in f32, as the kernel does. With
+    `round_reduction` the point reduction's operands y and pw are rounded to
+    cdt too: the plain version of K7/K8 (`rot_head_multi.rot_head_multi_twin`)."""
     P = pf.shape[1]
     is_pcl = (torch.arange(P, device=pf.device) < n_pcl)[None, :, None]
     x = (pf.float() @ p.w_pt.float().T + torch.where(is_pcl, gterm[:, 0:1], gterm[:, 1:2])
@@ -100,9 +105,11 @@ def rot_head_twin(pf, gterm, p: RotHeadPack, n_pcl: int):
     a = gelu_exact(group_norm(x, p.gn0s, p.gn0b, 2 * GROUPS)).to(p.cdt).float()
     w1 = p.w1.float()
     x = torch.cat([a[..., :FEAT] @ w1[0].T, a[..., FEAT:] @ w1[1].T], dim=-1) + p.b1
-    y = gelu_exact(group_norm(x, p.gn1s, p.gn1b, 2 * GROUPS))
-    vx = torch.einsum("bpc,p->bc", y[..., :FEAT], p.pw[0])
-    vy = torch.einsum("bpc,p->bc", y[..., FEAT:], p.pw[1])
+    y, pw = gelu_exact(group_norm(x, p.gn1s, p.gn1b, 2 * GROUPS)), p.pw
+    if round_reduction:
+        y, pw = y.to(p.cdt).float(), pw.to(p.cdt).float()
+    vx = torch.einsum("bpc,p->bc", y[..., :FEAT], pw[0])
+    vy = torch.einsum("bpc,p->bc", y[..., FEAT:], pw[1])
     return torch.cat([vx @ p.neck[:3].T, vy @ p.neck[3:].T], dim=1) + p.bias6
 
 
@@ -114,29 +121,40 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+_TRAIN_OP = "ops.rot_head_train.rot_head_train (K3 forward, K4 backward)"
+
+
+def kernel_operands(name, pf, gterm, p: RotHeadPack, n_pcl: int) -> None:
+    """What every rot-head forward kernel asks of its CUDA call: no gradient
+    wanted, a CUDA device, the flagship widths, pf and the matmul weights in
+    p.cdt. Raises otherwise."""
+    _build.refuse_grad(name, _TRAIN_OP, pf, gterm, p.w_pt, p.b0, p.gn0s, p.gn0b, p.w1, p.b1,
+                       p.gn1s, p.gn1b, p.pw, p.neck, p.bias6)
+    if pf.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {pf.device}")
+    B, P, cin = pf.shape
+    if (p.cdt not in (torch.float32, torch.bfloat16) or pf.dtype != p.cdt
+            or p.w_pt.dtype != p.cdt or p.w1.dtype != p.cdt):
+        raise ValueError(f"{name}: pf {pf.dtype}, weights {p.w_pt.dtype}/{p.w1.dtype}, "
+                         f"compute dtype {p.cdt}")
+    if cin != IN_POINT or gterm.shape != (B, 2, 2 * FEAT) or gterm.dtype != torch.float32:
+        raise ValueError(f"{name}: pf {tuple(pf.shape)} / gterm {tuple(gterm.shape)} "
+                         f"{gterm.dtype} are not the flagship widths")
+    if p.pw.shape != (2, P) or not 0 <= n_pcl <= P:
+        raise ValueError(f"{name}: {P} points, point weights {tuple(p.pw.shape)}, "
+                         f"n_pcl={n_pcl}")
+
+
 def rot_head(pf, gterm, p: RotHeadPack, n_pcl: int):
     """K3 on packed parameters: pf (B, P, 64) in p.cdt, gterm (B, 2, 512) f32
     -> (B, 6) f32."""
     if pf.device.type == "cpu":
         return rot_head_twin(pf, gterm, p, n_pcl)
+    kernel_operands("rot_head", pf, gterm, p, n_pcl)
     args = [pf, gterm, p.w_pt, p.b0, p.gn0s, p.gn0b, p.w1, p.b1, p.gn1s, p.gn1b,
             p.pw, p.neck, p.bias6]
-    _build.refuse_grad("rot_head", "ops.rot_head_train.rot_head_train (K3 forward, K4 backward)",
-                       *args)
-    if pf.device.type != "cuda":
-        raise ValueError(f"rot_head: no kernel for device {pf.device}")
-    B, P, cin = pf.shape
-    if (p.cdt not in (torch.float32, torch.bfloat16) or pf.dtype != p.cdt
-            or p.w_pt.dtype != p.cdt or p.w1.dtype != p.cdt):
-        raise ValueError(f"rot_head: pf {pf.dtype}, weights {p.w_pt.dtype}/{p.w1.dtype}, "
-                         f"compute dtype {p.cdt}")
-    if cin != IN_POINT or gterm.shape != (B, 2, 2 * FEAT) or gterm.dtype != torch.float32:
-        raise ValueError(f"rot_head: pf {tuple(pf.shape)} / gterm {tuple(gterm.shape)} "
-                         f"{gterm.dtype} are not the flagship widths")
-    if p.pw.shape != (2, P) or not 0 <= n_pcl <= P:
-        raise ValueError(f"rot_head: {P} points, point weights {tuple(p.pw.shape)}, "
-                         f"n_pcl={n_pcl}")
     _build.cuda_inputs("rot_head", *args)
+    B, P, _ = pf.shape
     out = torch.empty(B, 6, device=pf.device, dtype=torch.float32)
     rc = _lib().catre_rot_head(*[t.data_ptr() for t in args], out.data_ptr(), B, P, n_pcl,
                                int(p.cdt == torch.bfloat16), _build.stream_handle(pf.device))
@@ -145,9 +163,30 @@ def rot_head(pf, gterm, p: RotHeadPack, n_pcl: int):
     return out
 
 
-def fused_conv_per_rot_head(point_feats, g_pcl, g_kps, head, n_pcl: int, cdt: torch.dtype):
-    """Fused `ConvOutPerRotHead` forward: point_feats (B, P+K, 64), g_pcl and
-    g_kps (B, 1024) -> (B, 6) f32 rotation deltas [rx | ry]."""
+def _packed_inputs(point_feats, g_pcl, g_kps, head, cdt):
+    """-> (pf in cdt, gterm (B, 2, 512) f32, pack) for the packed-parameter ops."""
     p = pack_rot_head(head, cdt)
-    gterm = torch.stack([g_pcl.float(), g_kps.float()], dim=1) @ p.w_g.T   # (B, 2, 512)
-    return rot_head(point_feats.to(cdt).contiguous(), gterm.contiguous(), p, n_pcl)
+    gterm = torch.stack([g_pcl.float(), g_kps.float()], dim=1) @ p.w_g.T
+    return point_feats.to(cdt).contiguous(), gterm.contiguous(), p
+
+
+def fused_conv_per_rot_head(point_feats, g_pcl, g_kps, head, n_pcl: int, cdt: torch.dtype,
+                            group: int = 1):
+    """Fused `ConvOutPerRotHead` forward: point_feats (B, P+K, 64), g_pcl and
+    g_kps (B, 1024) -> (B, 6) f32 rotation deltas [rx | ry]. `group` > 1 runs
+    that many objects per block (K7) when it divides B, and K3 when it does
+    not (`pallas_heads.py:334`)."""
+    pf, gterm, p = _packed_inputs(point_feats, g_pcl, g_kps, head, cdt)
+    if group > 1 and pf.shape[0] % group == 0:
+        from .rot_head_multi import rot_head_grouped    # it imports this module
+        return rot_head_grouped(pf, gterm, p, n_pcl, group)
+    return rot_head(pf, gterm, p, n_pcl)
+
+
+def fused_conv_per_rot_head_blocked(point_feats, g_pcl, g_kps, head, n_pcl: int,
+                                    cdt: torch.dtype, block_size: int = 8):
+    """The blocked form (K8): `block_size` objects per block; raises unless it
+    divides B (`pallas_heads_blocked.py:120` asserts)."""
+    from .rot_head_multi import rot_head_blocked
+    pf, gterm, p = _packed_inputs(point_feats, g_pcl, g_kps, head, cdt)
+    return rot_head_blocked(pf, gterm, p, n_pcl, block_size)

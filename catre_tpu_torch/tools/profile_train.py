@@ -32,11 +32,41 @@ from ..entry import flagship_trainer
 from ..ops import launch_counts, reset_launch_counts
 
 
-def _device_us(evt, total: bool = False) -> float:
+def device_us(evt, total: bool = False) -> float:
     """Device time in us (self, or including children), across torch versions."""
     name = "device_time_total" if total else "self_device_time_total"
     old = "cuda_time_total" if total else "self_cuda_time_total"
     return getattr(evt, name, None) or getattr(evt, old, 0.0)
+
+
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
+def device_kernels(events) -> list:
+    """The profiled device kernels (no user ranges) of `prof.key_averages()`."""
+    return [e for e in events if e.device_type == DeviceType.CUDA and device_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def print_kernels(kernels, top: int) -> None:
+    """Kernels ranked by device time, with launches and share."""
+    device_ms = sum(device_us(e) for e in kernels) / 1e3
+    print(f"{'device ms':>10} {'launches':>8} {'share':>6}  kernel")
+    for e in sorted(kernels, key=device_us, reverse=True)[:top]:
+        ms = device_us(e) / 1e3
+        print(f"{ms:10.3f} {e.count:8d} {ms / device_ms:6.1%}  {e.key[:110]}")
+
+
+def print_products(prof, top: int) -> None:
+    """Library matrix products of a profile taken with `record_shapes`, by input shape."""
+    products = [e for e in prof.key_averages(group_by_input_shape=True)
+                if e.key in ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")]
+    print(f"library matrix products by input shape: {sum(e.count for e in products)} calls, "
+          f"{sum(device_us(e) for e in products) / 1e3:.3f} ms")
+    for e in sorted(products, key=device_us, reverse=True)[:top]:
+        print(f"{device_us(e) / 1e3:10.3f} {e.count:8d}  {e.key} {e.input_shapes}")
 
 
 def main(argv=None) -> int:
@@ -49,8 +79,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
+    card = card_line()
     overrides = {"fused_encoder_train": False} if args.plain_encoder else {}
     t = flagship_trainer("cuda", batch_size=args.batch, seed=0, **overrides)
     t.state, _ = t.step(t.state, t.batch, t.generator, t.lr)        # warm-up
@@ -64,9 +93,8 @@ def main(argv=None) -> int:
     if args.trace:
         prof.export_chrome_trace(args.trace)
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA and _device_us(e) > 0
-               and not getattr(e, "is_user_annotation", False)]
-    device_ms = sum(_device_us(e) for e in kernels) / 1e3
+    kernels = device_kernels(events)
+    device_ms = sum(device_us(e) for e in kernels) / 1e3
     print(f"card: {card}")
     print(f"B={args.batch} {'plain' if args.plain_encoder else 'K5/K6'} encoder tails, "
           f"launches in the step {launch_counts()}")
@@ -78,22 +106,14 @@ def main(argv=None) -> int:
     for e in events:
         if e.key.startswith(("train.", "Optimizer.step")):
             side = "device span" if e.device_type == DeviceType.CUDA else "host"
-            ms = (_device_us(e) if e.device_type == DeviceType.CUDA else e.cpu_time_total) / 1e3
+            ms = (device_us(e) if e.device_type == DeviceType.CUDA else e.cpu_time_total) / 1e3
             print(f"range {e.key}: calls {e.count}, {side} {ms:.3f} ms")
-    print(f"{'device ms':>10} {'launches':>8} {'share':>6}  kernel")
-    for e in sorted(kernels, key=_device_us, reverse=True)[:args.top]:
-        ms = _device_us(e) / 1e3
-        print(f"{ms:10.3f} {e.count:8d} {ms / device_ms:6.1%}  {e.key[:110]}")
+    print_kernels(kernels, args.top)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t.state, _ = t.step(t.state, t.batch, t.generator, t.lr)
         torch.cuda.synchronize()
-    products = [e for e in prof.key_averages(group_by_input_shape=True)
-                if e.key in ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")]
-    print(f"library matrix products by input shape: {sum(e.count for e in products)} calls, "
-          f"{sum(_device_us(e) for e in products) / 1e3:.3f} ms")
-    for e in sorted(products, key=_device_us, reverse=True)[:args.top]:
-        print(f"{_device_us(e) / 1e3:10.3f} {e.count:8d}  {e.key} {e.input_shapes}")
+    print_products(prof, args.top)
     return 0
 
 

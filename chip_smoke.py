@@ -10,7 +10,10 @@ code is non-zero):
   1. device:   the card's name and power limit (nvidia-smi); no card -> exit 1;
   2. build:    compile the CUDA kernels from catre_tpu_torch/csrc with nvcc;
   3. kernels:  K1, K2 and K3 vs their plain PyTorch twins at main-path shapes,
-               in f32 (tight) and bf16 (loose), and their times;
+               in f32 (tight) and bf16 (loose), and their times; K7 and K8 (2,
+               4 and 8 objects per block) vs their plain version, and vs K3 in
+               f32, at the same shapes; K9 vs its plain version for the three
+               encoder columns at 512 clouds x 1024 points;
   4. identity: canned identity-delta heads with init = gt: 4 refine
                iterations must return the init;
   5. refine:   the flagship refine from `catre_tpu_torch.entry.entry` (shipped
@@ -18,7 +21,12 @@ code is non-zero):
                points, 4 iterations, seeded weights) at B = 256 and 2048:
                finite outputs, obj/s from CUDA events, and exactly K1 = 4,
                K2 = 8, K3 = 4 launches per call;
-               plus a B = 8 f32 run of the kernel path against the plain path;
+               the same under fused_encoder=True (K9 = 12, K3 = 4, K1 = K2 =
+               0) and under fused_block_size=4 (K8 = 4, K1 = 4, K2 = 8, K3 =
+               0; at B = 254, which 4 does not divide, K3 = 4 and K8 = 0);
+               K7 through fused_conv_per_rot_head(group=4) at B = 256;
+               plus B = 8 f32 runs of the three kernel paths against the plain
+               path;
   6. K4:       the rotation-head backward kernel vs its plain version
                (autograd of the K3 twin), B = 64 and the main path's B = 512
                objects x 2048 points, f32 (tight) and bf16 (loose), per
@@ -55,6 +63,9 @@ import time
 import torch
 
 KERNEL_B = 256               # objects for the kernel checks (512 clouds)
+GROUPS = (2, 4, 8)           # objects per block of K7/K8
+PATH_GROUP = 4               # ... on the refine paths that run them
+RAGGED_B = 254               # a batch PATH_GROUP does not divide: K8 gives way to K3
 REFINE_BATCHES = (256, 2048)
 REFINE_CALLS = 3             # timed refine calls per batch size, after one warm-up
 K4_CHECK_B, K4_TIME_B = 64, 512
@@ -116,6 +127,60 @@ def check_kernel(name, kernel, twin, make_args):
     log("kernels", f"{name} bf16 kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms")
     return {"max_abs_err": errs[torch.bfloat16], "max_abs_err_f32": errs[torch.float32],
             "ms": ms, "plain_ms": plain_ms}
+
+
+def nearer_its_own_version(tag, out, own, other, what):
+    """The tolerances above are too wide to tell two roundings of one
+    function apart. Where a kernel's plain version differs from a sibling
+    only in where it rounds, the kernel must lie well nearer its own plain
+    version than the two plain versions lie apart (mean absolute difference)."""
+    err, gap = (out - own).abs().mean().item(), (own - other).abs().mean().item()
+    log("kernels", f"{tag} bf16: mean |kernel - plain| = {err:.3e}, mean |plain - {what}| = "
+                   f"{gap:.3e}, must be under a quarter of it")
+    if not err <= 0.25 * gap:
+        raise RuntimeError(f"{tag}: the kernel is not nearer its plain version than {what} is")
+
+
+def check_rot_head_multi(rot_args):
+    """K7 and K8 at every objects-per-block count vs their plain version, f32
+    and bf16, and vs K3 in f32 (where the rounded point reduction vanishes);
+    times in bf16 per count. -> {"K7": ..., "K8": ...} at PATH_GROUP."""
+    from catre_tpu_torch.ops import rot_head as rot_ops
+    from catre_tpu_torch.ops import rot_head_multi as multi_ops
+
+    wrappers = {"K7": multi_ops.rot_head_grouped, "K8": multi_ops.rot_head_blocked}
+    errs = {(tag, cdt): 0.0 for tag in wrappers for cdt in TOL}
+    for cdt in TOL:
+        args = rot_args(cdt)
+        ref, k3_plain = multi_ops.rot_head_multi_twin(*args), rot_ops.rot_head_twin(*args)
+        k3 = rot_ops.rot_head(*args)
+        for tag, fn in wrappers.items():
+            for group in GROUPS:
+                out = fn(*args, group)
+                errs[tag, cdt] = max(errs[tag, cdt], tensor_errors(
+                    "kernels", f"{tag} {group} objects per block", cdt, [out], [ref], ["out"]))
+                if cdt == torch.float32:
+                    tensor_errors("kernels", f"{tag} {group} objects per block vs K3", cdt,
+                                  [out], [k3], ["out"])
+                else:
+                    nearer_its_own_version(f"{tag} {group} objects per block", out, ref, k3_plain,
+                                           "K3's plain version (f32 point reduction)")
+        k3_gap = (k3 - ref).abs().max().item()
+        log("kernels", f"K3 vs the K7/K8 plain version {str(cdt)[6:]}: {k3_gap:.3e} "
+                       "(the rounded point reduction)")
+    plain_ms = time_ms(lambda: multi_ops.rot_head_multi_twin(*args))
+    k3_ms = time_ms(lambda: rot_ops.rot_head(*args))
+    results = {}
+    for tag, fn in wrappers.items():
+        by_group = {group: time_ms(lambda: fn(*args, group)) for group in GROUPS}
+        log("kernels", f"{tag} bf16 B={args[0].shape[0]} ms by objects per block "
+                       f"{ {g: round(t, 4) for g, t in by_group.items()} }, K3 {k3_ms:.4f} ms, "
+                       f"plain version {plain_ms:.4f} ms")
+        results[tag] = {"max_abs_err": errs[tag, torch.bfloat16],
+                        "max_abs_err_f32": errs[tag, torch.float32],
+                        "ms": by_group[PATH_GROUP], "plain_ms": plain_ms,
+                        "ms_by_objects_per_block": by_group}
+    return results
 
 
 def check_k4(head, dev, gen):
@@ -328,6 +393,40 @@ def train_phase(dev, per_step, steps=TRAIN_STEPS, **model_overrides):
     return total
 
 
+def refine_phase(dev, B, calls, per_call, **overrides):
+    """The flagship refine through `entry.entry` at batch B, bf16: one warm-up
+    and `calls` timed calls with exactly `per_call` launches each; returns the
+    launch counts of the timed calls."""
+    from catre_tpu_torch import ops
+    from catre_tpu_torch.entry import N_ITER, entry
+
+    refine, args = entry(dev, batch_size=B, seed=0, **overrides)
+    refine(*args)                                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ops.reset_launch_counts()
+    start.record()
+    for _ in range(calls):
+        poses, scales = refine(*args)
+    end.record()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    ms = start.elapsed_time(end) / calls
+    want = {k: v * calls for k, v in per_call.items()}
+    if counts != want:
+        raise RuntimeError(f"B={B} {overrides}: launches {counts}, want {want}")
+    if poses.shape != (N_ITER + 1, B, 3, 4) or scales.shape != (N_ITER + 1, B, 3):
+        raise RuntimeError(f"B={B}: shapes {tuple(poses.shape)} {tuple(scales.shape)}")
+    if not (torch.isfinite(poses).all() and torch.isfinite(scales).all()):
+        raise RuntimeError(f"B={B} {overrides}: non-finite refine output")
+    log("refine", f"B={B} bf16 {overrides or 'shipped flags'} {N_ITER} iterations: "
+                  f"{ms:.3f} ms/call, {B / ms * 1e3:.1f} obj/s, "
+                  f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches per call "
+                  f"{ {k: v // calls for k, v in counts.items() if v} }")
+    return counts
+
+
 def first_grads(model, optimizer):
     """Record the gradients the first optimizer step of `model` is given
     (the first inner iteration's backward): -> (name -> gradient, hook)."""
@@ -398,11 +497,13 @@ def main():
         return 1
     from catre_tpu_torch import ops
     from catre_tpu_torch.engine.refiner import make_refine_fn
-    from catre_tpu_torch.entry import (N_ITER, entry, example_batch, flagship_config,
+    from catre_tpu_torch.entry import (N_ITER, example_batch, flagship_config,
                                        near_identity_model)
     from catre_tpu_torch.geom.rotations import rot6d_to_mat
     from catre_tpu_torch.models.catre import init_model
+    from catre_tpu_torch.models.layers import dense
     from catre_tpu_torch.ops import _build
+    from catre_tpu_torch.ops import encoder_chain as chain_ops
     from catre_tpu_torch.ops import encoder_epilogue as enc_ops
     from catre_tpu_torch.ops import rot_head as rot_ops
 
@@ -457,6 +558,41 @@ def main():
 
         results["K3"] = check_kernel("K3 rot_head", rot_ops.rot_head, rot_ops.rot_head_twin,
                                      rot_args)
+        results.update(check_rot_head_multi(rot_args))
+
+        # K9: the three encoder columns, weights of the seeded model
+        x3 = torch.randn(n_clouds, n_pts, 3, device=dev, generator=gen) * 0.2
+        x64 = torch.relu(torch.randn(n_clouds, n_pts, 64, device=dev, generator=gen))
+        columns = {
+            "K9 stn3d": (x3, (enc.stn.conv1, enc.stn.conv2, enc.stn.conv3), True),
+            "K9 stnkd": (x64, (enc.fstn.conv1, enc.fstn.conv2, enc.fstn.conv3), True),
+            "K9 main": (x64, (enc.conv2, enc.conv3, enc.conv4), False),
+        }
+        for tag, (xc, layers, relu_last) in columns.items():
+            params = [t for layer in layers for t in (layer.weight, layer.bias)]
+            widths = [xc.shape[2]] + [layer.weight.shape[0] for layer in layers]
+            results[tag] = check_kernel(
+                f"{tag} chain3_max {'-'.join(map(str, widths))}",
+                lambda *a: chain_ops.chain3_max(*a, relu_last=relu_last),
+                lambda *a: chain_ops.chain3_max_twin(*a, relu_last=relu_last),
+                lambda cdt: (xc.to(cdt), *params, cdt))
+            x16 = xc.bfloat16()
+            h = dense(dense(x16, *params[0:2], torch.bfloat16, act=True), *params[2:4],
+                      torch.bfloat16, act=True)
+            nearer_its_own_version(
+                tag, chain_ops.chain3_max(x16, *params, torch.bfloat16, relu_last=relu_last),
+                chain_ops.chain3_max_twin(x16, *params, torch.bfloat16, relu_last=relu_last),
+                dense(h, *params[4:6], torch.bfloat16, act=relu_last).amax(dim=1).float(),
+                "the same layers rounded as flax Dense (K1/K2's rounding)")
+            del x16, h
+            rows = n_clouds * n_pts
+            macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+            results[tag].update(bound(2 * rows * widths[0] + 2 * macs + 4 * sum(widths[1:])
+                                      + 4 * n_clouds * widths[-1], 2 * rows * macs))
+        log("kernels", f"beside K9 at the same {n_clouds} clouds: K2 {results['K2']['ms']:.4f} ms "
+                       f"(each STN column's tail), K1 {results['K1']['ms']:.4f} ms (the main "
+                       "column's tail); K9 also holds the column's first layer(s)")
+        del x3, x64, columns, xc     # 0.13 GiB that would sit under every later peak
 
     # ---- 4. identity: canned identity-delta heads, init = gt, 4 iterations
     ident = near_identity_model(model)
@@ -480,46 +616,52 @@ def main():
     m32 = init_model(cfg32, seed=0, device=dev)
     b8 = example_batch(8, cfg.num_pcl, cfg.num_kps, device=dev, seed=2)
     args8 = (b8["pcl"], b8["obj_kps"], b8["obj_pose"], b8["obj_scale"], b8["K"])
-    fused = make_refine_fn(m32, N_ITER)(*args8)
     m32.cfg = dataclasses.replace(cfg32, fused_heads=False)
     plain = make_refine_fn(m32, N_ITER)(*args8)
-    derr = max((a - p).abs().max().item() for a, p in zip(fused, plain))
-    log("refine", f"B=8 f32 kernel path vs plain path: max_abs_err={derr:.3e} "
-                  f"limit={PATH_TOL:.0e}")
-    if not derr <= PATH_TOL:
-        raise RuntimeError("the kernel path disagrees with the plain path")
+    for overrides in ({}, {"fused_encoder": True}, {"fused_block_size": PATH_GROUP}):
+        m32.cfg = dataclasses.replace(cfg32, **overrides)
+        fused = make_refine_fn(m32, N_ITER)(*args8)
+        derr = max((a - p).abs().max().item() for a, p in zip(fused, plain))
+        log("refine", f"B=8 f32 kernel path {overrides or 'K1-K3'} vs plain path: "
+                      f"max_abs_err={derr:.3e} limit={PATH_TOL:.0e}")
+        if not derr <= PATH_TOL:
+            raise RuntimeError(f"the kernel path {overrides} disagrees with the plain path")
 
-    # ---- 5b. the main path, through the port's entry point: flagship refine, bf16, kernels
-    per_call = dict.fromkeys(ops.launch_counts(), 0)
-    per_call.update({"dense_relu_dense_max": N_ITER, "dense_relu_max": 2 * N_ITER,
-                     "rot_head": N_ITER})
-    launches = dict.fromkeys(per_call, 0)
-    for B in REFINE_BATCHES:
-        refine, args = entry(dev, batch_size=B, seed=0)
-        refine(*args)                                    # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    # ---- 5b. the main paths, through the port's entry point: flagship refine, bf16,
+    # with K1-K3; with the encoder columns through K9; with the rot head through K8
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+    n_tails = {"dense_relu_dense_max": N_ITER, "dense_relu_max": 2 * N_ITER}
+    per_call = {**zero, **n_tails, "rot_head": N_ITER}
+    launches = dict(zero)
+    refine_paths = [({}, per_call),
+                    ({"fused_encoder": True}, {**zero, "chain3_max": 3 * N_ITER,
+                                               "rot_head": N_ITER}),
+                    ({"fused_block_size": PATH_GROUP}, {**zero, **n_tails,
+                                                        "rot_head_blocked": N_ITER})]
+    for overrides, want in refine_paths:
+        for B in REFINE_BATCHES:
+            counts = refine_phase(dev, B, REFINE_CALLS, want, **overrides)
+            for k in launches:
+                launches[k] += counts[k]
+    refine_phase(dev, RAGGED_B, 1, per_call, fused_block_size=PATH_GROUP)
+
+    # K7 has no caller in the model: its path is the op's own `group` argument
+    with torch.no_grad():
+        pf16, g16 = pf.bfloat16(), g2.bfloat16()
         ops.reset_launch_counts()
-        start.record()
-        for _ in range(REFINE_CALLS):
-            poses, scales = refine(*args)
-        end.record()
+        out7 = rot_ops.fused_conv_per_rot_head(pf16, g16[:, 0], g16[:, 1], model.rot_head, n_pts,
+                                               torch.bfloat16, group=PATH_GROUP)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        ms = start.elapsed_time(end) / REFINE_CALLS
-        want = {k: v * REFINE_CALLS for k, v in per_call.items()}
-        if counts != want:
-            raise RuntimeError(f"B={B}: launches {counts}, want {want}")
-        for k in launches:
-            launches[k] += counts[k]
-        if poses.shape != (N_ITER + 1, B, 3, 4) or scales.shape != (N_ITER + 1, B, 3):
-            raise RuntimeError(f"B={B}: shapes {tuple(poses.shape)} {tuple(scales.shape)}")
-        if not (torch.isfinite(poses).all() and torch.isfinite(scales).all()):
-            raise RuntimeError(f"B={B}: non-finite refine output")
-        log("refine", f"B={B} bf16 {N_ITER} iterations: {ms:.3f} ms/call, "
-                      f"{B / ms * 1e3:.1f} obj/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-                      f" GiB, launches per call {dict((k, v // REFINE_CALLS) for k, v in counts.items())}")
+        out8 = rot_ops.fused_conv_per_rot_head_blocked(pf16, g16[:, 0], g16[:, 1], model.rot_head,
+                                                       n_pts, torch.bfloat16, PATH_GROUP)
+    if counts != {**zero, "rot_head_grouped": 1}:
+        raise RuntimeError(f"fused_conv_per_rot_head(group={PATH_GROUP}): launches {counts}")
+    if out7.shape != (KERNEL_B, 6) or not torch.isfinite(out7).all() or not torch.equal(out7, out8):
+        raise RuntimeError("fused_conv_per_rot_head(group=...) disagrees with the blocked op")
+    launches["rot_head_grouped"] += counts["rot_head_grouped"]
+    log("refine", f"fused_conv_per_rot_head(group={PATH_GROUP}) B={KERNEL_B} bf16: launches "
+                  f"{ {k: v for k, v in counts.items() if v} }, equal to the blocked op")
 
     # ---- 6. K4 vs its plain version, per gradient tensor
     results["K4"] = check_k4(head, dev, gen)
@@ -529,7 +671,7 @@ def main():
 
     # ---- 7. the training main path, through the port's entry point, at the shipped
     # flags; then with the plain encoder under autograd, in the same run
-    plain_per_step = dict.fromkeys(per_call, 0)
+    plain_per_step = dict(zero)
     plain_per_step.update({"rot_head": N_ITER, "rot_head_bwd": N_ITER})
     train_per_step = dict(plain_per_step)
     train_per_step.update({"dense_relu_max_train_fwd": 2 * N_ITER,
@@ -553,6 +695,9 @@ def main():
                                2 * rows * 128 * 1024))
     results["K3"].update(bound(KERNEL_B * (2 * n_obj_pts * 64 + 4 * 2 * 512) + w_head,
                                KERNEL_B * head_flops))
+    for tag in ("K7", "K8"):     # K3's model work: the Pallas bodies compute each product once
+        results[tag].update(bound(KERNEL_B * (2 * n_obj_pts * 64 + 4 * 2 * 512) + w_head,
+                                  KERNEL_B * head_flops))
     results["K4"].update(bound(K4_TIME_B * ((2 + 4) * n_obj_pts * 64 + 4 * 4 * 512) + 3 * w_head,
                                K4_TIME_B * 3 * head_flops))
     src = "catre_tpu_torch/csrc/"
@@ -582,6 +727,18 @@ def main():
         dict(name="K6 dense_relu_dense_max_train_bwd", route="cuda",
              source=src + "encoder_epilogue_train.cu", replaces=vjp + "121",
              launches=launches["dense_relu_dense_max_train_bwd"], **results["K6 bwd"]),
+        dict(name="K7 rot_head_grouped", route="cuda", source=src + "rot_head_multi.cu",
+             replaces="catre_tpu/ops/pallas_heads.py:358",
+             launches=launches["rot_head_grouped"], **results["K7"]),
+        dict(name="K8 rot_head_blocked", route="cuda", source=src + "rot_head_multi.cu",
+             replaces="catre_tpu/ops/pallas_heads_blocked.py:141",
+             launches=launches["rot_head_blocked"], **results["K8"]),
+    ] + [
+        # one entry per column shape; the three share the launch counter (3 per encoder call)
+        dict(name=f"{tag} chain3_max", route="cuda", source=src + "encoder_chain.cu",
+             replaces="catre_tpu/ops/pallas_encoder.py:78",
+             launches=launches["chain3_max"] // 3, **results[tag])
+        for tag in ("K9 stn3d", "K9 stnkd", "K9 main")
     ]
     if any(k["launches"] == 0 for k in kernels):
         raise RuntimeError("a kernel of the main path never launched")

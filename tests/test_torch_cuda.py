@@ -1,4 +1,4 @@
-"""CUDA kernels K1-K6 vs their plain PyTorch versions on the card, the
+"""CUDA kernels K1-K9 vs their plain PyTorch versions on the card, the
 inference kernels' refusal of a differentiable call, and a train step's
 launch counts.
 
@@ -15,10 +15,12 @@ import pytest
 import torch
 
 from catre_tpu_torch.models.heads import ConvOutPerRotHead
-from catre_tpu_torch.models.layers import Dense
+from catre_tpu_torch.models.layers import Dense, dense
+from catre_tpu_torch.ops import encoder_chain as chain_ops
 from catre_tpu_torch.ops import encoder_epilogue as enc_ops
 from catre_tpu_torch.ops import encoder_epilogue_train as tail_ops
 from catre_tpu_torch.ops import rot_head as rot_ops
+from catre_tpu_torch.ops import rot_head_multi as multi_ops
 from catre_tpu_torch.ops import rot_head_train as train_ops
 
 pytestmark = pytest.mark.cuda
@@ -41,6 +43,15 @@ def _assert_close(out, ref, cdt):
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
     assert err <= TOL[cdt] * max(1.0, ref.abs().max().item()), err
+
+
+def _assert_nearer(out, own, other):
+    """The tolerances above cannot tell two roundings of one function apart:
+    the kernel must lie well nearer its own plain version than a sibling
+    that rounds elsewhere does (mean absolute difference)."""
+    torch.cuda.synchronize()
+    err, gap = (out - own).abs().mean().item(), (own - other).abs().mean().item()
+    assert err <= 0.25 * gap, (err, gap)
 
 
 def _dense(gen, cin, cout, dev):
@@ -251,6 +262,121 @@ def test_train_step_launches_k3_and_k4(dev, fused_encoder_train):
     assert ops.launch_counts() == {
         "dense_relu_dense_max": 0, "dense_relu_max": 0, "rot_head": 4, "rot_head_bwd": 4,
         "dense_relu_max_train_fwd": k5, "dense_relu_max_train_bwd": k5,
-        "dense_relu_dense_max_train_fwd": k6, "dense_relu_dense_max_train_bwd": k6}
+        "dense_relu_dense_max_train_fwd": k6, "dense_relu_dense_max_train_bwd": k6,
+        "rot_head_grouped": 0, "rot_head_blocked": 0, "chain3_max": 0}
     assert all(torch.isfinite(v).all() for v in history[0].values())
     assert all(torch.isfinite(p).all() for p in state.params.values())
+
+
+@pytest.mark.parametrize("cdt", DTYPES)
+@pytest.mark.parametrize("b,p,k,group", [(8, 1024, 1024, 2), (8, 1024, 1024, 8), (12, 96, 40, 4)])
+def test_rot_head_multi_kernel(dev, cdt, b, p, k, group):
+    gen = torch.Generator().manual_seed(20 + b)
+    head = _scaled_head(gen, p + k, dev)
+    pf = (torch.randn(b, p + k, 64, generator=gen) * 0.5).to(dev, cdt)
+    g2 = (torch.randn(b, 2, 1024, generator=gen) * 0.5).to(dev)
+    with torch.no_grad():
+        pack = rot_ops.pack_rot_head(head, cdt)
+        gterm = (g2 @ pack.w_g.T).contiguous()
+        before = dict(multi_ops.LAUNCHES)
+        grouped = multi_ops.rot_head_grouped(pf, gterm, pack, p, group)
+        blocked = multi_ops.rot_head_blocked(pf, gterm, pack, p, group)
+        assert multi_ops.LAUNCHES == {k_: v + 1 for k_, v in before.items()}
+        assert torch.equal(grouped, blocked)
+        _assert_close(grouped, multi_ops.rot_head_multi_twin(pf, gterm, pack, p), cdt)
+        if cdt == torch.float32:       # without rounding K7/K8 compute K3's function
+            _assert_close(grouped, rot_ops.rot_head(pf, gterm, pack, p), cdt)
+        else:                          # and in bf16 they round the point reduction
+            _assert_nearer(grouped, multi_ops.rot_head_multi_twin(pf, gterm, pack, p),
+                           rot_ops.rot_head_twin(pf, gterm, pack, p))
+        with pytest.raises(ValueError, match="objects per block"):
+            multi_ops.rot_head_grouped(pf, gterm, pack, p, 3)
+        with pytest.raises(ValueError, match="do not divide"):
+            multi_ops.rot_head_blocked(pf[:b - 1], gterm[:b - 1], pack, p, group)
+
+
+def test_rot_head_group_falls_back_to_k3_on_a_ragged_batch(dev):
+    from catre_tpu_torch import ops
+
+    gen = torch.Generator().manual_seed(3)
+    head = _scaled_head(gen, 128, dev)
+    pf = (torch.randn(6, 128, 64, generator=gen) * 0.5).to(dev)
+    g = (torch.randn(2, 6, 1024, generator=gen) * 0.5).to(dev)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        out = rot_ops.fused_conv_per_rot_head(pf, g[0], g[1], head, 64, torch.float32, group=4)
+        counts = ops.launch_counts()
+        assert counts["rot_head"] == 1 and counts["rot_head_grouped"] == 0
+        assert torch.equal(out, rot_ops.fused_conv_per_rot_head(pf, g[0], g[1], head, 64,
+                                                                torch.float32))
+
+
+# the STN3d, STNkd and main columns at flagship widths, and one set of other
+# widths (cin neither 3 nor a multiple of 64, c1 a multiple of 64 only)
+@pytest.mark.parametrize("cdt", DTYPES)
+@pytest.mark.parametrize("n,p", [(16, 1024), (5, 100)])
+@pytest.mark.parametrize("widths,relu_last", [
+    ((3, 64, 128, 1024), True), ((64, 64, 128, 1024), True), ((64, 128, 512, 1024), False),
+    ((20, 192, 256, 384), False)])
+def test_chain3_max_kernel(dev, cdt, n, p, widths, relu_last):
+    gen = torch.Generator().manual_seed(n + widths[0])
+    x = torch.randn(n, p, widths[0], generator=gen).to(dev, cdt)
+    params = [t for cin, cout in zip(widths[:-1], widths[1:]) for t in _dense(gen, cin, cout, dev)]
+    before = chain_ops.LAUNCHES["chain3_max"]
+    out = chain_ops.chain3_max(x, *params, cdt, relu_last=relu_last)
+    assert chain_ops.LAUNCHES["chain3_max"] == before + 1
+    ref = chain_ops.chain3_max_twin(x, *params, cdt, relu_last=relu_last)
+    assert relu_last or ref.min() < 0      # the max is not clipped at 0
+    _assert_close(out, ref, cdt)
+    if cdt == torch.bfloat16:              # not flax Dense's rounding points (K1/K2's)
+        h = dense(dense(x, *params[0:2], cdt, act=True), *params[2:4], cdt, act=True)
+        _assert_nearer(out, ref, dense(h, *params[4:6], cdt, act=relu_last).amax(dim=1).float())
+
+
+def test_variant_wrappers_raise_on_bad_input(dev):
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(4, 64, 64, generator=gen).to(dev)
+    params = [t for cin, cout in ((64, 64), (64, 128), (128, 1024)) for t in _dense(gen, cin, cout, dev)]
+    with pytest.raises(ValueError):
+        chain_ops.chain3_max(x, *params, torch.float16)                     # compute dtype
+    with pytest.raises(ValueError):
+        chain_ops.chain3_max(x[:, :, :32], *params, torch.float32)          # widths do not chain
+    bad = [params[0][:32], params[1][:32], params[2][:, :32], *params[3:]]
+    with pytest.raises(ValueError):
+        chain_ops.chain3_max(x, *bad, torch.float32)                        # c1 = 32
+    with pytest.raises(RuntimeError, match="requires grad"):
+        chain_ops.chain3_max(x.clone().requires_grad_(), *params, torch.float32)
+    head = _scaled_head(gen, 128, dev)
+    pf = torch.randn(4, 128, 64, generator=gen).to(dev)
+    gterm = torch.randn(4, 2, 512, generator=gen).to(dev)
+    with pytest.raises(RuntimeError, match="rot_head_train"):               # differentiable pack
+        multi_ops.rot_head_grouped(pf, gterm, rot_ops.pack_rot_head(head, torch.float32), 64, 2)
+    with torch.no_grad():
+        pack = rot_ops.pack_rot_head(head, torch.float32)
+        with pytest.raises(ValueError):
+            multi_ops.rot_head_blocked(pf.bfloat16(), gterm, pack, 64, 2)   # pf not in cdt
+        big = _scaled_head(gen, 4096, dev)
+        with pytest.raises(ValueError, match="shared memory"):              # 4096 point weights
+            multi_ops.rot_head_grouped(torch.zeros(2, 4096, 64, device=dev, dtype=torch.bfloat16),
+                                       torch.zeros(2, 2, 512, device=dev),
+                                       rot_ops.pack_rot_head(big, torch.bfloat16), 2048, 2)
+
+
+@pytest.mark.parametrize("overrides,want", [
+    ({"fused_encoder": True}, {"chain3_max": 12, "rot_head": 4}),
+    ({"fused_block_size": 4}, {"rot_head_blocked": 4, "dense_relu_dense_max": 4,
+                               "dense_relu_max": 8}),
+    ({"fused_block_size": 4, "batch_size": 6}, {"rot_head": 4, "dense_relu_dense_max": 4,
+                                                "dense_relu_max": 8})])
+def test_refine_variants_launch_their_kernels(dev, overrides, want):
+    from catre_tpu_torch import ops
+    from catre_tpu_torch.entry import entry
+
+    overrides = dict(overrides)
+    refine, args = entry(dev, batch_size=overrides.pop("batch_size", 8), num_pcl=256,
+                         num_kps=256, **overrides)
+    ops.reset_launch_counts()
+    poses, scales = refine(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {**dict.fromkeys(ops.launch_counts(), 0), **want}
+    assert torch.isfinite(poses).all() and torch.isfinite(scales).all()

@@ -42,6 +42,25 @@ def test_port_runs_with_jax_blocked():
     assert "port ok" in proc.stdout
 
 
+@pytest.mark.parametrize("override", ["fused_encoder=True", "fused_block_size=2"])
+def test_port_variants_run_with_jax_blocked(override):
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "from catre_tpu_torch.entry import entry\n"
+        f"fn, args = entry(device='cpu', batch_size=2, num_pcl=64, num_kps=64, {override})\n"
+        "poses, scales = fn(*args)\n"
+        "assert poses.shape == (5, 2, 3, 4) and scales.shape == (5, 2, 3)\n"
+        "assert torch.isfinite(poses).all() and torch.isfinite(scales).all()\n"
+        "assert not any(m == 'catre_tpu' or m.startswith('catre_tpu.') for m in sys.modules)\n"
+        "print('variant ok')\n"
+    )
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "variant ok" in proc.stdout
+
+
 def test_port_trains_with_jax_blocked():
     code = (
         "import sys\n"
@@ -87,7 +106,8 @@ def test_wrappers_route_cpu_to_twin_and_refuse_other_devices():
     assert ops.launch_counts() == {
         "dense_relu_max": 0, "dense_relu_dense_max": 0, "rot_head": 0, "rot_head_bwd": 0,
         "dense_relu_max_train_fwd": 0, "dense_relu_max_train_bwd": 0,
-        "dense_relu_dense_max_train_fwd": 0, "dense_relu_dense_max_train_bwd": 0}
+        "dense_relu_dense_max_train_fwd": 0, "dense_relu_dense_max_train_bwd": 0,
+        "rot_head_grouped": 0, "rot_head_blocked": 0, "chain3_max": 0}
     with pytest.raises(ValueError, match="no kernel"):
         enc_ops.dense_relu_max(x.to("meta"), w, b, torch.float32)
 
