@@ -16,25 +16,56 @@
 // Matmul operands are T (bf16 in production, f32 for checks) with f32
 // accumulation; everything else is f32, as in the Pallas kernel.
 //
-// What bounds it on the card: arithmetic. One object costs 2*(2048*64*512 +
-// 2*2048*256*256) = 0.67 GFLOP against 256 KB of bf16 point features. The
-// (2048, 512) f32 activation is 4 MB, which fitted the TPU's VMEM but not the
-// 227 KB of shared memory a block may use, and GroupNorm needs whole-object
-// statistics before it can normalise.
-//
-// Design: one block per object and three passes over tiles of TM points
-// (128 in bf16, 64 in f32), recomputing instead of spilling (a global
+// The (2048, 512) f32 activation is 4 MB, which fitted the TPU's VMEM but not
+// the 227 KB of shared memory a block may use, and GroupNorm needs
+// whole-object statistics before it can normalise. So the work runs as three
+// passes over tiles of points, recomputing instead of spilling (a global
 // scratch of the layer-1 activation would cost 2 MB per object):
 //   (a) layer 0 -> GN0 sums;
 //   (b) layer 0 -> GN0 -> GELU -> layer 1 -> GN1 sums;
 //   (c) as (b), then GN1 -> GELU -> accumulate pw * y per channel;
 // then the (512 -> 6) neck. Layer 0 (K = 64) runs three times and layer 1
-// twice: 1.47 GFLOP per object in all. The products are `gemm_tile`
-// (common.cuh): mma.sync tensor-core tiles fed from shared memory, weights
-// staged by cp.async, accumulators kept in registers; every statistic is a
-// fixed-order column reduction of those registers, so the sums are
-// deterministic.
+// twice: 1.47 GFLOP per object for 0.67 GFLOP of model work.
+//
+// bf16, the production kernel (`rot_head_wgmma_kernel`). What bounds it on
+// the card is not the products but the epilogue between them: 3.1 M GroupNorm
+// + exact-erf GELU evaluations per object on the CUDA cores, with libdevice's
+// erff about three times the tensor cores' time for the 1.47 GFLOP. The design
+// makes the epilogue cheap, keeps everything else out of its way and runs the
+// products beside it:
+//   - erf is a branch-free degree-7 polynomial under one ex2 (`gelu7`, 1.1e-7
+//     absolute), about 19 instructions per GELU with GroupNorm folded into one
+//     FMA per element (per-channel scale and shift in shared memory);
+//   - the two heads are independent from layer 0 to the neck, so a block takes
+//     one (object, head): channels, groups, W1[h], pw[h] and out[3 h : 3 h + 3]
+//     are its own, and 2 B blocks fill the card;
+//   - the head's weights, W_pt[h] (256 x 64) and W1[h] (256 x 256), 160 KB, are
+//     written into shared memory once, in the swizzled panels `wgmma` reads,
+//     and stay: no weight is staged again and no barrier guards a stage;
+//   - products are `wgmma.m64n128k16` with A from registers (wgmma_tile.cuh):
+//     a 64-point tile's features come from shared memory by ldmatrix, and the
+//     layer-1 input a = round(GELU(GN0(x0))) is packed straight from the
+//     layer-0 accumulators, which have the ownership the next A wants: no
+//     activation tile in shared memory, no stores, no barrier;
+//   - one producer thread keeps 64-point tiles (8 KB, contiguous in device
+//     memory) in flight through a ring of 4 with 1-D bulk copies and
+//     mbarriers; two consumer warpgroups take alternate tiles and run out of
+//     step, so that one's epilogue runs on the CUDA cores while the other's
+//     products run on the tensor cores; `setmaxnreg` moves the producer's
+//     registers to the consumers;
+//   - inside a pass there is no block-wide barrier. The consumers meet (named
+//     barrier, 256 threads) only where statistics are finished: twice after
+//     passes (a) and (b), once before the neck;
+//   - sums have a fixed order: within a thread over its tiles, across lanes by
+//     shuffles, across the eight warps in shared memory in warp order. No
+//     atomics; two launches are bit-equal.
+//
+// f32 (`rot_head_f32_kernel`) exists to hold the arithmetic tightly against
+// the plain PyTorch version on the card: `wgmma` has no exact f32 product, so
+// it keeps one block per object on `gemm_tile`'s FMA path (common.cuh), the
+// same sums in the same order as K7/K8's f32 build, which is bit-equal to it.
 #include "rot_head.cuh"
+#include "wgmma_tile.cuh"
 
 using namespace catre;
 using namespace catre::rot;
@@ -57,10 +88,472 @@ struct Params {
   int n_pcl;
 };
 
+// ================================================================ bf16: wgmma
+namespace hopper {
+
+constexpr int kTile = 64;                        // points per tile: the rows of a wgmma
+constexpr int kTileBytes = kTile * CIN * 2;      // 8 KB, contiguous in device memory
+constexpr int kStages = 4;                       // tiles in the ring
+constexpr int kConsumerWarps = 8;                // two warpgroups
+constexpr int kConsumerThreads = 32 * kConsumerWarps;
+constexpr int kBlockThreads = kConsumerThreads + 128;   // + the producer's warpgroup
+constexpr int kWptBytes = F * CIN * 2;           // W_pt[h]: one panel of 256 rows
+constexpr int kW1Bytes = F * F * 2;              // W1[h]: four panels of 256 rows
+constexpr int kConsumerRegs = 240, kProducerRegs = 24;   // 2 x 128 x 240 + 128 x 24 = 64512
+constexpr int kConsumerBarrier = 1;
+
+// Shared memory, from a 1024-byte boundary: [W_pt[h] | W1[h] | ring | red
+// (8 warps x F) | ca0 (F) | cb0 (2 x F) | ca1 (F) | cb1 (F) | full, empty
+// (kStages each)]. ca / cb are the per-channel scale and shift of GroupNorm
+// folded with the bias (cb0 per row kind: cloud point or keypoint); before the
+// statistics are known cb0 holds gterm + b0 and cb1 holds b1.
+struct Smem {
+  unsigned char* wpt;
+  unsigned char* w1;
+  unsigned char* ring;
+  float* red;
+  float* ca0;
+  float* cb0;
+  float* ca1;
+  float* cb1;
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ explicit Smem(unsigned char* raw) {
+    wpt = raw + ((1024 - (wg::smem_addr(raw) & 1023)) & 1023);
+    w1 = wpt + kWptBytes;
+    ring = w1 + kW1Bytes;
+    red = reinterpret_cast<float*>(ring + kStages * kTileBytes);
+    ca0 = red + kConsumerWarps * F;
+    cb0 = ca0 + F;
+    ca1 = cb0 + 2 * F;
+    cb1 = ca1 + F;
+    full = reinterpret_cast<uint64_t*>(cb1 + F);
+    empty = full + kStages;
+  }
+};
+
+constexpr size_t smem_bytes() {
+  return 1024 + kWptBytes + kW1Bytes + kStages * kTileBytes +
+         sizeof(float) * (kConsumerWarps * F + 5 * F) + sizeof(uint64_t) * 2 * kStages;
+}
+static_assert(smem_bytes() <= 232448, "K3 does not fit a block's shared memory on sm_90");
+
+// A consumer thread: warp cw of 8, warpgroup wgi, warp w of the warpgroup,
+// lane = 4 g + t (the fragment coordinates of wgmma_tile.cuh).
+struct Who {
+  int cw, wgi, w, lane, g, t;
+  __device__ Who() {
+    cw = threadIdx.x / 32;
+    wgi = cw / 4;
+    w = cw % 4;
+    lane = threadIdx.x % 32;
+    g = lane / 4;
+    t = lane % 4;
+  }
+};
+
+// erf for the epilogue: erf(x) = sign(x) (1 - 2^(t p(t))), t = min(|x|, 4), p of
+// degree 7 fitted to log2(erfc(t)) / t on (0, 4] (erfc(4) = 1.5e-8 is below
+// half an ulp of 1). Largest absolute error against erf 1.1e-7 over the whole
+// line, the size of erff's own two ulps near 1 and far below the tanh
+// stand-in's 2.6e-5; what GELU needs is absolute accuracy, since it multiplies
+// 1 + erf by x / 2. Branch-free: 7 FFMA, one ex2 and a handful of others
+// against erff's two polynomials and a select, with which the kernel took 2.13
+// ms at 256 objects x 2048 points on an H100 (700 W) against 1.29 ms with this
+// one. tests/test_torch_rot_head.py reads the coefficients from this file.
+__device__ constexpr float kErfPoly[8] = {-1.6279101371765137f,    -0.918394923210144f,
+                               -0.1485847681760788f,    0.028485344722867012f,
+                               -0.0010466595413163304f, -0.0013183593982830644f,
+                               0.00039122201269492507f, -3.856721014017239e-05f};
+
+// GELU in its exact-erf form, x / 2 (1 + erf(x / sqrt 2)), on that erf, for N
+// values at once: their polynomial chains are written side by side, so that a
+// warp has N independent instructions ready at every step.
+template <int N>
+__device__ __forceinline__ void gelu7(float (&x)[N]) {
+  float t[N], p[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    t[i] = fminf(fabsf(x[i] * 0.70710678118654752440f), 4.0f);
+    p[i] = kErfPoly[7];
+  }
+#pragma unroll
+  for (int k = 6; k >= 0; --k)
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = fmaf(p[i], t[i], kErfPoly[k]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float e;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(p[i] * t[i]));
+    const float half_x = 0.5f * x[i];
+    x[i] = fmaf(half_x, copysignf(1.0f - e, x[i]), half_x);
+  }
+}
+
+constexpr int kJG = 2;   // n-tiles (of 4 values a thread) whose GELUs run side by side
+
+__device__ __forceinline__ void consumers_meet() {
+  wg::named_barrier(kConsumerBarrier, kConsumerThreads);
+}
+
+// The 64 per-thread sums live in registers and are worked on in halves that a
+// run-time `half` picks (the two 128-column halves of a tile share their
+// code): dst = src[half ? OFF1 : OFF0 ...], and back.
+template <int N, int OFF0, int OFF1>
+__device__ __forceinline__ void take_part(float (&dst)[N], const float (&src)[64], int half) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) dst[i] = half ? src[OFF1 + i] : src[OFF0 + i];
+}
+template <int N, int OFF0, int OFF1>
+__device__ __forceinline__ void put_part(const float (&part)[N], float (&dst)[64], int half) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (half) dst[OFF1 + i] = part[i];
+    else dst[OFF0 + i] = part[i];
+  }
+}
+
+// A thread's four values of one n-tile (two rows x two columns) into its group's
+// sums of x and x^2: group j of the head is n-tile j; sums[0:32] hold the
+// sums, sums[32:64] the sums of squares.
+__device__ __forceinline__ void add_group_sums(float& s1, float& s2, float x00, float x01,
+                                               float x10, float x11) {
+  s1 += (x00 + x01) + (x10 + x11);
+  s2 += (x00 * x00 + x01 * x01) + (x10 * x10 + x11 * x11);
+}
+
+// One tile of one pass for one consumer warpgroup. PASS 0: GN0 sums of x0;
+// 1: GN1 sums of x1; 2: point-weighted sums of y. n is the tile's number in
+// the ring's sequence, i its index in the object.
+template <int PASS>
+__device__ __forceinline__ void tile_pass(const Smem& sm, const Params& q, int h, int n, int i,
+                                          const Who& me, float (&sums)[64]) {
+  const int stage = n % kStages;
+  uint32_t pa[4][4];
+  wg::mbar_wait(&sm.full[stage], (n / kStages) & 1);
+  wg::load_a_tile(pa, sm.ring + stage * kTileBytes, me.w, me.lane);
+
+  // this thread's two rows; rows past P hold finite stale data and add nothing
+  const int r0 = i * kTile + 16 * me.w + me.g, r1 = r0 + 8;
+  const bool ok0 = r0 < q.P, ok1 = r1 < q.P;
+  const float* add0 = sm.cb0 + (r0 < q.n_pcl ? 0 : F);
+  const float* add1 = sm.cb0 + (r1 < q.n_pcl ? 0 : F);
+  [[maybe_unused]] uint32_t a[16][4];      // layer-1 input of the tile, 16 k-steps
+
+#pragma unroll 1
+  for (int half = 0; half < 2; ++half) {
+    float acc[64];
+    wg::product<4>(acc, pa, sm.wpt, F, half);
+    const int c0 = half * wg::kHalfN + 2 * me.t;
+    if constexpr (PASS == 0) {
+      float s1[16], s2[16];
+      take_part<16, 0, 16>(s1, sums, half);
+      take_part<16, 32, 48>(s2, sums, half);
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const float2 u0 = *reinterpret_cast<const float2*>(add0 + c0 + 8 * jj);
+        const float2 u1 = *reinterpret_cast<const float2*>(add1 + c0 + 8 * jj);
+        add_group_sums(s1[jj], s2[jj], ok0 ? acc[4 * jj] + u0.x : 0.0f,
+                       ok0 ? acc[4 * jj + 1] + u0.y : 0.0f, ok1 ? acc[4 * jj + 2] + u1.x : 0.0f,
+                       ok1 ? acc[4 * jj + 3] + u1.y : 0.0f);
+      }
+      put_part<16, 0, 16>(s1, sums, half);
+      put_part<16, 32, 48>(s2, sums, half);
+    } else {
+      // a = round(GELU(GN0(x0))): n-tiles 2 s, 2 s + 1 are k-step s of layer 1
+#pragma unroll
+      for (int j0 = 0; j0 < 16; j0 += kJG) {
+        float y[4 * kJG];
+#pragma unroll
+        for (int d = 0; d < kJG; ++d) {
+          const int jj = j0 + d;
+          const float2 sc = *reinterpret_cast<const float2*>(sm.ca0 + c0 + 8 * jj);
+          const float2 u0 = *reinterpret_cast<const float2*>(add0 + c0 + 8 * jj);
+          const float2 u1 = *reinterpret_cast<const float2*>(add1 + c0 + 8 * jj);
+          y[4 * d] = fmaf(acc[4 * jj], sc.x, u0.x);
+          y[4 * d + 1] = fmaf(acc[4 * jj + 1], sc.y, u0.y);
+          y[4 * d + 2] = fmaf(acc[4 * jj + 2], sc.x, u1.x);
+          y[4 * d + 3] = fmaf(acc[4 * jj + 3], sc.y, u1.y);
+        }
+        gelu7(y);
+#pragma unroll
+        for (int d = 0; d < kJG; ++d) {
+          const int jj = j0 + d;
+          const uint32_t top = wg::pack_a(y[4 * d], y[4 * d + 1]);
+          const uint32_t bottom = wg::pack_a(y[4 * d + 2], y[4 * d + 3]);
+          if (half) {
+            a[8 + jj / 2][2 * (jj % 2)] = top;
+            a[8 + jj / 2][2 * (jj % 2) + 1] = bottom;
+          } else {
+            a[jj / 2][2 * (jj % 2)] = top;
+            a[jj / 2][2 * (jj % 2) + 1] = bottom;
+          }
+        }
+      }
+    }
+  }
+
+  // The stage goes back only now, when products have consumed the registers
+  // the tile was loaded into: an arrive right behind the ldmatrix let the next
+  // bulk copy overwrite the tile before the loads had read it.
+  wg::mbar_arrive(&sm.empty[stage]);
+
+  if constexpr (PASS > 0) {
+    float pw0 = 0.0f, pw1 = 0.0f;
+    if constexpr (PASS == 2) {
+      const float* pwh = q.pw + static_cast<size_t>(h) * q.P;
+      pw0 = ok0 ? __ldg(pwh + r0) : 0.0f;
+      pw1 = ok1 ? __ldg(pwh + r1) : 0.0f;
+    }
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      float acc[64];
+      wg::product<16>(acc, a, sm.w1, F, half);
+      const int c0 = half * wg::kHalfN + 2 * me.t;
+      if constexpr (PASS == 1) {
+        float s1[16], s2[16];
+        take_part<16, 0, 16>(s1, sums, half);
+        take_part<16, 32, 48>(s2, sums, half);
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj) {
+          const float2 u = *reinterpret_cast<const float2*>(sm.cb1 + c0 + 8 * jj);
+          add_group_sums(s1[jj], s2[jj], ok0 ? acc[4 * jj] + u.x : 0.0f,
+                         ok0 ? acc[4 * jj + 1] + u.y : 0.0f, ok1 ? acc[4 * jj + 2] + u.x : 0.0f,
+                         ok1 ? acc[4 * jj + 3] + u.y : 0.0f);
+        }
+        put_part<16, 0, 16>(s1, sums, half);
+        put_part<16, 32, 48>(s2, sums, half);
+      } else {
+        float v[32];      // sums[32 half + 2 jj + e]: column 128 half + 8 jj + 2 t + e
+        take_part<32, 0, 32>(v, sums, half);
+#pragma unroll
+        for (int j0 = 0; j0 < 16; j0 += kJG) {
+          float y[4 * kJG];
+#pragma unroll
+          for (int d = 0; d < kJG; ++d) {
+            const int jj = j0 + d;
+            const float2 sc = *reinterpret_cast<const float2*>(sm.ca1 + c0 + 8 * jj);
+            const float2 u = *reinterpret_cast<const float2*>(sm.cb1 + c0 + 8 * jj);
+            y[4 * d] = fmaf(acc[4 * jj], sc.x, u.x);
+            y[4 * d + 1] = fmaf(acc[4 * jj + 1], sc.y, u.y);
+            y[4 * d + 2] = fmaf(acc[4 * jj + 2], sc.x, u.x);
+            y[4 * d + 3] = fmaf(acc[4 * jj + 3], sc.y, u.y);
+          }
+          gelu7(y);
+#pragma unroll
+          for (int d = 0; d < kJG; ++d) {
+            v[2 * (j0 + d)] += pw0 * y[4 * d] + pw1 * y[4 * d + 2];
+            v[2 * (j0 + d) + 1] += pw0 * y[4 * d + 1] + pw1 * y[4 * d + 3];
+          }
+        }
+        put_part<32, 0, 32>(v, sums, half);
+      }
+    }
+  }
+}
+
+// All tiles of pass PASS that fall to this warpgroup: those whose sequence
+// number is even for warpgroup 0, odd for warpgroup 1.
+template <int PASS>
+__device__ __forceinline__ void run_pass(const Smem& sm, const Params& q, int h, int n_tiles,
+                                         const Who& me, float (&sums)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sums[i] = 0.0f;
+  const int first = PASS * n_tiles;
+  for (int n = first + ((first ^ me.wgi) & 1); n < first + n_tiles; n += 2)
+    tile_pass<PASS>(sm, q, h, n, n - first, me, sums);
+}
+
+// GroupNorm statistics of this thread's channel (c = 32 cw + lane, group c / 8)
+// from every thread's group sums: across the warp by shuffles, across the
+// eight warps in warp order.
+__device__ __forceinline__ void group_stats(const Smem& sm, const float (&sums)[64], int P,
+                                            const Who& me, float& mean, float& inv) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    float x = sums[i];
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
+    if (me.lane == i % 32) sm.red[me.cw * 64 + i] = x;
+  }
+  consumers_meet();
+  const int g = (32 * me.cw + me.lane) / CPG;
+  float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kConsumerWarps; ++w) {
+    s1 += sm.red[w * 64 + g];
+    s2 += sm.red[w * 64 + 32 + g];
+  }
+  const float n = static_cast<float>(P) * CPG;
+  mean = s1 / n;
+  inv = rsqrtf(s2 / n - mean * mean + kEps);
+}
+
+__global__ void __launch_bounds__(kBlockThreads, 1)
+rot_head_wgmma_kernel(const bf16* pf, const bf16* w_pt, const bf16* w1, Params q) {
+  extern __shared__ unsigned char raw[];
+  const Smem sm(raw);
+  const int b = blockIdx.x / 2, h = blockIdx.x % 2;
+  const int P = q.P, n_tiles = (P + kTile - 1) / kTile;
+  const int tid = threadIdx.x;
+
+  // the head's weights, once; the ring zeroed so that rows no copy ever
+  // fills hold finite values; gterm + b0 and b1 of the head's channels
+  wg::stage_weight(sm.wpt, w_pt + static_cast<size_t>(h) * F * CIN, CIN, F, CIN, tid, kBlockThreads);
+  wg::stage_weight(sm.w1, w1 + static_cast<size_t>(h) * F * F, F, F, F, tid, kBlockThreads);
+  for (int i = tid; i < kStages * kTileBytes / 16; i += kBlockThreads)
+    reinterpret_cast<uint4*>(sm.ring)[i] = make_uint4(0, 0, 0, 0);
+  const float* gt = q.gterm + static_cast<size_t>(b) * 2 * C + h * F;
+  for (int c = tid; c < F; c += kBlockThreads) {
+    sm.cb0[c] = gt[c] + q.b0[h * F + c];
+    sm.cb0[F + c] = gt[C + c] + q.b0[h * F + c];
+    sm.cb1[c] = q.b1[h * F + c];
+  }
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      wg::mbar_init(&sm.full[s], 1);       // the producer's arrive, with the copy's bytes
+      wg::mbar_init(&sm.empty[s], 128);    // every thread of the warpgroup that read the tile
+    }
+    wg::mbar_init_fence();
+  }
+  wg::fence_proxy_async();
+  __syncthreads();
+
+  if (tid >= kConsumerThreads) {
+    // ---- producer: tile n of the sequence (three passes over the object) into stage n % 4
+    wg::reg_dealloc<kProducerRegs>();
+    if (tid == kConsumerThreads) {
+      const unsigned char* src =
+          reinterpret_cast<const unsigned char*>(pf + static_cast<size_t>(b) * P * CIN);
+      int i = 0;
+      for (int n = 0; n < 3 * n_tiles; ++n) {
+        const int stage = n % kStages;
+        wg::mbar_wait(&sm.empty[stage], ((n / kStages) & 1) ^ 1);
+        const uint32_t bytes = static_cast<uint32_t>(min(kTile, P - i * kTile)) * CIN * 2;
+        wg::mbar_arrive_expect_tx(&sm.full[stage], bytes);
+        wg::bulk_copy(sm.ring + stage * kTileBytes, src + static_cast<size_t>(i) * kTileBytes,
+                      bytes, &sm.full[stage]);
+        if (++i == n_tiles) i = 0;
+      }
+    }
+  } else {
+    // ---- consumers
+    wg::reg_alloc<kConsumerRegs>();
+    const Who me;
+    const int c = 32 * me.cw + me.lane;      // this thread's channel of the head
+    float sums[64], mean, inv;
+
+    run_pass<0>(sm, q, h, n_tiles, me, sums);
+    group_stats(sm, sums, P, me, mean, inv);
+    {
+      const float sc = inv * q.gn0s[h * F + c], sh = q.gn0b[h * F + c];
+      sm.ca0[c] = sc;
+      sm.cb0[c] = (sm.cb0[c] - mean) * sc + sh;
+      sm.cb0[F + c] = (sm.cb0[F + c] - mean) * sc + sh;
+    }
+    consumers_meet();
+
+    run_pass<1>(sm, q, h, n_tiles, me, sums);
+    group_stats(sm, sums, P, me, mean, inv);
+    {
+      const float sc = inv * q.gn1s[h * F + c];
+      sm.ca1[c] = sc;
+      sm.cb1[c] = (sm.cb1[c] - mean) * sc + q.gn1b[h * F + c];
+    }
+    consumers_meet();
+
+    run_pass<2>(sm, q, h, n_tiles, me, sums);
+    // v: over the eight row lanes by shuffles, then over the warps in the neck
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      float x = sums[i];
+#pragma unroll
+      for (int off = 4; off < 32; off *= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
+      if (me.g == 0)
+        sm.red[me.cw * F + (i / 32) * wg::kHalfN + 8 * ((i % 32) / 2) + 2 * me.t + i % 2] = x;
+    }
+    consumers_meet();
+    // neck: out[3 h + j] = sum_c v[c] * neck[3 h + j, c] + bias6[3 h + j], warp j
+    if (me.cw < 3) {
+      const int row = 3 * h + me.cw;
+      float acc = 0.0f;
+      for (int cc = me.lane; cc < F; cc += 32) {
+        float v = 0.0f;
+#pragma unroll
+        for (int w = 0; w < kConsumerWarps; ++w) v += sm.red[w * F + cc];
+        acc += v * q.neck[row * F + cc];
+      }
+      for (int off = 16; off > 0; off /= 2) acc += __shfl_down_sync(0xffffffffu, acc, off);
+      if (me.lane == 0) q.out[static_cast<size_t>(b) * 6 + row] = acc + q.bias6[row];
+    }
+  }
+}
+
+int run(const void* pf, const void* w_pt, const void* w1, const Params& q, int B, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(rot_head_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_bytes()));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rot_head_wgmma_kernel<<<2 * B, kBlockThreads, smem_bytes(), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(pf), static_cast<const bf16*>(w_pt), static_cast<const bf16*>(w1), q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chain the kernel is built on, alone, for a canned check on the card:
+// out0 = x @ w0^T (64 x 256, f32) from the staged panels and ldmatrix A
+// registers, out1 = round(out0) @ w1^T with the rounded accumulators of the
+// first product as the A registers of the second. One warpgroup.
+__global__ void __launch_bounds__(128)
+wgmma_chain_kernel(const bf16* x, const bf16* w0, const bf16* w1, float* out0, float* out1) {
+  extern __shared__ unsigned char raw[];
+  const Smem sm(raw);
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  wg::stage_weight(sm.wpt, w0, CIN, F, CIN, tid, 128);
+  wg::stage_weight(sm.w1, w1, F, F, F, tid, 128);
+  for (int i = tid; i < kTileBytes / 16; i += 128)
+    reinterpret_cast<uint4*>(sm.ring)[i] = reinterpret_cast<const uint4*>(x)[i];
+  wg::fence_proxy_async();
+  __syncthreads();
+
+  uint32_t pa[4][4], a[16][4];
+  wg::load_a_tile(pa, sm.ring, w, lane);
+  auto store = [&](float* out, int half, const float (&acc)[64]) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        out[(16 * w + g + 8 * (e / 2)) * F + half * wg::kHalfN + 8 * j + 2 * t + e % 2] =
+            acc[4 * j + e];
+  };
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float acc[64];
+    wg::product<4>(acc, pa, sm.wpt, F, half);
+    store(out0, half, acc);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      a[8 * half + j / 2][2 * (j % 2)] = wg::pack_a(acc[4 * j], acc[4 * j + 1]);
+      a[8 * half + j / 2][2 * (j % 2) + 1] = wg::pack_a(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float acc[64];
+    wg::product<16>(acc, a, sm.w1, F, half);
+    store(out1, half, acc);
+  }
+}
+
+}  // namespace hopper
+
+// ================================================================ f32: exact FMA
+namespace exact {
+
+constexpr int TM = kTileM<float>, MI = TM / 32;
+
 // Shared memory: [red1 | red2 (2 x 128 each) | s1 | s2 | v (C each) |
-// mean0 inv0 mean1 inv1 (G each) | weight stage | point-feature tile (TM x LDP) |
+// mean0 inv0 mean1 inv1 (G each) | point-feature tile (TM x LDP) |
 // layer-1 input tile (TM x LDA)].
-template <typename T>
 struct Tiles {
   float* red1;
   float* red2;
@@ -71,9 +564,8 @@ struct Tiles {
   float* inv0;
   float* mean1;
   float* inv1;
-  T* stage;
-  T* pfs;
-  T* as;
+  float* pfs;
+  float* as;
   __device__ explicit Tiles(unsigned char* smem) {
     red1 = reinterpret_cast<float*>(smem);
     red2 = red1 + 2 * kTileN;
@@ -84,27 +576,22 @@ struct Tiles {
     inv0 = mean0 + G;
     mean1 = inv0 + G;
     inv1 = mean1 + G;
-    stage = reinterpret_cast<T*>(inv1 + G);
-    pfs = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(stage) + kStageBytes<T>);
-    as = pfs + kTileM<T> * LDP;
+    pfs = inv1 + G;
+    as = pfs + TM * LDP;
   }
 };
 
-template <typename T>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (4 * kTileN + 3 * C + 4 * G) + kStageBytes<T> +
-         sizeof(T) * kTileM<T> * (LDP + LDA);
+  return sizeof(float) * (4 * kTileN + 3 * C + 4 * G + TM * (LDP + LDA));
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-rot_head_kernel(const T* pf, const T* w_pt, const T* w1, Params q) {
-  constexpr int TM = kTileM<T>, MI = TM / 32;
+rot_head_f32_kernel(const float* pf, const float* w_pt, const float* w1, Params q) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Tiles<T> t(smem);
+  const Tiles t(smem);
   const int b = blockIdx.x;
   const int P = q.P;
-  const T* pfb = pf + static_cast<size_t>(b) * P * CIN;
+  const float* pfb = pf + static_cast<size_t>(b) * P * CIN;
   const float* gt = q.gterm + static_cast<size_t>(b) * 2 * C;
 
   for (int i = threadIdx.x; i < 3 * C; i += kThreads) t.s1[i] = 0.0f;   // s1, s2, v
@@ -120,7 +607,7 @@ rot_head_kernel(const T* pf, const T* w_pt, const T* w1, Params q) {
     load_tile(t.pfs, LDP, pfb + static_cast<size_t>(p0) * CIN, rows, TM, CIN);
     for (int c0 = 0; c0 < C; c0 += kTileN) {
       Acc<MI> acc;
-      gemm_tile(acc, t.pfs, LDP, w_pt + static_cast<size_t>(c0) * CIN, CIN, CIN, t.stage);
+      gemm_tile(acc, t.pfs, LDP, w_pt + static_cast<size_t>(c0) * CIN, CIN, CIN, nullptr);
       add_sums(acc, [&](int r, int c, float a) {
         return r < rows ? x0(p0, r, c0 + c, a) : 0.0f;
       }, t.red1, t.red2, t.s1, t.s2, c0);
@@ -137,14 +624,14 @@ rot_head_kernel(const T* pf, const T* w_pt, const T* w1, Params q) {
     for (int p0 = 0; p0 < P; p0 += TM) {
       const int rows = min(TM, P - p0);
       load_tile(t.pfs, LDP, pfb + static_cast<size_t>(p0) * CIN, rows, TM, CIN);
-      // as = round_T(GELU(GN0(x0))) for the whole tile
+      // as = GELU(GN0(x0)) for the whole tile
       for (int c0 = 0; c0 < C; c0 += kTileN) {
         Acc<MI> acc;
-        gemm_tile(acc, t.pfs, LDP, w_pt + static_cast<size_t>(c0) * CIN, CIN, CIN, t.stage);
+        gemm_tile(acc, t.pfs, LDP, w_pt + static_cast<size_t>(c0) * CIN, CIN, CIN, nullptr);
         acc_for_each(acc, [&](int r, int c, float a) {
           const int ch = c0 + c, g = ch / (C / G);
           const float y = (x0(p0, r, ch, a) - t.mean0[g]) * t.inv0[g] * q.gn0s[ch] + q.gn0b[ch];
-          t.as[r * LDA + ch] = from_f32<T>(gelu(y));
+          t.as[r * LDA + ch] = gelu(y);
         });
       }
       for (int h = 0; h < 2; ++h) {
@@ -152,7 +639,7 @@ rot_head_kernel(const T* pf, const T* w_pt, const T* w1, Params q) {
         for (int c0 = 0; c0 < F; c0 += kTileN) {
           const int ch0 = h * F + c0;
           Acc<MI> acc;
-          gemm_tile(acc, t.as + h * F, LDA, w1 + static_cast<size_t>(ch0) * F, F, F, t.stage);
+          gemm_tile(acc, t.as + h * F, LDA, w1 + static_cast<size_t>(ch0) * F, F, F, nullptr);
           if (pass == 0) {
             add_sums(acc, [&](int r, int c, float a) {
               return r < rows ? a + q.b1[ch0 + c] : 0.0f;
@@ -189,12 +676,12 @@ rot_head_kernel(const T* pf, const T* w_pt, const T* w1, Params q) {
   }
 }
 
-template <typename T>
 int run(const void* pf, const void* w_pt, const void* w1, const Params& q, int B, void* stream) {
-  return launch(rot_head_kernel<T>, B, smem_bytes<T>(), stream, static_cast<const T*>(pf),
-                static_cast<const T*>(w_pt), static_cast<const T*>(w1), q);
+  return launch(rot_head_f32_kernel, B, smem_bytes(), stream, static_cast<const float*>(pf),
+                static_cast<const float*>(w_pt), static_cast<const float*>(w1), q);
 }
 
+}  // namespace exact
 }  // namespace
 
 // pf (B, P, 64), w_pt (512, 64) and w1 (2, 256, 256) in T = bf16 if `bf16`
@@ -218,5 +705,20 @@ extern "C" int catre_rot_head(const void* pf, const void* gterm, const void* w_p
   q.out = static_cast<float*>(out);
   q.P = P;
   q.n_pcl = n_pcl;
-  return bf16 ? run<catre::bf16>(pf, w_pt, w1, q, B, stream) : run<float>(pf, w_pt, w1, q, B, stream);
+  return bf16 ? hopper::run(pf, w_pt, w1, q, B, stream) : exact::run(pf, w_pt, w1, q, B, stream);
+}
+
+// x (64, 64), w0 (256, 64), w1 (256, 256) bf16 -> out0, out1 (64, 256) f32:
+// the two chained wgmma products of K3 with nothing between them but the
+// rounding (see hopper::wgmma_chain_kernel).
+extern "C" int catre_wgmma_chain(const void* x, const void* w0, const void* w1, void* out0,
+                                 void* out1, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(hopper::wgmma_chain_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(hopper::smem_bytes()));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  hopper::wgmma_chain_kernel<<<1, 128, hopper::smem_bytes(), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const catre::bf16*>(x), static_cast<const catre::bf16*>(w0),
+      static_cast<const catre::bf16*>(w1), static_cast<float*>(out0), static_cast<float*>(out1));
+  return static_cast<int>(cudaGetLastError());
 }

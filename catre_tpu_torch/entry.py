@@ -24,7 +24,7 @@ from .engine.train import TrainState, TrainStep, init_train_state, make_train_st
 from .geom.rotations import euler_to_mat
 from .geom.symmetry import axis_symmetry_rotation_bank
 from .models.catre import CATREConfig, CATREDisRShared, init_model
-from .solver.build import build_optimizer
+from .solver.build import build_optimizer, refuse_unported_training_keys
 
 N_ITER = 4
 
@@ -134,6 +134,7 @@ def flagship_trainer(device="cuda", batch_size: int = 512, seed: int = 0,
     `model_overrides` replace fields of the model's `CATREConfig`, e.g.
     `fused_encoder_train=False` for the plain encoder under autograd."""
     cfg = load_config(str(FLAGSHIP_CONFIG))
+    refuse_unported_training_keys(cfg)
     mcfg = dataclasses.replace(model_config_from(cfg), **model_overrides)
     model = init_model(mcfg, seed=seed, device=device)
     optimizer = build_optimizer(cfg.SOLVER, model.named_parameters())

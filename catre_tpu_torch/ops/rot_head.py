@@ -118,6 +118,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("rot_head")
     lib.catre_rot_head.argtypes = [_P] * 14 + [_I] * 4 + [_P]
     lib.catre_rot_head.restype = _I
+    lib.catre_wgmma_chain.argtypes = [_P] * 6
+    lib.catre_wgmma_chain.restype = _I
     return lib
 
 
@@ -161,6 +163,32 @@ def rot_head(pf, gterm, p: RotHeadPack, n_pcl: int):
     _build.check(rc, "rot_head")
     LAUNCHES["rot_head"] += 1
     return out
+
+
+def wgmma_chain_plain(x, w0, w1):
+    """x (64, 64), w0 (256, 64), w1 (256, 256) bf16 -> (x @ w0^T, round_bf16(x @ w0^T) @ w1^T),
+    both (64, 256) f32 with f32 accumulation."""
+    out0 = x.float() @ w0.float().T
+    return out0, out0.to(torch.bfloat16).float() @ w1.float().T
+
+
+def wgmma_chain(x, w0, w1):
+    """The two chained tensor-core products the bf16 K3 is built on, with
+    nothing between them but the rounding: staged weight panels, A registers
+    from a shared-memory tile, and the first product's accumulators packed
+    as the second's A registers (`csrc/wgmma_tile.cuh`). A check of that
+    machinery on canned inputs; no launch of K3, so it is not counted."""
+    if x.device.type == "cpu":
+        return wgmma_chain_plain(x, w0, w1)
+    for t, shape in ((x, (64, IN_POINT)), (w0, (FEAT, IN_POINT)), (w1, (FEAT, FEAT))):
+        if t.shape != shape or t.dtype != torch.bfloat16:
+            raise ValueError(f"wgmma_chain: {tuple(t.shape)} {t.dtype}, want {shape} bfloat16")
+    _build.cuda_inputs("wgmma_chain", x, w0, w1)
+    out0, out1 = (torch.empty(64, FEAT, device=x.device, dtype=torch.float32) for _ in range(2))
+    rc = _lib().catre_wgmma_chain(x.data_ptr(), w0.data_ptr(), w1.data_ptr(), out0.data_ptr(),
+                                  out1.data_ptr(), _build.stream_handle(x.device))
+    _build.check(rc, "wgmma_chain")
+    return out0, out1
 
 
 def _packed_inputs(point_feats, g_pcl, g_kps, head, cdt):

@@ -10,7 +10,9 @@ code is non-zero):
   1. device:   the card's name and power limit (nvidia-smi); no card -> exit 1;
   2. build:    compile the CUDA kernels from catre_tpu_torch/csrc with nvcc;
   3. kernels:  K1, K2 and K3 vs their plain PyTorch twins at main-path shapes,
-               in f32 (tight) and bf16 (loose), and their times; K7 and K8 (2,
+               in f32 (tight) and bf16 (loose), and their times; K3's chained
+               tensor-core products alone, its launches bit-equal, and a point
+               count its tile does not divide; K7 and K8 (2,
                4 and 8 objects per block) vs their plain version, and vs K3 in
                f32, at the same shapes; K9 vs its plain version for the three
                encoder columns at 512 clouds x 1024 points;
@@ -68,6 +70,9 @@ PATH_GROUP = 4               # ... on the refine paths that run them
 RAGGED_B = 254               # a batch PATH_GROUP does not divide: K8 gives way to K3
 REFINE_BATCHES = (256, 2048)
 REFINE_CALLS = 3             # timed refine calls per batch size, after one warm-up
+K3_REPEATS = 5               # further launches of K3 that must give the first one's bits
+K3_RAGGED = (1999, 1000)     # points and cloud points that K3's 64-point tile does not divide
+CHAIN_TOL, CHAIN_TOL_ROUNDED = 1e-5, 1e-3    # K3's two chained products, x max|plain|
 K4_CHECK_B, K4_TIME_B = 64, 512
 TRAIN_B, TRAIN_STEPS = 512, 3     # timed train steps, after one warm-up
 NEAR_TIE = 1e-6              # f32 argmax rows may differ where two rows are this close
@@ -165,6 +170,9 @@ def check_rot_head_multi(rot_args):
                 else:
                     nearer_its_own_version(f"{tag} {group} objects per block", out, ref, k3_plain,
                                            "K3's plain version (f32 point reduction)")
+        if cdt == torch.bfloat16:     # and K3 nearer its own: its erf is its own polynomial
+            nearer_its_own_version("K3", k3, k3_plain, ref,
+                                   "the K7/K8 plain version (rounded point reduction)")
         k3_gap = (k3 - ref).abs().max().item()
         log("kernels", f"K3 vs the K7/K8 plain version {str(cdt)[6:]}: {k3_gap:.3e} "
                        "(the rounded point reduction)")
@@ -181,6 +189,47 @@ def check_rot_head_multi(rot_args):
                         "ms": by_group[PATH_GROUP], "plain_ms": plain_ms,
                         "ms_by_objects_per_block": by_group}
     return results
+
+
+def check_k3_design(rot_args):
+    """What the bf16 K3's design has to show beyond agreeing with its plain
+    version at the main path's shape: the two chained `wgmma` products it is
+    built on, alone, on canned operands (the first product's accumulators are
+    the second's A registers); launches on the same inputs bit-equal, several
+    times over (a missing fence or a ring stage given back too early shows
+    only sometimes); and a point count that the 64-point tile does not divide,
+    with a cloud / keypoint boundary inside a tile, in f32 and bf16."""
+    from catre_tpu_torch.ops import rot_head as rot_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(3)   # its own: later phases keep their inputs
+    x, w0, w1 = (torch.randn(*shape, device="cuda", generator=gen).bfloat16()
+                 for shape in ((64, 64), (256, 64), (256, 256)))
+    outs, refs = rot_ops.wgmma_chain(x, w0, w1), rot_ops.wgmma_chain_plain(x, w0, w1)
+    torch.cuda.synchronize()
+    # exact bf16 products, f32 sums in another order; a sum that rounds the other
+    # way to bf16 moves one of the second product's 256 operands by one ulp
+    for name, out, ref, rel in zip(("x @ w0^T", "round(x @ w0^T) @ w1^T"), outs, refs,
+                                   (CHAIN_TOL, CHAIN_TOL_ROUNDED)):
+        err, limit = (out - ref).abs().max().item(), rel * ref.abs().max().item()
+        log("kernels", f"K3 wgmma chain {name}: max_abs_err={err:.3e} limit={limit:.3e}")
+        if not err <= limit:
+            raise RuntimeError(f"K3 wgmma chain {name}: {err} > {limit}")
+
+    args = rot_args(torch.bfloat16)
+    first = rot_ops.rot_head(*args)
+    for _ in range(K3_REPEATS):
+        if not torch.equal(first, rot_ops.rot_head(*args)):
+            raise RuntimeError("K3 bf16: two launches on the same inputs differ")
+    log("kernels", f"K3 bf16: {1 + K3_REPEATS} launches on the same inputs bit-equal")
+
+    p_ragged, n_pcl = K3_RAGGED
+    for cdt in TOL:
+        pf, gterm, pack, _ = rot_args(cdt)
+        pf = pf[:, :p_ragged].contiguous()
+        pack = dataclasses.replace(pack, pw=pack.pw[:, :p_ragged].contiguous())
+        tensor_errors("kernels", f"K3 P={p_ragged} n_pcl={n_pcl}", cdt,
+                      [rot_ops.rot_head(pf, gterm, pack, n_pcl)],
+                      [rot_ops.rot_head_twin(pf, gterm, pack, n_pcl)], ["out"])
 
 
 def check_k4(head, dev, gen):
@@ -558,6 +607,7 @@ def main():
 
         results["K3"] = check_kernel("K3 rot_head", rot_ops.rot_head, rot_ops.rot_head_twin,
                                      rot_args)
+        check_k3_design(rot_args)
         results.update(check_rot_head_multi(rot_args))
 
         # K9: the three encoder columns, weights of the seeded model

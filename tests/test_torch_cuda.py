@@ -83,7 +83,7 @@ def test_dense_relu_dense_max_kernel(dev, cdt, n, p):
 
 
 @pytest.mark.parametrize("cdt", DTYPES)
-@pytest.mark.parametrize("b,p,k", [(8, 1024, 1024), (3, 96, 40)])
+@pytest.mark.parametrize("b,p,k", [(8, 1024, 1024), (3, 96, 40), (5, 150, 43), (2, 20, 9)])
 def test_rot_head_kernel(dev, cdt, b, p, k):
     gen = torch.Generator().manual_seed(b)
     head = ConvOutPerRotHead(gen, num_points=p + k)
@@ -99,6 +99,77 @@ def test_rot_head_kernel(dev, cdt, b, p, k):
         gterm = torch.stack([g_pcl, g_kps], dim=1) @ pack.w_g.T
         out = rot_ops.rot_head(pf, gterm, pack, p)
         _assert_close(out, rot_ops.rot_head_twin(pf, gterm, pack, p), cdt)
+
+
+def _chain_inputs(kind, dev):
+    """Canned operands of the two chained products: `pattern` gives every
+    element of x and every row of w0 a value of its own that bf16 holds
+    exactly (a misplaced fragment shows as a wrong integer); `random` is
+    seeded noise."""
+    if kind == "pattern":
+        x = (torch.arange(64)[:, None] - 32 + (torch.arange(64)[None, :] % 7) * 0.25).float()
+        w0 = torch.zeros(256, 64)
+        w0[torch.arange(256), torch.arange(256) % 64] = 1.0 + (torch.arange(256) // 64).float()
+        w1 = torch.zeros(256, 256)
+        w1[torch.arange(256), (torch.arange(256) * 5 + 3) % 256] = 1.0
+    else:
+        gen = torch.Generator().manual_seed(7)
+        x, w0, w1 = (torch.randn(*s, generator=gen) for s in ((64, 64), (256, 64), (256, 256)))
+    return [t.to(dev, torch.bfloat16) for t in (x, w0, w1)]
+
+
+@pytest.mark.parametrize("kind", ["pattern", "random"])
+def test_wgmma_chain_kernel(dev, kind):
+    """The accumulator of one wgmma is the A fragment of the next (n-tiles
+    2 s and 2 s + 1 are k-step s), and the staged weight panels and their
+    descriptors address what they should. f32 accumulation of exact bf16
+    products: only the summation order differs from the plain version, and a
+    sum that rounds the other way before the chain rounds it to bf16 moves
+    one operand of the second product by a bf16 ulp."""
+    x, w0, w1 = _chain_inputs(kind, dev)
+    out0, out1 = rot_ops.wgmma_chain(x, w0, w1)
+    ref0, ref1 = rot_ops.wgmma_chain_plain(x, w0, w1)
+    torch.cuda.synchronize()
+    if kind == "pattern":     # one product per output: exact
+        assert torch.equal(out0, ref0) and torch.equal(out1, ref1)
+    else:
+        assert (out0 - ref0).abs().max().item() <= 1e-5 * ref0.abs().max().item()
+        assert (out1 - ref1).abs().max().item() <= 1e-3 * ref1.abs().max().item()
+
+
+@pytest.mark.parametrize("b,p,k", [(8, 1024, 1024), (3, 96, 40), (5, 150, 43), (2, 20, 9)])
+def test_rot_head_two_launches_are_bit_equal(dev, b, p, k):
+    """bf16 K3: sums in a fixed order, no atomics; also at point counts that
+    the 64-point tile does not divide and with fewer points than one tile."""
+    gen = torch.Generator().manual_seed(40 + b)
+    head = _scaled_head(gen, p + k, dev)
+    pf = (torch.randn(b, p + k, 64, generator=gen) * 0.5).to(dev, torch.bfloat16)
+    g2 = (torch.randn(b, 2, 1024, generator=gen) * 0.5).to(dev)
+    with torch.no_grad():
+        pack = rot_ops.pack_rot_head(head, torch.bfloat16)
+        gterm = (g2 @ pack.w_g.T).contiguous()
+        outs = [rot_ops.rot_head(pf, gterm, pack, p) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+        _assert_close(outs[0], rot_ops.rot_head_twin(pf, gterm, pack, p), torch.bfloat16)
+
+
+def test_rot_head_ignores_what_lies_past_the_last_point(dev):
+    """bf16 K3 at a ragged P: the same object inside a longer batch row
+    (other points after it in device memory) gives the same bits as alone."""
+    gen = torch.Generator().manual_seed(50)
+    p, k = 100, 37
+    head = _scaled_head(gen, p + k, dev)
+    pf = (torch.randn(4, p + k, 64, generator=gen) * 0.5).to(dev, torch.bfloat16)
+    g2 = (torch.randn(4, 2, 1024, generator=gen) * 0.5).to(dev)
+    with torch.no_grad():
+        pack = rot_ops.pack_rot_head(head, torch.bfloat16)
+        gterm = (g2 @ pack.w_g.T).contiguous()
+        whole = rot_ops.rot_head(pf, gterm, pack, p)
+        alone = torch.cat([rot_ops.rot_head(pf[i:i + 1].clone(), gterm[i:i + 1].clone(), pack, p)
+                           for i in range(4)])
+        torch.cuda.synchronize()
+        assert torch.equal(whole, alone)
 
 
 def test_wrappers_raise_on_bad_input(dev):

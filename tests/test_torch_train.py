@@ -15,6 +15,7 @@
     training path.
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -48,7 +49,7 @@ from catre_tpu_torch.losses import LossConfig
 from catre_tpu_torch.models.catre import CATREConfig, init_model
 from catre_tpu_torch.models.heads import ConvOutPerRotHead
 from catre_tpu_torch.ops import rot_head_train as train_ops
-from catre_tpu_torch.solver.build import build_optimizer
+from catre_tpu_torch.solver.build import build_optimizer, refuse_unported_training_keys
 from catre_tpu_torch.solver.ranger import Ranger
 from catre_tpu_torch.utils.convert import params_from_jax
 
@@ -151,6 +152,44 @@ def test_build_optimizer_is_ranger_only():
     assert isinstance(opt, Ranger) and opt.param_groups[0]["lr"] == 4e-4
     with pytest.raises(NotImplementedError, match="item 11"):
         build_optimizer({"OPTIMIZER_CFG": {"type": "Adam"}}, model.named_parameters())
+
+
+def _flagship_with(path, value):
+    """The shipped config with the key at `path` (a tuple of names) set."""
+    cfg = copy.deepcopy(load_config(str(FLAGSHIP_CONFIG)))
+    node = cfg
+    for name in path[:-1]:
+        node = node[name]
+    node[path[-1]] = value
+    return cfg
+
+
+@pytest.mark.parametrize("path,value", [
+    (("SOLVER", "CLIP_GRADIENTS", "ENABLED"), True),
+    (("MODEL", "CATRE", "ROT_HEAD", "LR_MULT"), 0.1),
+    (("MODEL", "CATRE", "TS_HEAD", "LR_MULT"), 2.0),
+    (("MODEL", "CATRE", "PCLNET", "FREEZE"), True),
+    (("MODEL", "CATRE", "ROT_HEAD", "FREEZE"), True),
+    (("MODEL", "CATRE", "TS_HEAD", "FREEZE"), True),
+    ((), None),
+], ids=lambda v: ".".join(v) if isinstance(v, tuple) and v else ("shipped" if v == () else None))
+def test_unported_training_keys_raise(path, value):
+    """JAX applies gradient clipping (`solver/build.py:197-204`), per-head
+    LR multipliers and FREEZE (`engine/runner.py:197-205`); the port does not
+    yet, so a config that sets one raises and names the key. The shipped
+    config sets none and passes."""
+    model = init_model(CATREConfig(num_pcl=P, num_kps=K), seed=0)
+
+    def build(cfg):
+        refuse_unported_training_keys(cfg)
+        return build_optimizer(cfg.SOLVER, model.named_parameters())
+
+    if not path:
+        assert isinstance(build(load_config(str(FLAGSHIP_CONFIG))), Ranger)
+        return
+    with pytest.raises(NotImplementedError, match="items 11") as e:
+        build(_flagship_with(path, value))
+    assert ".".join(path[-2:]) in str(e.value)
 
 
 def _to_torch(batch):
