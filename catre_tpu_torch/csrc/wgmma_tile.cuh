@@ -6,10 +6,12 @@
 // (mma.sync, 256-thread blocks) is a separate path and shares nothing with
 // this header but the element type.
 //
-// One shape only: D (64 x 128, f32) += A (64 x 16, bf16, registers) @
-// B^T, B = W[n0 : n0 + 128, k0 : k0 + 16] of a weight in PyTorch's (out, in)
-// layout that sits in shared memory as K-panels (below). A warpgroup is four
-// consecutive warps, the first with warp index % 4 == 0.
+// Two shapes. D (64 x 128, f32) += A (64 x 16, bf16, registers) @ B^T, B =
+// W[n0 : n0 + 128, k0 : k0 + 16] of a weight in PyTorch's (out, in) layout
+// that sits in shared memory as K-panels (below): `product`. And D (64 x 64)
+// += A @ B^T likewise, or A @ B with B = W[k0 : k0 + 16, n0 : n0 + 64], the
+// same bytes read the other way (a backward product d_y W): `product_n64`.
+// A warpgroup is four consecutive warps, the first with warp index % 4 == 0.
 //
 // Fragments. Warp w of the warpgroup owns rows 16 w .. 16 w + 15; lane
 // (g = lane / 4, t = lane % 4) holds
@@ -29,6 +31,14 @@
 // names a panel for wgmma (stride between 8-row groups 1024 bytes); a k-step
 // inside a panel advances the descriptor's address by 32 bytes, 128 rows by
 // 16384 bytes.
+//
+// The same panel read transposed (MN-major, the instruction's transpose-B
+// flag): the product's N runs along a panel's 64 columns (one 128-byte row,
+// the whole swizzle atom, so N = 64 is one panel and the leading offset is
+// not used) and its K along the panel's rows, 8 rows (1024 bytes, the stride
+// offset) a group. The descriptor has the same fields as the K-major one; a
+// k-step of 16 rows advances its address by 2048 bytes, and 64 more columns
+// are the next panel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +53,8 @@ constexpr int kRowBytes = 128;
 constexpr int kHalfN = 128;                    // output columns of one product
 constexpr int kKStepUnits = 32 >> 4;           // descriptor address units (16 bytes) per k-step
 constexpr int kHalfNUnits = (kHalfN * kRowBytes) >> 4;
+constexpr int kQuarterN = 64;                  // output columns of one `product_n64`
+constexpr int kKStepRowsUnits = (16 * kRowBytes) >> 4;         // a k-step of 16 panel rows
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -70,7 +82,8 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Descriptor of a K-major panel under the 128-byte swizzle.
+// Descriptor of a panel under the 128-byte swizzle, from `panel` on: read
+// K-major (N along the rows) or, 64 columns wide, MN-major (K along the rows).
 __device__ __forceinline__ uint64_t panel_desc(const void* panel) {
   return static_cast<uint64_t>((smem_addr(panel) & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(1) << 16) |              // leading offset: unused for this layout
@@ -98,6 +111,14 @@ __device__ __forceinline__ void pin(float (&d)[64]) {
 __device__ __forceinline__ void pin_new(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "=f"(d[i])::"memory");
+}
+__device__ __forceinline__ void pin(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void pin_new(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "=f"(d[i])::"memory");
 }
 __device__ __forceinline__ void pin(uint32_t (&a)[4]) {
 #pragma unroll
@@ -151,6 +172,57 @@ __device__ __forceinline__ void product(float (&d)[64], uint32_t (&a)[KS][4], co
 #pragma unroll
   for (int s = 0; s < KS; ++s)
     wgmma_m64n128k16(d, a[s], desc + (s / 4) * panel_units + (s % 4) * kKStepUnits, s > 0);
+  wgmma_commit();
+  wgmma_wait();
+  pin(d);
+#pragma unroll
+  for (int s = 0; s < KS; ++s) pin(a[s]);
+}
+
+// d (64 x 64) = (accumulate ? d : 0) + a (64 x 16, registers) @ B^T, B the 64
+// rows x 16 columns that `b_desc` names (TRANS = 0), or a @ B, B the 16 rows
+// x 64 columns from `b_desc` on (TRANS = 1). Asynchronous, as above.
+template <int TRANS>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate), "n"(TRANS));
+}
+
+// d (64 x 64) = (accumulate ? d : 0) + A (64 x 16 KS) @ the weight bytes from
+// `first` on, k-step s at `first` + s * `step_units` (16 bytes each):
+//   TRANS = 0: A @ W[n0 : n0 + 64, k0 : k0 + 16 KS]^T inside one panel; `first`
+//              is row n0 of the panel at column k0, the step kKStepUnits;
+//   TRANS = 1: A @ W[k0 : k0 + 16 KS, 64 kp : 64 kp + 64]; `first` is row k0 of
+//              panel kp, the step kKStepRowsUnits.
+// Starts the products, commits, waits, as `product`.
+template <int KS, int TRANS>
+__device__ __forceinline__ void product_n64(float (&d)[32], uint32_t (&a)[KS][4], const void* first,
+                                            int step_units, int accumulate) {
+  const uint64_t desc = panel_desc(first);
+  if (accumulate) pin(d);
+  else pin_new(d);
+#pragma unroll
+  for (int s = 0; s < KS; ++s) pin(a[s]);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < KS; ++s)
+    wgmma_m64n64k16<TRANS>(d, a[s], desc + static_cast<uint64_t>(s * step_units),
+                           s > 0 ? 1 : accumulate);
   wgmma_commit();
   wgmma_wait();
   pin(d);

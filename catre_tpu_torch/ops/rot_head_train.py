@@ -15,6 +15,13 @@ and whose backward `_bwd` (:281) launches `_bwd_kernel` (:100) through
     gradients through gterm = g @ W_g^T, the folded bias
     bias6 = sum(pw) * neck_b + pb (d_bias6 = sum_b d_out) and the unpacking
     into the two `RotHead`s, as `_bwd` does at :322-347.
+The kernel's two builds take different buffers (`SLOTS`): bf16 runs one block
+per (object, head) on `wgmma` with the head's weights resident in shared
+memory, recomputes the f32 pre-activations and keeps only the bf16 operands of
+the weight-gradient products in device memory (a, d_x2, d_x0, each (B, P, 512),
+columns in the kernel's fragment order) and the two heads' f32 d_pf partials;
+f32 runs one block per object with the pre-activations x0, x2 in an f32
+scratch (8 bytes per point and channel) and transposed weight copies.
 The Function takes the packed weights in f32 and casts them to the compute
 dtype inside, so the weight gradients stay f32 (`prep`, :284-289); d_pf comes
 back in pf's dtype (:374).
@@ -39,8 +46,14 @@ GRAD_NAMES = ("pf", "gterm", "w_pt", "b0", "gn0s", "gn0b", "w1", "b1", "gn1s", "
 # pointer slots of catre_rot_head_bwd, the order of `Slot` in csrc/rot_head_bwd.cu
 SLOTS = ("pf", "gterm", "dout", "w_pt", "w1", "w1t", "w_pt_t", "b0", "gn0s", "gn0b", "b1",
          "gn1s", "gn1b", "pw", "neck",
-         "x0", "x2", "act", "d2", "d0", "pobj", "ppw", "pneck", "gpart",
+         "x0", "x2", "act", "d2", "d0", "pfpart", "pobj", "ppw", "pneck", "gpart",
          "d_pf", "d_gterm", "d_vec", "d_pw", "d_neck", "d_w_pt", "d_w1")
+# slots only one build takes (the other passes a null pointer): the f32 build
+# keeps the pre-activations x0, x2 in device memory and reads transposed weight
+# copies; the bf16 build recomputes, reads the staged weights both ways, and
+# joins the two heads' d_pf partials
+F32_ONLY = ("w1t", "w_pt_t", "x0", "x2")
+BF16_ONLY = ("pfpart",)
 C = 2 * FEAT
 # rows of d_vec, the six per-channel parameter gradients
 VEC_ROWS = ("b0", "gn0s", "gn0b", "b1", "gn1s", "gn1b")
@@ -75,6 +88,8 @@ def _lib() -> ctypes.CDLL:
     lib.catre_rot_head_bwd.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.catre_rot_head_bwd.restype = ctypes.c_int
     lib.catre_rot_head_bwd_slots.restype = ctypes.c_int
+    lib.catre_wgmma_tn.argtypes = [ctypes.c_void_p] * 7
+    lib.catre_wgmma_tn.restype = ctypes.c_int
     if lib.catre_rot_head_bwd_slots() != len(SLOTS):
         raise _build.KernelBuildError("rot_head_bwd: the library's pointer slots differ from SLOTS")
     return lib
@@ -110,25 +125,31 @@ def rot_head_bwd(pf, gterm, p: RotHeadPack, n_pcl: int, d_out) -> dict:
     def empty(*shape, dtype=torch.float32):
         return torch.empty(*shape, device=dev, dtype=dtype)
 
+    bf16 = cdt == torch.bfloat16
     w_pt = p.w_pt.to(cdt).contiguous()
     w1 = p.w1.to(cdt).contiguous()
-    w_pt_t = torch.zeros(128, C, device=dev, dtype=cdt)   # W_pt^T, zero rows 64..127
-    w_pt_t[:IN_POINT] = w_pt.T
     splits = max(1, min(128, -(-(B * P) // SPLIT_ROWS)))
     bufs = dict(
         pf=pf, gterm=gterm, dout=d_out, w_pt=w_pt, w1=w1,
-        w1t=w1.transpose(1, 2).contiguous(), w_pt_t=w_pt_t,
         b0=p.b0, gn0s=p.gn0s, gn0b=p.gn0b, b1=p.b1, gn1s=p.gn1s, gn1b=p.gn1b,
         pw=p.pw, neck=p.neck,
-        x0=empty(B, P, C), x2=empty(B, P, C), act=empty(B, P, C, dtype=cdt),
-        d2=empty(B, P, C, dtype=cdt), d0=empty(B, P, C, dtype=cdt),
+        act=empty(B, P, C, dtype=cdt), d2=empty(B, P, C, dtype=cdt), d0=empty(B, P, C, dtype=cdt),
         pobj=empty(B, 6, C), ppw=empty(B, 2, P), pneck=empty(B, 6, FEAT),
         gpart=empty(splits, 2 * FEAT * FEAT),
         d_pf=empty(B, P, IN_POINT), d_gterm=empty(B, 2, C), d_vec=empty(6, C),
         d_pw=empty(2, P), d_neck=empty(6, FEAT), d_w_pt=empty(C, IN_POINT),
         d_w1=empty(2, FEAT, FEAT))
-    ptrs = (ctypes.c_void_p * len(SLOTS))(*[bufs[n].data_ptr() for n in SLOTS])
-    rc = _lib().catre_rot_head_bwd(ptrs, B, P, n_pcl, int(cdt == torch.bfloat16), splits,
+    if bf16:
+        bufs["pfpart"] = empty(2, B, P, IN_POINT)
+    else:
+        w_pt_t = torch.zeros(128, C, device=dev, dtype=cdt)   # W_pt^T, zero rows 64..127
+        w_pt_t[:IN_POINT] = w_pt.T
+        bufs.update(w1t=w1.transpose(1, 2).contiguous(), w_pt_t=w_pt_t,
+                    x0=empty(B, P, C), x2=empty(B, P, C))
+    absent = F32_ONLY if bf16 else BF16_ONLY
+    ptrs = (ctypes.c_void_p * len(SLOTS))(*[None if n in absent else bufs[n].data_ptr()
+                                            for n in SLOTS])
+    rc = _lib().catre_rot_head_bwd(ptrs, B, P, n_pcl, int(bf16), splits,
                                    _build.stream_handle(dev))
     _build.check(rc, "rot_head_bwd")
     LAUNCHES["rot_head_bwd"] += 1
@@ -136,6 +157,34 @@ def rot_head_bwd(pf, gterm, p: RotHeadPack, n_pcl: int, d_out) -> dict:
              "w1": bufs["d_w1"], "pw": bufs["d_pw"], "neck": bufs["d_neck"]}
     grads.update(zip(VEC_ROWS, bufs["d_vec"]))
     return grads
+
+
+def wgmma_tn_plain(x, w0, w1):
+    """x (64, 256), w0 (256, 64), w1 (256, 256) bf16 -> (x @ w1 (64, 256), x @ w0 (64, 64),
+    x[:, :64] @ w0^T (64, 256)), f32 with f32 accumulation."""
+    xf = x.float()
+    return xf @ w1.float(), xf @ w0.float(), xf[:, :IN_POINT] @ w0.float().T
+
+
+def wgmma_tn(x, w0, w1):
+    """The tensor-core products of the bf16 K4 that K3 does not have, alone:
+    a weight staged once as swizzled panels for the forward product and read
+    transposed for the backward one (d_a = d_x2 W1, and d_pf = d_x0 W_pt
+    accumulated over quarters of W_pt's rows), and the forward product by
+    64-column quarters (`csrc/wgmma_tile.cuh::product_n64`). A check of that
+    machinery on canned inputs; no launch of K4, so it is not counted."""
+    if x.device.type == "cpu":
+        return wgmma_tn_plain(x, w0, w1)
+    for t, shape in ((x, (64, FEAT)), (w0, (FEAT, IN_POINT)), (w1, (FEAT, FEAT))):
+        if t.shape != shape or t.dtype != torch.bfloat16:
+            raise ValueError(f"wgmma_tn: {tuple(t.shape)} {t.dtype}, want {shape} bfloat16")
+    _build.cuda_inputs("wgmma_tn", x, w0, w1)
+    outs = [torch.empty(64, n, device=x.device, dtype=torch.float32)
+            for n in (FEAT, IN_POINT, FEAT)]
+    rc = _lib().catre_wgmma_tn(x.data_ptr(), w0.data_ptr(), w1.data_ptr(),
+                               *[o.data_ptr() for o in outs], _build.stream_handle(x.device))
+    _build.check(rc, "wgmma_tn")
+    return tuple(outs)
 
 
 class RotHeadTrain(torch.autograd.Function):

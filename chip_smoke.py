@@ -32,7 +32,9 @@ code is non-zero):
   6. K4:       the rotation-head backward kernel vs its plain version
                (autograd of the K3 twin), B = 64 and the main path's B = 512
                objects x 2048 points, f32 (tight) and bf16 (loose), per
-               gradient tensor; times at B = 512;
+               gradient tensor; times at B = 512; its transposed tensor-core
+               products alone, its launches bit-equal, and a point count its
+               tile does not divide;
   6b. K5, K6:  the training encoder tails, forward (with argmax) and backward,
                vs their plain versions at the main path's N = 1024 clouds x
                1024 points, f32 (tight) and bf16 (loose), per output tensor;
@@ -74,6 +76,8 @@ K3_REPEATS = 5               # further launches of K3 that must give the first o
 K3_RAGGED = (1999, 1000)     # points and cloud points that K3's 64-point tile does not divide
 CHAIN_TOL, CHAIN_TOL_ROUNDED = 1e-5, 1e-3    # K3's two chained products, x max|plain|
 K4_CHECK_B, K4_TIME_B = 64, 512
+K4_REPEATS = 3               # further launches of K4 that must give the first one's bits
+TN_TOL = 1e-5                # K4's transposed products alone, x max|plain|
 TRAIN_B, TRAIN_STEPS = 512, 3     # timed train steps, after one warm-up
 NEAR_TIE = 1e-6              # f32 argmax rows may differ where two rows are this close
 # published peaks of one H100 SXM: device memory bytes/s, dense bf16 tensor-core
@@ -236,19 +240,57 @@ def check_k4(head, dev, gen):
     """K4 vs its plain version (autograd of the K3 twin), per gradient tensor,
     in f32 and bf16 at B = K4_CHECK_B and at the main path's B = K4_TIME_B
     (where the weight-gradient products take their capped split-K schedule);
-    times in bf16 at B = K4_TIME_B."""
+    times in bf16 at B = K4_TIME_B. And what the bf16 K4's design has to show
+    beyond that, as `check_k3_design` does for K3: the products that read a
+    staged weight transposed (d_a = d_x2 W1; d_pf = d_x0 W_pt over quarters)
+    or by 64-column quarters, alone, on canned operands; launches on the same
+    inputs bit-equal, every gradient tensor; and a point count that the
+    64-point tile does not divide, with the cloud / keypoint boundary inside a
+    tile, in f32 and bf16."""
     from catre_tpu_torch.ops import rot_head as rot_ops
     from catre_tpu_torch.ops import rot_head_train as train_ops
 
     n_pts = head.rot_head_x.point_weight.shape[0]
+    names = train_ops.GRAD_NAMES
 
-    def args(cdt, b):
+    def args(cdt, b, p=n_pts, n_pcl=n_pts // 2, gen=gen):
         with torch.no_grad():
             pack = rot_ops.pack_rot_head(head, cdt, weight_dtype=torch.float32)
-            pf = torch.randn(b, n_pts, 64, device=dev, generator=gen) * 0.5
+            pack = dataclasses.replace(pack, pw=pack.pw[:, :p].contiguous())
+            pf = torch.randn(b, p, 64, device=dev, generator=gen) * 0.5
             g2 = torch.randn(b, 2, 1024, device=dev, generator=gen) * 0.5
             d_out = torch.randn(b, 6, device=dev, generator=gen)
-            return pf.to(cdt), (g2 @ pack.w_g.T).contiguous(), pack, n_pts // 2, d_out
+            return pf.to(cdt), (g2 @ pack.w_g.T).contiguous(), pack, n_pcl, d_out
+
+    canned = torch.Generator(device="cuda").manual_seed(4)   # its own: `gen` keeps its sequence
+    x, w0, w1 = (torch.randn(*shape, device="cuda", generator=canned).bfloat16()
+                 for shape in ((64, 256), (256, 64), (256, 256)))
+    outs, refs = train_ops.wgmma_tn(x, w0, w1), train_ops.wgmma_tn_plain(x, w0, w1)
+    torch.cuda.synchronize()
+    # exact bf16 products, f32 sums in another order
+    for name, out, ref in zip(("x @ w1", "x @ w0 over quarters", "x[:, :64] @ w0^T by quarters"),
+                              outs, refs):
+        err, limit = (out - ref).abs().max().item(), TN_TOL * ref.abs().max().item()
+        log("K4", f"wgmma transposed {name}: max_abs_err={err:.3e} limit={limit:.3e}")
+        if not err <= limit:
+            raise RuntimeError(f"K4 wgmma transposed {name}: {err} > {limit}")
+
+    p_ragged, n_pcl = K3_RAGGED
+    for cdt in TOL:
+        a = args(cdt, K4_CHECK_B, p_ragged, n_pcl, canned)
+        ref = train_ops.rot_head_bwd_twin(*a)
+        with torch.no_grad():
+            out = train_ops.rot_head_bwd(*a)
+            tensor_errors("K4", f"B={K4_CHECK_B} P={p_ragged} n_pcl={n_pcl}", cdt,
+                          [out[n] for n in names], [ref[n] for n in names],
+                          [f"d_{n}" for n in names])
+            for _ in range(K4_REPEATS):
+                again = train_ops.rot_head_bwd(*a)
+                if not all(torch.equal(out[n], again[n]) for n in names):
+                    raise RuntimeError(f"K4 {cdt}: two launches on the same inputs differ")
+        log("K4", f"{str(cdt)[6:]}: {1 + K4_REPEATS} launches on the same inputs bit-equal, "
+                  f"all {len(names)} gradients")
+        del a, ref, out, again
 
     errs = dict.fromkeys((torch.float32, torch.bfloat16), 0.0)
     for b in (K4_CHECK_B, K4_TIME_B):
@@ -257,7 +299,6 @@ def check_k4(head, dev, gen):
             ref = train_ops.rot_head_bwd_twin(*a)
             with torch.no_grad():
                 out = train_ops.rot_head_bwd(*a)
-            names = train_ops.GRAD_NAMES
             errs[cdt] = max(errs[cdt], tensor_errors(
                 "K4", f"B={b}", cdt, [out[n] for n in names], [ref[n] for n in names],
                 [f"d_{n}" for n in names]))
@@ -750,6 +791,15 @@ def main():
                                   KERNEL_B * head_flops))
     results["K4"].update(bound(K4_TIME_B * ((2 + 4) * n_obj_pts * 64 + 4 * 4 * 512) + 3 * w_head,
                                K4_TIME_B * 3 * head_flops))
+    # what K4's design moves and multiplies beyond that: pf once per head for each of
+    # four passes (and once for d_W_pt); the bf16 operand arrays of the weight-gradient
+    # products, a written once and read three times, d_x2 once and twice, d_x0 once and
+    # once; d_pf as two f32 partials written, read and joined; layer 0 twice in full and
+    # twice by quarters, layer 1 three times, d_a twice, d_pf once, the weight gradients
+    design = bound(K4_TIME_B * n_obj_pts * (9 * 2 * 64 + 9 * 2 * 512 + 5 * 4 * 64),
+                   K4_TIME_B * 2 * n_obj_pts * (6 * 64 * 512 + 6 * 2 * 256 * 256))
+    log("K4", f"bound of the design's own bytes and operations: {design['bound_ms']:.4f} ms "
+              f"({design['bound_by']}); of the function's {results['K4']['bound_ms']:.4f} ms")
     src = "catre_tpu_torch/csrc/"
     vjp = "catre_tpu/ops/pallas_encoder_epilogue_vjp.py:"
     kernels = [

@@ -193,16 +193,27 @@ def _scaled_head(gen, n_points, dev):
 
 
 @pytest.mark.parametrize("cdt", DTYPES)
-@pytest.mark.parametrize("b,p,k", [(4, 1024, 1024), (3, 96, 40)])
-def test_rot_head_bwd_kernel(dev, cdt, b, p, k):
-    gen = torch.Generator().manual_seed(10 + b)
+def _bwd_inputs(seed, b, p, k, dev, cdt):
+    """-> (pf, gterm, pack, d_out) of `rot_head_bwd` for b objects of p + k points."""
+    gen = torch.Generator().manual_seed(seed)
     head = _scaled_head(gen, p + k, dev)
     pf = (torch.randn(b, p + k, 64, generator=gen) * 0.5).to(dev, cdt)
     g2 = (torch.randn(b, 2, 1024, generator=gen) * 0.5).to(dev)
     d_out = torch.randn(b, 6, generator=gen).to(dev)
     with torch.no_grad():
         pack = rot_ops.pack_rot_head(head, cdt, weight_dtype=torch.float32)
-        gterm = (g2 @ pack.w_g.T).contiguous()
+        return pf, (g2 @ pack.w_g.T).contiguous(), pack, d_out
+
+
+@pytest.mark.parametrize("cdt", DTYPES)
+@pytest.mark.parametrize("b,p,k", [(4, 1024, 1024), (3, 96, 40), (5, 150, 43), (2, 20, 9),
+                                   (2, 1000, 999)])
+def test_rot_head_bwd_kernel(dev, cdt, b, p, k):
+    """Also at point counts that the bf16 kernel's 64-point tile does not
+    divide, with the cloud / keypoint boundary inside a tile, and with fewer
+    points than one tile."""
+    pf, gterm, pack, d_out = _bwd_inputs(10 + b, b, p, k, dev, cdt)
+    with torch.no_grad():
         before = train_ops.LAUNCHES["rot_head_bwd"]
         out = train_ops.rot_head_bwd(pf, gterm, pack, p, d_out)
         assert train_ops.LAUNCHES["rot_head_bwd"] == before + 1
@@ -210,6 +221,68 @@ def test_rot_head_bwd_kernel(dev, cdt, b, p, k):
     for name in train_ops.GRAD_NAMES:
         assert out[name].shape == ref[name].shape and torch.isfinite(out[name]).all(), name
         _assert_close(out[name], ref[name], cdt)
+
+
+@pytest.mark.parametrize("cdt", DTYPES)
+@pytest.mark.parametrize("b,p,k", [(6, 1024, 1024), (3, 150, 43)])
+def test_rot_head_bwd_launches_are_bit_equal(dev, cdt, b, p, k):
+    """Sums in a fixed order, no atomics: every gradient tensor, three launches."""
+    pf, gterm, pack, d_out = _bwd_inputs(60 + b, b, p, k, dev, cdt)
+    with torch.no_grad():
+        outs = [train_ops.rot_head_bwd(pf, gterm, pack, p, d_out) for _ in range(3)]
+    torch.cuda.synchronize()
+    for name in train_ops.GRAD_NAMES:
+        assert torch.equal(outs[0][name], outs[1][name]), name
+        assert torch.equal(outs[0][name], outs[2][name]), name
+
+
+def test_rot_head_bwd_ignores_what_lies_past_the_last_point(dev):
+    """bf16 K4 at a ragged P: an object inside a batch (other objects' points
+    behind its own in device memory) gets the same d_pf and d_gterm bits as
+    alone, and the parameter gradients are the sums over the objects."""
+    p, k = 100, 37
+    pf, gterm, pack, d_out = _bwd_inputs(70, 4, p, k, dev, torch.bfloat16)
+    with torch.no_grad():
+        whole = train_ops.rot_head_bwd(pf, gterm, pack, p, d_out)
+        alone = [train_ops.rot_head_bwd(pf[i:i + 1].clone(), gterm[i:i + 1].clone(), pack, p,
+                                        d_out[i:i + 1].clone()) for i in range(4)]
+    torch.cuda.synchronize()
+    for name in ("pf", "gterm"):
+        assert torch.equal(whole[name], torch.cat([a[name] for a in alone])), name
+    for name in ("b0", "gn1s", "pw", "neck"):      # summed over objects in object order
+        total = alone[0][name].clone()
+        for a in alone[1:]:
+            total += a[name]
+        assert torch.equal(whole[name], total), name
+
+
+@pytest.mark.parametrize("kind", ["pattern", "random"])
+def test_wgmma_tn_kernel(dev, kind):
+    """A weight staged once for a @ W^T and read transposed for a @ W (the
+    MN-major descriptor under the 128-byte swizzle), whole and accumulated
+    over quarters of its rows, and the forward product by 64-column quarters.
+    `pattern`: one non-zero per weight row and column, values bf16 holds
+    exactly, so every output is one product and a misread panel shows as a
+    wrong integer."""
+    if kind == "pattern":
+        x = (torch.arange(64)[:, None] - 32 + (torch.arange(256)[None, :] % 7) * 0.25).float()
+        w0 = torch.zeros(256, 64)
+        w0[torch.arange(64) * 4 + torch.arange(64) % 4, (torch.arange(64) * 5 + 3) % 64] = 2.0
+        w1 = torch.zeros(256, 256)
+        w1[torch.arange(256), (torch.arange(256) * 5 + 3) % 256] = 1.0 + (torch.arange(256) % 3)
+    else:
+        gen = torch.Generator().manual_seed(8)
+        x, w0, w1 = (torch.randn(*s, generator=gen) for s in ((64, 256), (256, 64), (256, 256)))
+    x, w0, w1 = (t.to(dev, torch.bfloat16) for t in (x, w0, w1))
+    outs, refs = train_ops.wgmma_tn(x, w0, w1), train_ops.wgmma_tn_plain(x, w0, w1)
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        if kind == "pattern":
+            assert torch.equal(out, ref)
+        else:
+            assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    with pytest.raises(ValueError):
+        train_ops.wgmma_tn(x[:, :64].contiguous(), w0, w1)
 
 
 def test_inference_kernels_refuse_a_differentiable_call(dev):

@@ -4,7 +4,7 @@
     point counts that the kernel's 64-point tile does not divide and with the
     cloud / keypoint boundary inside a tile;
   - the erf polynomial the bf16 kernel evaluates in place of `erff`, read out
-    of the CUDA source and evaluated in float32 as the kernel does: 1.5e-7
+    of the CUDA source (`csrc/rot_head_wgmma.cuh`) and evaluated in float32 as the kernel does: 1.5e-7
     absolute against erf, and the GELU built on it against the exact-erf GELU
     of the plain version;
   - the plain version of the two chained tensor-core products
@@ -50,7 +50,7 @@ def test_rot_head_on_cpu_matches_pallas_at_ragged_point_counts(b, p, k):
 
 def _erf_poly():
     """The coefficients of `kErfPoly` as the CUDA source spells them."""
-    src = (CSRC / "rot_head.cu").read_text()
+    src = (CSRC / "rot_head_wgmma.cuh").read_text()
     body = re.search(r"kErfPoly\[8\]\s*=\s*\{([^}]*)\}", src).group(1)
     coef = [np.float32(tok.strip().rstrip("f")) for tok in body.split(",")]
     assert len(coef) == 8
