@@ -16,9 +16,12 @@
 // the H100's ~295 FLOP/byte ridge. Unfused, the (2B*1024, 1024) conv4
 // activation would be written and read back: 16 GB in bf16 at B = 4096.
 //
-// The kernels are in encoder_epilogue.cuh, shared with the training
+// K2 and K1's f32 build are in encoder_epilogue.cuh, shared with the training
 // forwards K5/K6 (encoder_epilogue_train.cu); here they run without the argmax.
+// K1's bf16 build, the production one, is encoder_tail_wgmma.cuh (wgmma, the
+// hidden tile in shared memory, the max taken on the bare accumulator).
 #include "encoder_epilogue.cuh"
+#include "encoder_tail_wgmma.cuh"
 
 using namespace catre;
 
@@ -32,13 +35,14 @@ extern "C" int catre_dense_relu_max(const void* x, const void* w, const void* b,
 }
 
 // x (n, p, cin), w3 (chid, cin), w4 (cout, chid) in T; b3, b4 f32 rounded to
-// T; out (n, cout) f32. cin % 64 == 0, chid and cout % 128 == 0.
+// T; out (n, cout) f32. cin % 64 == 0, chid and cout % 128 == 0. In bf16, w3
+// and w4 come repacked as 128-row x 64-column swizzled panels in the order
+// the kernel streams them (ops/encoder_epilogue.py::pack_panels), cin is 64
+// or 128 and chid at most 512.
 extern "C" int catre_dense_relu_dense_max(const void* x, const void* w3, const void* b3,
                                           const void* w4, const void* b4, void* out, int n, int p,
                                           int cin, int chid, int cout, int bf16, void* stream) {
+  if (bf16) return tail::run(x, w3, b3, w4, b4, out, n, p, cin, chid, cout, stream);
   const enc::MaxOut<false> o{static_cast<float*>(out)};
-  return bf16 ? enc::run_relu_dense_max<catre::bf16, false>(x, w3, b3, w4, b4, o, n, p, cin, chid,
-                                                            cout, stream)
-              : enc::run_relu_dense_max<float, false>(x, w3, b3, w4, b4, o, n, p, cin, chid, cout,
-                                                      stream);
+  return enc::run_relu_dense_max<float, false>(x, w3, b3, w4, b4, o, n, p, cin, chid, cout, stream);
 }

@@ -1,9 +1,9 @@
 // Device code of the PointNet encoder tails: dense (+ReLU +dense) fused with
-// the per-cloud max, shared by the inference kernels K1/K2
-// (encoder_epilogue.cu) and the training forwards K5/K6
-// (encoder_epilogue_train.cu). The two differ by one template flag: with
-// kIdx the kernels also return, per (cloud, channel), the lowest point row
-// that attains the max, which is all the routed backward needs.
+// the per-cloud max, shared by the inference kernels K2 and K1's f32 build
+// (encoder_epilogue.cu; K1's bf16 build is encoder_tail_wgmma.cuh) and the
+// training forwards K5/K6 (encoder_epilogue_train.cu). The two differ by one
+// template flag: with kIdx the kernels also return, per (cloud, channel), the
+// lowest point row that attains the max, which is all the routed backward needs.
 //
 // Design: one block per cloud walks the cloud in tiles of TM points (128 in
 // bf16, 64 in f32). For K1/K6 the tile's whole hidden activation h (TM x 512)

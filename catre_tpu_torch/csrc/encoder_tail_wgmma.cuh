@@ -1,0 +1,363 @@
+// K1's bf16 build for Hopper: the main encoder tail
+//   out[n, c] = max_p round(round(h[n, p] . W4[c]) + b4[c]),
+//   h = relu(round(round(x[n, p] W3^T) + b3)),
+// x (N, P, cin) bf16, W3 (chid, cin), W4 (cout, chid) bf16, biases f32 already
+// rounded to bf16, out (N, cout) f32. It replaces the Pallas kernel
+// catre_tpu/ops/pallas_encoder_epilogue.py::fused_dense_relu_dense_max (:98,
+// body _kernel_2 :51). The f32 build and the training forward (with the
+// argmax) stay on `encoder_epilogue.cuh`.
+//
+// What bounds it on the card: operations. 1.21 GFLOP per cloud of 1024 points
+// on 256 KB of input; the weights (1.1 MB) are re-read from L2 once per tile.
+//
+// The design:
+//   - one block per cloud walks the cloud in tiles of 128 points. Two consumer
+//     warpgroups own 64 rows of a tile each; one producer thread (its
+//     warpgroup gives its registers to the consumers by `setmaxnreg`) streams
+//     everything a tile needs through one ring of 16 KB stages by 1-D bulk
+//     copies and mbarriers: the x rows of warpgroup 0, those of warpgroup 1,
+//     then W3 and W4 as 128-row x 64-column swizzled panels;
+//   - the wrapper repacks W3 and W4 into that stage order in device memory
+//     (`ops/encoder_epilogue.py::pack_panels`), so each stage is one
+//     contiguous 16 KB copy that lands as `wgmma` reads it;
+//   - GEMM1 once per point: `wgmma.m64n128k16`, A from registers (ldmatrix of
+//     the warpgroup's x rows), B from the ring. Its epilogue (round, + b3,
+//     round, ReLU) writes bf16 by `stmatrix` into the warpgroup's own 64 rows of
+//     an h tile (128 x chid) kept in shared memory as swizzled K-major panels:
+//     16 bytes a row and instruction, no bank conflict;
+//   - GEMM2 per 128-column output chunk: `wgmma` with A (h) and B (W4 panels)
+//     both in shared memory. No warpgroup reads rows the other wrote, so the
+//     only wait between the two products is a 128-thread named barrier;
+//   - the max on the bare accumulator: rounding to nearest even and adding a
+//     constant are both monotone non-decreasing, so max_p round(round(a_p) +
+//     b) = round(round(max_p a_p) + b) exactly. After each chunk a thread
+//     takes the max of its two rows per column, the eight row lanes reduce and
+//     scatter the 32 columns in 28 shuffles (4 each), and the lane folds them
+//     into a per-block table of running maxima by an atomic max on the
+//     order-preserving integer image of the float: exact and commutative, so
+//     the result does not depend on arrival order. Rows past P enter as -inf.
+//     At the end of the cloud the consumers meet once, and each channel is
+//     rounded, biased and rounded once;
+//   - a stage goes back to the producer only after the products that read it
+//     (or the registers loaded from it) have completed; GEMM2 keeps one group
+//     of products in flight while it gives back the stage before.
+#pragma once
+
+#include "common.cuh"
+#include "wgmma_tile.cuh"
+
+namespace catre {
+namespace tail {
+
+constexpr int kTile = 128;                 // points per tile
+constexpr int kHalfTile = 64;              // rows of one consumer warpgroup
+constexpr int kStageBytes = 16384;         // 128 weight rows x 64 columns, or 64 points x <= 128
+constexpr int kStages = 5;
+constexpr int kPanelBytes = kTile * wg::kRowBytes;   // one 64-column panel of the h tile
+constexpr int kMaxHid = 512;               // the h tile is chid x 128 bf16: 128 KB at most
+constexpr int kConsumerThreads = 256;
+constexpr int kBlockThreads = kConsumerThreads + 128;
+constexpr int kConsumerRegs = 232, kProducerRegs = 40;   // 2 x 128 x 232 + 128 x 40 = 64512
+constexpr int kAllConsumers = 3;           // named barrier ids: 1, 2 a warpgroup each; 3 both
+constexpr size_t kSmemLimit = 232448;
+
+// An order-preserving integer image of a float (not NaN): a < b as floats
+// if and only if key(a) < key(b) as signed integers; -0 sorts below +0.
+__device__ __forceinline__ int order_key(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7FFFFFFF;
+}
+__device__ __forceinline__ float from_key(int k) { return __int_as_float(k >= 0 ? k : k ^ 0x7FFFFFFF); }
+
+// Shared memory, from a 1024-byte boundary: [h (chid / 64 panels of 128
+// rows) | ring (kStages) | running max keys (cout) | full, empty (kStages each)].
+struct Smem {
+  unsigned char* h;
+  unsigned char* ring;
+  int* gmax;
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ Smem(unsigned char* raw, int chid, int cout) {
+    h = raw + ((1024 - (wg::smem_addr(raw) & 1023)) & 1023);
+    ring = h + (chid / 64) * kPanelBytes;
+    gmax = reinterpret_cast<int*>(ring + kStages * kStageBytes);
+    full = reinterpret_cast<uint64_t*>(gmax + cout);
+    empty = full + kStages;
+  }
+};
+
+inline size_t smem_bytes(int chid, int cout) {
+  return 1024 + static_cast<size_t>(chid / 64) * kPanelBytes +
+         static_cast<size_t>(kStages) * kStageBytes + sizeof(int) * cout +
+         sizeof(uint64_t) * 2 * kStages;
+}
+
+// A consumer thread: warpgroup wgi, warp w of it, lane = 4 g + t.
+struct Who {
+  int wgi, w, lane, g, t;
+  __device__ Who() {
+    wgi = threadIdx.x / 128;
+    w = (threadIdx.x / 32) % 4;
+    lane = threadIdx.x % 32;
+    g = lane / 4;
+    t = lane % 4;
+  }
+};
+
+// Stage n of the ring's sequence: wait until its bytes have landed.
+__device__ __forceinline__ const unsigned char* await_stage(const Smem& sm, uint32_t n) {
+  const int s = n % kStages;
+  wg::mbar_wait(&sm.full[s], (n / kStages) & 1);
+  return sm.ring + s * kStageBytes;
+}
+__device__ __forceinline__ void release_stage(const Smem& sm, uint32_t n) {
+  wg::mbar_arrive(&sm.empty[n % kStages]);
+}
+
+// The A registers of GEMM1: the warpgroup's 64 x rows (row-major, 32 KX bytes
+// a row, as the bulk copy lands them), KX k-steps for warp w.
+template <int KX>
+__device__ __forceinline__ void load_x(uint32_t (&a)[KX][4], const unsigned char* stage,
+                                       const Who& me) {
+  const uint32_t base =
+      wg::smem_addr(stage) + (16 * me.w + me.lane % 16) * (32 * KX) + (me.lane / 16) * 16;
+#pragma unroll
+  for (int s = 0; s < KX; ++s)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(a[s][0]), "=r"(a[s][1]), "=r"(a[s][2]), "=r"(a[s][3])
+                 : "r"(base + s * 32)
+                 : "memory");
+}
+
+// GEMM1 chunk: acc = x rows @ W3[128 j : 128 j + 128]^T over the KX / 4 stages
+// from sequence number n on; gives the stages back when the products are done.
+template <int KX>
+__device__ __forceinline__ void product_x(float (&acc)[64], uint32_t (&xa)[KX][4], const Smem& sm,
+                                          uint32_t& n) {
+  wg::pin_new(acc);
+#pragma unroll
+  for (int kp = 0; kp < KX / 4; ++kp) {
+    const uint64_t desc = wg::panel_desc(await_stage(sm, n + kp));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) wg::pin(xa[4 * kp + q]);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      wg::wgmma_m64n128k16(acc, xa[4 * kp + q], desc + q * wg::kKStepUnits, kp > 0 || q > 0);
+    wg::wgmma_commit();
+  }
+  wg::wgmma_wait();
+  wg::pin(acc);
+#pragma unroll
+  for (int kp = 0; kp < KX / 4; ++kp) release_stage(sm, n + kp);
+  n += KX / 4;
+}
+
+// GEMM2 chunk: acc = h rows @ W4[128 c : 128 c + 128]^T over chid / 64 stages;
+// one group of products stays in flight while the stage before goes back.
+__device__ __forceinline__ void product_h(float (&acc)[64], const unsigned char* h_rows,
+                                          int n_panels, const Smem& sm, uint32_t& n) {
+  wg::pin_new(acc);
+#pragma unroll 1
+  for (int kp = 0; kp < n_panels; ++kp) {
+    const uint64_t b_desc = wg::panel_desc(await_stage(sm, n));
+    const uint64_t a_desc = wg::panel_desc(h_rows + kp * kPanelBytes);
+    wg::pin(acc);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      wg::wgmma_m64n128k16_ss(acc, a_desc + q * wg::kKStepUnits, b_desc + q * wg::kKStepUnits,
+                              kp > 0 || q > 0);
+    wg::wgmma_commit();
+    if (kp > 0) {
+      wg::wgmma_wait_pending<1>();
+      release_stage(sm, n - 1);
+    }
+    ++n;
+  }
+  wg::wgmma_wait();
+  wg::pin(acc);
+  release_stage(sm, n - 1);
+}
+
+// h = relu(round(round(acc) + b3)) of GEMM1 chunk j into the warpgroup's rows
+// of the h tile: per pair of n-tiles one stmatrix of four 8 x 8 matrices
+// (rows g / g + 8 of n-tile jj, then of jj + 1). Lane l addresses row (l % 8)
+// + 8 ((l / 8) % 2) of n-tile jj + l / 16; panel and 16-byte chunk of that
+// n-tile's 8 columns under the 128-byte swizzle (row % 8 = l % 8).
+__device__ __forceinline__ void store_h(const float (&acc)[64], unsigned char* h, int j,
+                                        const float* b3, const Who& me) {
+  const int row = kHalfTile * me.wgi + 16 * me.w + (me.lane & 7) + 8 * ((me.lane >> 3) & 1);
+  const uint32_t row_addr = wg::smem_addr(h) + row * wg::kRowBytes;
+#pragma unroll
+  for (int jj = 0; jj < 16; jj += 2) {
+    uint32_t r[4];
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      const int k = 4 * (jj + d);
+      const float2 b = __ldg(reinterpret_cast<const float2*>(b3 + 128 * j + 8 * (jj + d) + 2 * me.t));
+      r[2 * d] = wg::pack_a(fmaxf(round_to<bf16>(round_to<bf16>(acc[k]) + b.x), 0.0f),
+                            fmaxf(round_to<bf16>(round_to<bf16>(acc[k + 1]) + b.y), 0.0f));
+      r[2 * d + 1] = wg::pack_a(fmaxf(round_to<bf16>(round_to<bf16>(acc[k + 2]) + b.x), 0.0f),
+                                fmaxf(round_to<bf16>(round_to<bf16>(acc[k + 3]) + b.y), 0.0f));
+    }
+    const int col8 = 16 * j + jj + (me.lane >> 4);     // the n-tile's 8-column group in h
+    const uint32_t addr = row_addr + (col8 >> 3) * kPanelBytes + (((col8 & 7) ^ (me.lane & 7)) << 4);
+    wg::stmatrix_x4(addr, r[0], r[1], r[2], r[3]);
+  }
+}
+
+// Fold a GEMM2 chunk into the running maxima of its 128 channels (`gmax`
+// keys). Value v[2 jj + e] is column 8 jj + 2 t + e; after the reduce-scatter
+// over the row lanes (lane bits 4, 3, 2 = g bits 2, 1, 0) lane (g, t) holds
+// values 4 g + i, i = 0 .. 3: columns 16 g + 8 (i / 2) + 2 t + i % 2.
+__device__ __forceinline__ void fold_max(const float (&acc)[64], bool ok0, bool ok1, int* gmax,
+                                         const Who& me) {
+  float v[32];
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float a = acc[4 * jj + e], b = acc[4 * jj + 2 + e];
+      v[2 * jj + e] = ok1 ? fmaxf(a, b) : (ok0 ? a : -INFINITY);
+    }
+#pragma unroll
+  for (int half = 16; half >= 4; half /= 2) {
+    const bool upper = (me.lane & half) != 0;     // the partner lane differs in this bit
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = upper ? v[i] : v[i + half];
+      const float keep = upper ? v[i + half] : v[i];
+      v[i] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, half));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    atomicMax(gmax + 16 * me.g + 8 * (i / 2) + 2 * me.t + i % 2, order_key(v[i]));
+}
+
+template <int KX>     // k-steps of GEMM1: cin / 16
+__global__ void __launch_bounds__(kBlockThreads, 1)
+dense_relu_dense_max_wgmma(const bf16* x, const unsigned char* w3p, const float* b3,
+                           const unsigned char* w4p, const float* b4, float* out, int P, int chid,
+                           int cout) {
+  constexpr int kCin = 16 * KX;
+  extern __shared__ unsigned char raw[];
+  const Smem sm(raw, chid, cout);
+  const int tid = threadIdx.x;
+  const int n_tiles = (P + kTile - 1) / kTile;
+  const int w3_stages = (KX / 4) * (chid / 128), w4_stages = (chid / 64) * (cout / 128);
+
+  // the ring zeroed, so that x rows no copy fills hold finite values; the running maxima at -inf
+  for (int i = tid; i < kStages * kStageBytes / 16; i += kBlockThreads)
+    reinterpret_cast<uint4*>(sm.ring)[i] = make_uint4(0, 0, 0, 0);
+  for (int c = tid; c < cout; c += kBlockThreads) sm.gmax[c] = order_key(-INFINITY);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      wg::mbar_init(&sm.full[s], 1);                    // the producer's arrive, with the bytes
+      wg::mbar_init(&sm.empty[s], kConsumerThreads);    // every consumer thread, read or not
+    }
+    wg::mbar_init_fence();
+  }
+  wg::fence_proxy_async();
+  __syncthreads();
+
+  if (tid >= kConsumerThreads) {
+    // ---- producer: per tile the two x halves, W3's stages, W4's stages
+    wg::reg_dealloc<kProducerRegs>();
+    if (tid == kConsumerThreads) {
+      const unsigned char* xb =
+          reinterpret_cast<const unsigned char*>(x + static_cast<size_t>(blockIdx.x) * P * kCin);
+      uint32_t n = 0;
+      auto put = [&](const unsigned char* src, uint32_t bytes) {
+        const int s = n % kStages;
+        wg::mbar_wait(&sm.empty[s], ((n / kStages) & 1) ^ 1);
+        if (bytes) {
+          wg::mbar_arrive_expect_tx(&sm.full[s], bytes);
+          wg::bulk_copy(sm.ring + s * kStageBytes, src, bytes, &sm.full[s]);
+        } else {
+          wg::mbar_arrive(&sm.full[s]);
+        }
+        ++n;
+      };
+      for (int i = 0; i < n_tiles; ++i) {
+        for (int half = 0; half < 2; ++half) {
+          const int r0 = i * kTile + half * kHalfTile;
+          const int rows = max(0, min(kHalfTile, P - r0));
+          put(xb + static_cast<size_t>(r0) * kCin * 2, static_cast<uint32_t>(rows) * kCin * 2);
+        }
+        for (int q = 0; q < w3_stages; ++q) put(w3p + static_cast<size_t>(q) * kStageBytes, kStageBytes);
+#ifndef CATRE_K1_SKIP_W4_LOADS
+        for (int q = 0; q < w4_stages; ++q) put(w4p + static_cast<size_t>(q) * kStageBytes, kStageBytes);
+#else   // diagnostic build (tools/probe_k1.py --skip-w4): GEMM2 reads stale stages, no W4 traffic
+        for (int q = 0; q < w4_stages; ++q) put(w4p, 0);
+#endif
+      }
+    }
+  } else {
+    // ---- consumers
+    wg::reg_alloc<kConsumerRegs>();
+    const Who me;
+    const unsigned char* h_rows = sm.h + me.wgi * kHalfTile * wg::kRowBytes;
+    uint32_t n = 0;
+#pragma unroll 1
+    for (int i = 0; i < n_tiles; ++i) {
+      const int r0 = i * kTile + kHalfTile * me.wgi + 16 * me.w + me.g;
+      const bool ok0 = r0 < P, ok1 = r0 + 8 < P;
+      // the two x stages: this warpgroup's rows are loaded, the other's given back
+      uint32_t xa[KX][4];
+      const uint32_t own = n + me.wgi;
+      load_x(xa, await_stage(sm, own), me);
+      await_stage(sm, n + 1 - me.wgi);
+      release_stage(sm, n + 1 - me.wgi);
+      n += 2;
+#pragma unroll 1
+      for (int j = 0; j < chid / 128; ++j) {
+        float acc[64];
+        product_x(acc, xa, sm, n);
+        if (j == 0) release_stage(sm, own);   // the registers loaded from it have been read
+        store_h(acc, sm.h, j, b3, me);
+      }
+      wg::fence_proxy_async();                // h, written by stmatrix, is read by wgmma
+      wg::named_barrier(1 + me.wgi, 128);
+#pragma unroll 1
+      for (int c = 0; c < cout / 128; ++c) {
+        float acc[64];
+        product_h(acc, h_rows, chid / 64, sm, n);
+        fold_max(acc, ok0, ok1, sm.gmax + 128 * c, me);
+      }
+    }
+    wg::named_barrier(kAllConsumers, kConsumerThreads);
+    for (int c = tid; c < cout; c += kConsumerThreads)
+      out[static_cast<size_t>(blockIdx.x) * cout + c] =
+          round_to<bf16>(round_to<bf16>(from_key(sm.gmax[c])) + b4[c]);
+  }
+}
+
+template <int KX>
+int launch(const void* x, const void* w3p, const void* b3, const void* w4p, const void* b4,
+           void* out, int n, int p, int chid, int cout, size_t smem, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(dense_relu_dense_max_wgmma<KX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dense_relu_dense_max_wgmma<KX><<<n, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const unsigned char*>(w3p),
+      static_cast<const float*>(b3), static_cast<const unsigned char*>(w4p),
+      static_cast<const float*>(b4), static_cast<float*>(out), p, chid, cout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (n, p, cin) bf16 with cin 64 or 128; w3p, w4p the repacked weights;
+// chid a multiple of 128 up to kMaxHid, cout a multiple of 128.
+inline int run(const void* x, const void* w3p, const void* b3, const void* w4p, const void* b4,
+               void* out, int n, int p, int cin, int chid, int cout, void* stream) {
+  const size_t smem = smem_bytes(chid, cout);
+  if ((cin != 64 && cin != 128) || chid % 128 || chid > kMaxHid || cout % 128 || smem > kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return cin == 128 ? launch<8>(x, w3p, b3, w4p, b4, out, n, p, chid, cout, smem, stream)
+                    : launch<4>(x, w3p, b3, w4p, b4, out, n, p, chid, cout, smem, stream);
+}
+
+}  // namespace tail
+}  // namespace catre

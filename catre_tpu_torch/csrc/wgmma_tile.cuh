@@ -11,6 +11,9 @@
 // that sits in shared memory as K-panels (below): `product`. And D (64 x 64)
 // += A @ B^T likewise, or A @ B with B = W[k0 : k0 + 16, n0 : n0 + 64], the
 // same bytes read the other way (a backward product d_y W): `product_n64`.
+// The 64 x 128 product also takes A from shared memory, a K-major panel like
+// B's (`wgmma_m64n128k16_ss`), and `stmatrix_x4` writes such a panel from
+// accumulator fragments.
 // A warpgroup is four consecutive warps, the first with warp index % 4 == 0.
 //
 // Fragments. Warp w of the warpgroup owns rows 16 w .. 16 w + 15; lane
@@ -99,6 +102,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Wait until at most `kPending` committed groups are still running.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait_pending() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
 
 // The compiler does not know that wgmma reads and writes registers after the
 // instruction has started: pin a fragment between its ordinary uses and the
@@ -123,6 +131,37 @@ __device__ __forceinline__ void pin_new(float (&d)[32]) {
 __device__ __forceinline__ void pin(uint32_t (&a)[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// d (64 x 128) = (accumulate ? d : 0) + A @ B^T with both operands in shared
+// memory: A the 64 rows x 16 columns that `a_desc` names, B the 128 rows x 16
+// columns of `b_desc`, both K-major panels (`panel_desc`). Asynchronous, as below.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a_desc,
+                                                    uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
 // d (64 x 128) = (accumulate ? d : 0) + a (64 x 16, registers) @ B^T, B the 128
@@ -243,6 +282,16 @@ __device__ __forceinline__ void load_a_tile(uint32_t (&a)[4][4], const unsigned 
                  : "=r"(a[s][0]), "=r"(a[s][1]), "=r"(a[s][2]), "=r"(a[s][3])
                  : "r"(base + s * 32)
                  : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from registers to shared memory, the inverse of
+// ldmatrix: register i of lane (g, t) is row g, columns 2 t, 2 t + 1 of matrix
+// i, and lane 8 i + r gives the address of row r of matrix i (16 bytes).
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
 }
 
 // Two neighbouring f32 values as one A register (low half = lower column).

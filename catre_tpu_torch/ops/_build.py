@@ -48,31 +48,33 @@ def find_nvcc() -> str:
         "kernels of catre_tpu_torch build only where the CUDA toolkit is installed")
 
 
-def _digest(name: str) -> str:
+def _digest(name: str, defines=()) -> str:
     h = hashlib.sha256()
     for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join((*NVCC_FLAGS, *defines)).encode())
     return h.hexdigest()[:16]
 
 
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+def library_path(name: str, defines=()) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name, defines)}.so"
 
 
-def build(name: str) -> Path:
+def build(name: str, defines=()) -> Path:
     """Compile `csrc/<name>.cu` unless the hashed library exists; returns its
     path. The compiler's report (registers, shared memory, spills from
-    `-Xptxas -v`) is kept beside it as `.log`."""
-    out = library_path(name)
+    `-Xptxas -v`) is kept beside it as `.log`. `defines` (macro names) make a
+    diagnostic build of its own, which only the probe tools ask for."""
+    out = library_path(name, defines)
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I", str(CSRC), "-o", tmp,
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -94,6 +96,25 @@ def build_all(names=KERNEL_SOURCES) -> None:
 def build_log(name: str) -> str:
     path = library_path(name).with_suffix(".log")
     return path.read_text() if path.exists() else ""
+
+
+def ptxas_report(name: str, kernel: str) -> dict:
+    """Registers and spill bytes that `-Xptxas -v` reported for the first
+    entry function of library `name` whose mangled name contains `kernel`."""
+    found, report = False, {}
+    for line in build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            if found:
+                break
+            found = kernel in line
+        elif found and "spill stores" in line:
+            words = line.replace(",", "").split()
+            report["spill_stores"] = int(words[words.index("spill") - 2])
+            report["spill_loads"] = int(words[words.index("loads") - 3])
+        elif found and "Used" in line and "registers" in line:
+            words = line.replace(",", "").split()
+            report["registers"] = int(words[words.index("Used") + 1])
+    return report
 
 
 @functools.cache

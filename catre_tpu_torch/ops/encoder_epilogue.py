@@ -14,10 +14,16 @@ differentiable counterparts, K5 and K6 with a routed backward, are in
 
 Each wrapper runs its plain twin for a CPU tensor and launches its CUDA
 kernel (`csrc/encoder_epilogue.cu`, device code in
-`csrc/encoder_epilogue.cuh`) for a CUDA tensor; it never falls back. x is (N, P, Cin) in the compute dtype `cdt` (float32 or bfloat16); weights
-are (out, in) and are cast to `cdt`; the result is (N, Cout) float32.
-Rounding follows flax `Dense(dtype=cdt)`: product rounded to `cdt`, bias
-added in `cdt`.
+`csrc/encoder_epilogue.cuh`; K1's bf16 build in `csrc/encoder_tail_wgmma.cuh`)
+for a CUDA tensor; it never falls back. x is (N, P, Cin) in the compute dtype
+`cdt` (float32 or bfloat16); weights are (out, in) and are cast to `cdt`; the
+result is (N, Cout) float32. Rounding follows flax `Dense(dtype=cdt)`:
+product rounded to `cdt`, bias added in `cdt`.
+
+K1's bf16 kernel takes the max of the bare f32 accumulator and rounds once
+per (cloud, channel); rounding and adding the bias are monotone, so that is
+the same function. `dense_relu_dense_max_folded_twin` is the plain version
+of that order, which tells a rounding fault from an accumulation fault.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from ..models.layers import dense
 from . import _build
@@ -45,6 +52,35 @@ def dense_relu_dense_max_twin(x, w3, b3, w4, b4, cdt):
     """Plain version of K1: materialises both activations."""
     h = dense(x, w3, b3, cdt, act=True)
     return dense(h, w4, b4, cdt).amax(dim=1).float()
+
+
+def fold_max_rounded(acc, b, cdt):
+    """max over P of a bare f32 accumulator (N, P, C), then flax Dense's
+    rounding once per (cloud, channel): round to `cdt`, + b in `cdt`. Equal
+    to rounding every row and then taking the max."""
+    return (acc.amax(dim=1).to(cdt) + b.to(cdt)).float()
+
+
+def dense_relu_dense_max_folded_twin(x, w3, b3, w4, b4, cdt):
+    """Plain version of K1 in its bf16 kernel's order: the second product as
+    the bare f32 sum of the `cdt` operands, its max over P, then round, + b4,
+    round."""
+    h = dense(x, w3, b3, cdt, act=True)
+    return fold_max_rounded(F.linear(h.float(), w4.to(cdt).float()), b4, cdt)
+
+
+def pack_panels(w):
+    """A (N, K) bf16 weight in the order K1's bf16 kernel streams it: for each
+    128-row block of outputs, for each 64-column panel, 128 rows of 128 bytes
+    under the 128-byte swizzle (the 16-byte chunk c of row r stored at chunk
+    position c ^ (r % 8)), 16 KB a stage, contiguous. N % 128 == 0, K % 64 == 0."""
+    n, k = w.shape
+    if n % 128 or k % 64:
+        raise ValueError(f"pack_panels: weight {tuple(w.shape)} is not 128-row x 64-column blocks")
+    v = w.reshape(n // 128, 128, k // 64, 8, 8).permute(0, 2, 1, 3, 4)    # (nb, kp, r, c, e)
+    r = torch.arange(128, device=w.device)[:, None]
+    chunk = torch.arange(8, device=w.device)[None, :] ^ (r & 7)          # stored at position p
+    return v[:, :, r, chunk].contiguous()
 
 
 @functools.cache
@@ -81,6 +117,11 @@ def _check_widths(name, cin, *couts):
         raise ValueError(f"{name}: widths {cin}->{couts} must be multiples of 64 -> 128")
 
 
+# what the bf16 K1 holds in a block's shared memory: 64 x rows per warpgroup
+# (cin), the hidden tile (128 x chid) and the running maxima (cout)
+BF16_MAX_CIN, BF16_MAX_HID, BF16_MAX_OUT = 128, 512, 4096
+
+
 def dense_relu_max(x, w, b, cdt):
     """K2: max over P of relu(x @ w^T + b); x (N, P, Cin) -> (N, Cout) f32."""
     if x.device.type == "cpu":
@@ -103,7 +144,9 @@ def dense_relu_max(x, w, b, cdt):
 
 def dense_relu_dense_max(x, w3, b3, w4, b4, cdt):
     """K1: max over P of (relu(x @ w3^T + b3) @ w4^T + b4); x (N, P, Cin) ->
-    (N, C4) f32. The (N, P, C4) activation never reaches device memory."""
+    (N, C4) f32. The (N, P, C4) activation never reaches device memory. In
+    bf16 the weights are repacked per call (`pack_panels`, 1.2 MB at the
+    flagship widths)."""
     if x.device.type == "cpu":
         return dense_relu_dense_max_twin(x, w3, b3, w4, b4, cdt)
     (w3, w4), (b3, b4) = _kernel_operands("dense_relu_dense_max", x, cdt, [w3, w4], [b3, b4])
@@ -114,6 +157,11 @@ def dense_relu_dense_max(x, w3, b3, w4, b4, cdt):
         raise ValueError(f"dense_relu_dense_max: weights {tuple(w3.shape)}, {tuple(w4.shape)} "
                          f"do not fit x {tuple(x.shape)}")
     _check_widths("dense_relu_dense_max", cin, chid, cout)
+    if cdt == torch.bfloat16:
+        if cin > BF16_MAX_CIN or chid > BF16_MAX_HID or cout > BF16_MAX_OUT:
+            raise ValueError(f"dense_relu_dense_max: bf16 widths {cin}->{chid}->{cout} exceed "
+                             f"{BF16_MAX_CIN}->{BF16_MAX_HID}->{BF16_MAX_OUT}")
+        w3, w4 = pack_panels(w3), pack_panels(w4)
     out = torch.empty(N, cout, device=x.device, dtype=torch.float32)
     rc = _lib().catre_dense_relu_dense_max(
         x.data_ptr(), w3.data_ptr(), b3.data_ptr(), w4.data_ptr(), b4.data_ptr(),

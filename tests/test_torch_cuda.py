@@ -1,4 +1,5 @@
-"""CUDA kernels K1-K9 vs their plain PyTorch versions on the card, the
+"""CUDA kernels K1-K9 vs their plain PyTorch versions on the card (K1's bf16
+build also vs the plain version of its own order, relaunched bit-equal), the
 inference kernels' refusal of a differentiable call, and a train step's
 launch counts.
 
@@ -80,6 +81,36 @@ def test_dense_relu_dense_max_kernel(dev, cdt, n, p):
     w4, b4 = _dense(gen, 512, 1024, dev)
     out = enc_ops.dense_relu_dense_max(x, w3, b3, w4, b4, cdt)
     _assert_close(out, enc_ops.dense_relu_dense_max_twin(x, w3, b3, w4, b4, cdt), cdt)
+
+
+def _k1_case(seed, n, p, dev, cdt):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.relu(torch.randn(n, p, 128, generator=gen)).to(dev, cdt)
+    return x, [*_dense(gen, 128, 512, dev), *_dense(gen, 512, 1024, dev)]
+
+
+@pytest.mark.parametrize("p", [1024, 1000])
+def test_dense_relu_dense_max_bf16_kernel_vs_both_plain_versions(dev, p):
+    """The wgmma K1 (max on the bare accumulator) against the plain version
+    that rounds every row and the one in the kernel's own order, at a point
+    count its 128-point tile divides and at one it does not."""
+    x, ws = _k1_case(200 + p, 8, p, dev, torch.bfloat16)
+    before = enc_ops.LAUNCHES["dense_relu_dense_max"]
+    out = enc_ops.dense_relu_dense_max(x, *ws, torch.bfloat16)
+    assert enc_ops.LAUNCHES["dense_relu_dense_max"] == before + 1
+    assert out.shape == (8, 1024) and torch.isfinite(out).all()
+    _assert_close(out, enc_ops.dense_relu_dense_max_twin(x, *ws, torch.bfloat16), torch.bfloat16)
+    _assert_close(out, enc_ops.dense_relu_dense_max_folded_twin(x, *ws, torch.bfloat16),
+                  torch.bfloat16)
+
+
+def test_dense_relu_dense_max_bf16_launches_are_bit_equal(dev):
+    """The running maxima are folded by atomics in any order: the max is exact,
+    so four launches give the same bits."""
+    x, ws = _k1_case(7, 12, 1000, dev, torch.bfloat16)
+    outs = [enc_ops.dense_relu_dense_max(x, *ws, torch.bfloat16) for _ in range(4)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
 @pytest.mark.parametrize("cdt", DTYPES)
@@ -182,6 +213,11 @@ def test_wrappers_raise_on_bad_input(dev):
         enc_ops.dense_relu_max(x, w, b, torch.bfloat16)                  # x not in cdt
     with pytest.raises(ValueError):
         enc_ops.dense_relu_max(x, w[:1000], b[:1000], torch.float32)     # width
+    w3, w4 = torch.randn(640, 128, device=dev), torch.randn(1024, 640, device=dev)
+    b3 = torch.randn(640, device=dev)
+    enc_ops.dense_relu_dense_max(x, w3, b3, w4, b, torch.float32)      # f32 takes it
+    with pytest.raises(ValueError):                                      # the bf16 h tile does not
+        enc_ops.dense_relu_dense_max(x.bfloat16(), w3, b3, w4, b, torch.bfloat16)
 
 
 def _scaled_head(gen, n_points, dev):
@@ -294,6 +330,9 @@ def test_inference_kernels_refuse_a_differentiable_call(dev):
     w.requires_grad_()
     with pytest.raises(RuntimeError, match="requires grad"):
         enc_ops.dense_relu_max(x, w, b, torch.float32)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        enc_ops.dense_relu_dense_max(x.bfloat16().requires_grad_(), w3, b3, w4, b4,
+                                     torch.bfloat16)
     with pytest.raises(RuntimeError, match="requires grad"):
         enc_ops.dense_relu_dense_max(x.requires_grad_(), w3, b3, w4, b4, torch.float32)
     head = _scaled_head(gen, 128, dev)
