@@ -16,23 +16,33 @@
 // the H100's ~295 FLOP/byte ridge. Unfused, the (2B*1024, 1024) conv4
 // activation would be written and read back: 16 GB in bf16 at B = 4096.
 //
-// K2 and K1's f32 build are in encoder_epilogue.cuh, shared with the training
-// forwards K5/K6 (encoder_epilogue_train.cu); here they run without the argmax.
-// K1's bf16 build, the production one, is encoder_tail_wgmma.cuh (wgmma, the
-// hidden tile in shared memory, the max taken on the bare accumulator).
+// The f32 builds of K1 and K2 are in encoder_epilogue.cuh, shared with the
+// training forwards K5/K6 (encoder_epilogue_train.cu); here they run without
+// the argmax. The bf16 builds, the production ones, take the max on the bare
+// accumulator: K1's is encoder_tail_wgmma.cuh (wgmma, the hidden tile in
+// shared memory), K2's encoder_stn_tail_wgmma.cuh (wgmma, persistent blocks
+// that keep their slice of W in shared memory).
 #include "encoder_epilogue.cuh"
+#include "encoder_stn_tail_wgmma.cuh"
 #include "encoder_tail_wgmma.cuh"
 
 using namespace catre;
 
 // x (n, p, cin) and w (cout, cin) in T = bf16 if `bf16` else f32; b (cout) f32,
-// already rounded to T; out (n, cout) f32. cin % 64 == 0, cout % 128 == 0.
+// already rounded to T; out (n, cout) f32. cin % 64 == 0, cout % 128 == 0. In
+// bf16, cin is 64 or 128 and `grid` is the number of persistent blocks
+// (ops/encoder_epilogue.py::stn_tail_grid); f32 launches a block per cloud.
 extern "C" int catre_dense_relu_max(const void* x, const void* w, const void* b, void* out, int n,
-                                    int p, int cin, int cout, int bf16, void* stream) {
+                                    int p, int cin, int cout, int bf16, int grid, void* stream) {
+  if (bf16) return stn::run<stn::kChunks>(x, w, b, out, n, p, cin, cout, grid, stream);
   const enc::MaxOut<false> o{static_cast<float*>(out)};
-  return bf16 ? enc::run_relu_max<catre::bf16, false>(x, w, b, o, n, p, cin, cout, stream)
-              : enc::run_relu_max<float, false>(x, w, b, o, n, p, cin, cout, stream);
+  return enc::run_relu_max<float, false>(x, w, b, o, n, p, cin, cout, stream);
 }
+
+// What the bf16 K2 keeps per block: its 128-channel chunks (the wrapper's
+// schedule needs them) and its dynamic shared memory in bytes at cin = 128.
+extern "C" int catre_stn_tail_chunks() { return stn::kChunks; }
+extern "C" int catre_stn_tail_smem() { return static_cast<int>(stn::smem_bytes<8, stn::kChunks>()); }
 
 // x (n, p, cin), w3 (chid, cin), w4 (cout, chid) in T; b3, b4 f32 rounded to
 // T; out (n, cout) f32. cin % 64 == 0, chid and cout % 128 == 0. In bf16, w3

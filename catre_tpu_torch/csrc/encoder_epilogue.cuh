@@ -1,7 +1,8 @@
 // Device code of the PointNet encoder tails: dense (+ReLU +dense) fused with
-// the per-cloud max, shared by the inference kernels K2 and K1's f32 build
-// (encoder_epilogue.cu; K1's bf16 build is encoder_tail_wgmma.cuh) and the
-// training forwards K5/K6 (encoder_epilogue_train.cu). The two differ by one
+// the per-cloud max, shared by the f32 builds of the inference kernels K1 and
+// K2 (encoder_epilogue.cu; their bf16 builds are encoder_tail_wgmma.cuh and
+// encoder_stn_tail_wgmma.cuh) and the training forwards K5/K6
+// (encoder_epilogue_train.cu). The two differ by one
 // template flag: with kIdx the kernels also return, per (cloud, channel), the
 // lowest point row that attains the max, which is all the routed backward needs.
 //

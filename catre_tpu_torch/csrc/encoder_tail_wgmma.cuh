@@ -43,8 +43,7 @@
 //     of products in flight while it gives back the stage before.
 #pragma once
 
-#include "common.cuh"
-#include "wgmma_tile.cuh"
+#include "encoder_tail_common.cuh"
 
 namespace catre {
 namespace tail {
@@ -61,28 +60,18 @@ constexpr int kConsumerRegs = 232, kProducerRegs = 40;   // 2 x 128 x 232 + 128 
 constexpr int kAllConsumers = 3;           // named barrier ids: 1, 2 a warpgroup each; 3 both
 constexpr size_t kSmemLimit = 232448;
 
-// An order-preserving integer image of a float (not NaN): a < b as floats
-// if and only if key(a) < key(b) as signed integers; -0 sorts below +0.
-__device__ __forceinline__ int order_key(float f) {
-  const int i = __float_as_int(f);
-  return i >= 0 ? i : i ^ 0x7FFFFFFF;
-}
-__device__ __forceinline__ float from_key(int k) { return __int_as_float(k >= 0 ? k : k ^ 0x7FFFFFFF); }
-
 // Shared memory, from a 1024-byte boundary: [h (chid / 64 panels of 128
 // rows) | ring (kStages) | running max keys (cout) | full, empty (kStages each)].
 struct Smem {
   unsigned char* h;
-  unsigned char* ring;
+  Ring<kStages, kStageBytes> ring;
   int* gmax;
-  uint64_t* full;
-  uint64_t* empty;
   __device__ Smem(unsigned char* raw, int chid, int cout) {
     h = raw + ((1024 - (wg::smem_addr(raw) & 1023)) & 1023);
-    ring = h + (chid / 64) * kPanelBytes;
-    gmax = reinterpret_cast<int*>(ring + kStages * kStageBytes);
-    full = reinterpret_cast<uint64_t*>(gmax + cout);
-    empty = full + kStages;
+    ring.slots = h + (chid / 64) * kPanelBytes;
+    gmax = reinterpret_cast<int*>(ring.slots + kStages * kStageBytes);
+    ring.full = reinterpret_cast<uint64_t*>(gmax + cout);
+    ring.empty = ring.full + kStages;
   }
 };
 
@@ -90,43 +79,6 @@ inline size_t smem_bytes(int chid, int cout) {
   return 1024 + static_cast<size_t>(chid / 64) * kPanelBytes +
          static_cast<size_t>(kStages) * kStageBytes + sizeof(int) * cout +
          sizeof(uint64_t) * 2 * kStages;
-}
-
-// A consumer thread: warpgroup wgi, warp w of it, lane = 4 g + t.
-struct Who {
-  int wgi, w, lane, g, t;
-  __device__ Who() {
-    wgi = threadIdx.x / 128;
-    w = (threadIdx.x / 32) % 4;
-    lane = threadIdx.x % 32;
-    g = lane / 4;
-    t = lane % 4;
-  }
-};
-
-// Stage n of the ring's sequence: wait until its bytes have landed.
-__device__ __forceinline__ const unsigned char* await_stage(const Smem& sm, uint32_t n) {
-  const int s = n % kStages;
-  wg::mbar_wait(&sm.full[s], (n / kStages) & 1);
-  return sm.ring + s * kStageBytes;
-}
-__device__ __forceinline__ void release_stage(const Smem& sm, uint32_t n) {
-  wg::mbar_arrive(&sm.empty[n % kStages]);
-}
-
-// The A registers of GEMM1: the warpgroup's 64 x rows (row-major, 32 KX bytes
-// a row, as the bulk copy lands them), KX k-steps for warp w.
-template <int KX>
-__device__ __forceinline__ void load_x(uint32_t (&a)[KX][4], const unsigned char* stage,
-                                       const Who& me) {
-  const uint32_t base =
-      wg::smem_addr(stage) + (16 * me.w + me.lane % 16) * (32 * KX) + (me.lane / 16) * 16;
-#pragma unroll
-  for (int s = 0; s < KX; ++s)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(a[s][0]), "=r"(a[s][1]), "=r"(a[s][2]), "=r"(a[s][3])
-                 : "r"(base + s * 32)
-                 : "memory");
 }
 
 // GEMM1 chunk: acc = x rows @ W3[128 j : 128 j + 128]^T over the KX / 4 stages
@@ -137,7 +89,7 @@ __device__ __forceinline__ void product_x(float (&acc)[64], uint32_t (&xa)[KX][4
   wg::pin_new(acc);
 #pragma unroll
   for (int kp = 0; kp < KX / 4; ++kp) {
-    const uint64_t desc = wg::panel_desc(await_stage(sm, n + kp));
+    const uint64_t desc = wg::panel_desc(sm.ring.await(n + kp));
 #pragma unroll
     for (int q = 0; q < 4; ++q) wg::pin(xa[4 * kp + q]);
     wg::wgmma_fence();
@@ -149,7 +101,7 @@ __device__ __forceinline__ void product_x(float (&acc)[64], uint32_t (&xa)[KX][4
   wg::wgmma_wait();
   wg::pin(acc);
 #pragma unroll
-  for (int kp = 0; kp < KX / 4; ++kp) release_stage(sm, n + kp);
+  for (int kp = 0; kp < KX / 4; ++kp) sm.ring.release(n + kp);
   n += KX / 4;
 }
 
@@ -160,7 +112,7 @@ __device__ __forceinline__ void product_h(float (&acc)[64], const unsigned char*
   wg::pin_new(acc);
 #pragma unroll 1
   for (int kp = 0; kp < n_panels; ++kp) {
-    const uint64_t b_desc = wg::panel_desc(await_stage(sm, n));
+    const uint64_t b_desc = wg::panel_desc(sm.ring.await(n));
     const uint64_t a_desc = wg::panel_desc(h_rows + kp * kPanelBytes);
     wg::pin(acc);
     wg::wgmma_fence();
@@ -171,13 +123,13 @@ __device__ __forceinline__ void product_h(float (&acc)[64], const unsigned char*
     wg::wgmma_commit();
     if (kp > 0) {
       wg::wgmma_wait_pending<1>();
-      release_stage(sm, n - 1);
+      sm.ring.release(n - 1);
     }
     ++n;
   }
   wg::wgmma_wait();
   wg::pin(acc);
-  release_stage(sm, n - 1);
+  sm.ring.release(n - 1);
 }
 
 // h = relu(round(round(acc) + b3)) of GEMM1 chunk j into the warpgroup's rows
@@ -207,33 +159,12 @@ __device__ __forceinline__ void store_h(const float (&acc)[64], unsigned char* h
   }
 }
 
-// Fold a GEMM2 chunk into the running maxima of its 128 channels (`gmax`
-// keys). Value v[2 jj + e] is column 8 jj + 2 t + e; after the reduce-scatter
-// over the row lanes (lane bits 4, 3, 2 = g bits 2, 1, 0) lane (g, t) holds
-// values 4 g + i, i = 0 .. 3: columns 16 g + 8 (i / 2) + 2 t + i % 2.
+// Fold a GEMM2 chunk into the running maxima of its 128 channels (`gmax` keys).
 __device__ __forceinline__ void fold_max(const float (&acc)[64], bool ok0, bool ok1, int* gmax,
                                          const Who& me) {
   float v[32];
-#pragma unroll
-  for (int jj = 0; jj < 16; ++jj)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float a = acc[4 * jj + e], b = acc[4 * jj + 2 + e];
-      v[2 * jj + e] = ok1 ? fmaxf(a, b) : (ok0 ? a : -INFINITY);
-    }
-#pragma unroll
-  for (int half = 16; half >= 4; half /= 2) {
-    const bool upper = (me.lane & half) != 0;     // the partner lane differs in this bit
-#pragma unroll
-    for (int i = 0; i < half; ++i) {
-      const float send = upper ? v[i] : v[i + half];
-      const float keep = upper ? v[i + half] : v[i];
-      v[i] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, half));
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    atomicMax(gmax + 16 * me.g + 8 * (i / 2) + 2 * me.t + i % 2, order_key(v[i]));
+  rows_max(acc, ok0, ok1, v);
+  fold_keys(v, gmax, me);
 }
 
 template <int KX>     // k-steps of GEMM1: cin / 16
@@ -250,15 +181,9 @@ dense_relu_dense_max_wgmma(const bf16* x, const unsigned char* w3p, const float*
 
   // the ring zeroed, so that x rows no copy fills hold finite values; the running maxima at -inf
   for (int i = tid; i < kStages * kStageBytes / 16; i += kBlockThreads)
-    reinterpret_cast<uint4*>(sm.ring)[i] = make_uint4(0, 0, 0, 0);
+    reinterpret_cast<uint4*>(sm.ring.slots)[i] = make_uint4(0, 0, 0, 0);
   for (int c = tid; c < cout; c += kBlockThreads) sm.gmax[c] = order_key(-INFINITY);
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      wg::mbar_init(&sm.full[s], 1);                    // the producer's arrive, with the bytes
-      wg::mbar_init(&sm.empty[s], kConsumerThreads);    // every consumer thread, read or not
-    }
-    wg::mbar_init_fence();
-  }
+  if (tid == 0) sm.ring.init(1, kConsumerThreads);   // every consumer thread gives back every stage
   wg::fence_proxy_async();
   __syncthreads();
 
@@ -269,17 +194,7 @@ dense_relu_dense_max_wgmma(const bf16* x, const unsigned char* w3p, const float*
       const unsigned char* xb =
           reinterpret_cast<const unsigned char*>(x + static_cast<size_t>(blockIdx.x) * P * kCin);
       uint32_t n = 0;
-      auto put = [&](const unsigned char* src, uint32_t bytes) {
-        const int s = n % kStages;
-        wg::mbar_wait(&sm.empty[s], ((n / kStages) & 1) ^ 1);
-        if (bytes) {
-          wg::mbar_arrive_expect_tx(&sm.full[s], bytes);
-          wg::bulk_copy(sm.ring + s * kStageBytes, src, bytes, &sm.full[s]);
-        } else {
-          wg::mbar_arrive(&sm.full[s]);
-        }
-        ++n;
-      };
+      auto put = [&](const unsigned char* src, uint32_t bytes) { sm.ring.put(n++, src, bytes); };
       for (int i = 0; i < n_tiles; ++i) {
         for (int half = 0; half < 2; ++half) {
           const int r0 = i * kTile + half * kHalfTile;
@@ -307,15 +222,15 @@ dense_relu_dense_max_wgmma(const bf16* x, const unsigned char* w3p, const float*
       // the two x stages: this warpgroup's rows are loaded, the other's given back
       uint32_t xa[KX][4];
       const uint32_t own = n + me.wgi;
-      load_x(xa, await_stage(sm, own), me);
-      await_stage(sm, n + 1 - me.wgi);
-      release_stage(sm, n + 1 - me.wgi);
+      load_x(xa, sm.ring.await(own), me);
+      sm.ring.await(n + 1 - me.wgi);
+      sm.ring.release(n + 1 - me.wgi);
       n += 2;
 #pragma unroll 1
       for (int j = 0; j < chid / 128; ++j) {
         float acc[64];
         product_x(acc, xa, sm, n);
-        if (j == 0) release_stage(sm, own);   // the registers loaded from it have been read
+        if (j == 0) sm.ring.release(own);   // the registers loaded from it have been read
         store_h(acc, sm.h, j, b3, me);
       }
       wg::fence_proxy_async();                // h, written by stmatrix, is read by wgmma

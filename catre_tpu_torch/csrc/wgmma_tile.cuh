@@ -1,8 +1,9 @@
 // Hopper building blocks for kernels whose products run on `wgmma` (sm_90a):
 // shared-memory matrix descriptors, the warpgroup product with its fence /
-// commit / wait, `mbarrier`s, the 1-D bulk copy, named barriers, register
-// reallocation, and the accumulator-fragment bookkeeping that lets one
-// product's result feed the next from registers. `common.cuh::gemm_tile`
+// commit / wait, `mbarrier`s, the 1-D bulk copy, `cp.async` counted on an
+// `mbarrier`, named barriers, register reallocation, and the
+// accumulator-fragment bookkeeping that lets one product's result feed the
+// next from registers. `common.cuh::gemm_tile`
 // (mma.sync, 256-thread blocks) is a separate path and shares nothing with
 // this header but the element type.
 //
@@ -344,6 +345,19 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
           "r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// 16 bytes from device memory to shared memory by this thread (through L2,
+// not L1), both 16-byte aligned; `cp_async_arrive` counts their completion.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+// An arrival on `bar` once every cp.async this thread issued before has
+// landed; it counts against the barrier's expected arrivals.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
 }
 
 // Barrier `id` (1 .. 15; 0 is __syncthreads) over `n_threads` threads.

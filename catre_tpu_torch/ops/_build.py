@@ -99,8 +99,9 @@ def build_log(name: str) -> str:
 
 
 def ptxas_report(name: str, kernel: str) -> dict:
-    """Registers and spill bytes that `-Xptxas -v` reported for the first
-    entry function of library `name` whose mangled name contains `kernel`."""
+    """Registers, stack frame and spill bytes that `-Xptxas -v` reported for
+    the first entry function of library `name` whose mangled name contains
+    `kernel`."""
     found, report = False, {}
     for line in build_log(name).splitlines():
         if "Compiling entry function" in line:
@@ -109,6 +110,7 @@ def ptxas_report(name: str, kernel: str) -> dict:
             found = kernel in line
         elif found and "spill stores" in line:
             words = line.replace(",", "").split()
+            report["stack_frame"] = int(words[words.index("stack") - 2])
             report["spill_stores"] = int(words[words.index("spill") - 2])
             report["spill_loads"] = int(words[words.index("loads") - 3])
         elif found and "Used" in line and "registers" in line:

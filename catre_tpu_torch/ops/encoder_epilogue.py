@@ -13,17 +13,21 @@ differentiable counterparts, K5 and K6 with a routed backward, are in
 `ops/encoder_epilogue_train.py` (`ENCODER_TAIL_TRAIN`).
 
 Each wrapper runs its plain twin for a CPU tensor and launches its CUDA
-kernel (`csrc/encoder_epilogue.cu`, device code in
-`csrc/encoder_epilogue.cuh`; K1's bf16 build in `csrc/encoder_tail_wgmma.cuh`)
-for a CUDA tensor; it never falls back. x is (N, P, Cin) in the compute dtype
+kernel (`csrc/encoder_epilogue.cu`; the f32 builds in
+`csrc/encoder_epilogue.cuh`, K1's bf16 build in `csrc/encoder_tail_wgmma.cuh`,
+K2's in `csrc/encoder_stn_tail_wgmma.cuh`) for a CUDA tensor; it never falls
+back. x is (N, P, Cin) in the compute dtype
 `cdt` (float32 or bfloat16); weights are (out, in) and are cast to `cdt`; the
 result is (N, Cout) float32. Rounding follows flax `Dense(dtype=cdt)`:
 product rounded to `cdt`, bias added in `cdt`.
 
-K1's bf16 kernel takes the max of the bare f32 accumulator and rounds once
-per (cloud, channel); rounding and adding the bias are monotone, so that is
-the same function. `dense_relu_dense_max_folded_twin` is the plain version
-of that order, which tells a rounding fault from an accumulation fault.
+The bf16 kernels take the max of the bare f32 accumulator and round once
+per (cloud, channel); rounding, adding the bias and ReLU are monotone, so
+that is the same function. `dense_relu_max_folded_twin` and
+`dense_relu_dense_max_folded_twin` are the plain versions of that order,
+which tell a rounding fault from an accumulation fault. K2's bf16 kernel runs
+a persistent grid of blocks that each keep one group of output channels for
+the whole launch (`stn_tail_grid`, `stn_tail_schedule`).
 """
 
 from __future__ import annotations
@@ -61,6 +65,13 @@ def fold_max_rounded(acc, b, cdt):
     return (acc.amax(dim=1).to(cdt) + b.to(cdt)).float()
 
 
+def dense_relu_max_folded_twin(x, w, b, cdt):
+    """Plain version of K2 in its bf16 kernel's order: the product as the bare
+    f32 sum of the `cdt` operands, its max over P, then round, + b, round,
+    ReLU."""
+    return torch.relu(fold_max_rounded(F.linear(x.float(), w.to(cdt).float()), b, cdt))
+
+
 def dense_relu_dense_max_folded_twin(x, w3, b3, w4, b4, cdt):
     """Plain version of K1 in its bf16 kernel's order: the second product as
     the bare f32 sum of the `cdt` operands, its max over P, then round, + b4,
@@ -83,11 +94,40 @@ def pack_panels(w):
     return v[:, :, r, chunk].contiguous()
 
 
+def stn_tail_grid(n, cout, n_sms, chunks):
+    """Persistent blocks of K2's bf16 kernel for n clouds of cout channels:
+    the channels fall into `groups` of `chunks` x 128 (the last may hold
+    fewer), and the grid is the largest multiple of `groups` that is at most
+    `n_sms` and at most n x groups. -> (grid, groups)."""
+    groups = -(-(cout // 128) // chunks)
+    grid = groups * min(n_sms // groups, n)
+    if grid < 1:
+        raise ValueError(f"dense_relu_max: no grid for {n} clouds of {groups} channel groups "
+                         f"on {n_sms} SMs")
+    return grid, groups
+
+
+def stn_tail_schedule(n, cout, n_sms, chunks):
+    """The work of each of K2's persistent blocks, as the kernel walks it:
+    block b keeps group b % groups and takes the clouds b // groups,
+    + grid // groups, ... -> (grid, [[(cloud, group), ...] per block])."""
+    grid, groups = stn_tail_grid(n, cout, n_sms, chunks)
+    return grid, [[(cloud, b % groups) for cloud in range(b // groups, n, grid // groups)]
+                  for b in range(grid)]
+
+
+@functools.cache
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("encoder_epilogue")
-    lib.catre_dense_relu_max.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+    lib.catre_dense_relu_max.argtypes = [_P] * 4 + [_I] * 6 + [_P]
     lib.catre_dense_relu_max.restype = _I
+    lib.catre_stn_tail_chunks.restype = _I
+    lib.catre_stn_tail_smem.restype = _I
     lib.catre_dense_relu_dense_max.argtypes = [_P] * 6 + [_I] * 6 + [_P]
     lib.catre_dense_relu_dense_max.restype = _I
     return lib
@@ -123,7 +163,9 @@ BF16_MAX_CIN, BF16_MAX_HID, BF16_MAX_OUT = 128, 512, 4096
 
 
 def dense_relu_max(x, w, b, cdt):
-    """K2: max over P of relu(x @ w^T + b); x (N, P, Cin) -> (N, Cout) f32."""
+    """K2: max over P of relu(x @ w^T + b); x (N, P, Cin) -> (N, Cout) f32.
+    In bf16 Cin is 64 or 128 and x starts on a 16-byte boundary (its rows
+    are copied 16 bytes at a time)."""
     if x.device.type == "cpu":
         return dense_relu_max_twin(x, w, b, cdt)
     (w,), (b,) = _kernel_operands("dense_relu_max", x, cdt, [w], [b])
@@ -133,10 +175,19 @@ def dense_relu_max(x, w, b, cdt):
         raise ValueError(f"dense_relu_max: weight {tuple(w.shape)} / bias {tuple(b.shape)} "
                          f"do not fit x {tuple(x.shape)}")
     _check_widths("dense_relu_max", cin, cout)
+    grid = 0
+    if cdt == torch.bfloat16:
+        if cin not in (64, 128):
+            raise ValueError(f"dense_relu_max: the bf16 kernel takes 64 or 128 input channels "
+                             f"(its A registers), got {cin}")
+        if x.data_ptr() % 16:
+            raise ValueError("dense_relu_max: x must start on a 16-byte boundary (16-byte copies)")
+        grid, _ = stn_tail_grid(N, cout, _sm_count(x.device.index),
+                                _lib().catre_stn_tail_chunks())
     out = torch.empty(N, cout, device=x.device, dtype=torch.float32)
     rc = _lib().catre_dense_relu_max(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), N, P, cin, cout,
-        int(cdt == torch.bfloat16), _build.stream_handle(x.device))
+        int(cdt == torch.bfloat16), grid, _build.stream_handle(x.device))
     _build.check(rc, "dense_relu_max")
     LAUNCHES["dense_relu_max"] += 1
     return out

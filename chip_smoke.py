@@ -10,10 +10,10 @@ code is non-zero):
   1. device:   the card's name and power limit (nvidia-smi); no card -> exit 1;
   2. build:    compile the CUDA kernels from catre_tpu_torch/csrc with nvcc;
   3. kernels:  K1, K2 and K3 vs their plain PyTorch twins at main-path shapes,
-               in f32 (tight) and bf16 (loose), and their times; K1 in bf16
-               also vs the plain version of its own order (max on the bare
-               accumulator), its launches bit-equal, and a point count its
-               128-point tile does not divide; K3's chained
+               in f32 (tight) and bf16 (loose), and their times; K1 and K2 in
+               bf16 also vs the plain versions of their own order (max on the
+               bare accumulator), their launches bit-equal, and a point count
+               their 128-point tile does not divide; K3's chained
                tensor-core products alone, its launches bit-equal, and a point
                count its tile does not divide; K7 and K8 (2,
                4 and 8 objects per block) vs their plain version, and vs K3 in
@@ -78,9 +78,10 @@ REFINE_CALLS = 3             # timed refine calls per batch size, after one warm
 K3_REPEATS = 5               # further launches of K3 that must give the first one's bits
 K3_RAGGED = (1999, 1000)     # points and cloud points that K3's 64-point tile does not divide
 CHAIN_TOL, CHAIN_TOL_ROUNDED = 1e-5, 1e-3    # K3's two chained products, x max|plain|
-K1_REPEATS = 5               # further launches of K1 that must give the first one's bits
-K1_RAGGED = 1000             # points that K1's 128-point tile does not divide
+TAIL_REPEATS = 5             # further launches of K1 / K2 that must give the first one's bits
+TAIL_RAGGED = 1000           # points that K1's and K2's 128-point tile does not divide
 K1_KERNEL = "dense_relu_dense_max_wgmmaILi8"   # the bf16 K1 at cin = 128, as ptxas names it
+K2_KERNEL = "dense_relu_max_wgmmaILi8E"       # the bf16 K2 at cin = 128, as ptxas names it
 K4_CHECK_B, K4_TIME_B = 64, 512
 K4_REPEATS = 3               # further launches of K4 that must give the first one's bits
 TN_TOL = 1e-5                # K4's transposed products alone, x max|plain|
@@ -242,44 +243,42 @@ def check_k3_design(rot_args):
                       [rot_ops.rot_head_twin(pf, gterm, pack, n_pcl)], ["out"])
 
 
-def check_k1_design(x_main, ws):
-    """What the bf16 K1 (max on the bare accumulator, `csrc/encoder_tail_wgmma.cuh`)
-    has to show beyond agreeing with its plain version: it agrees with the
-    plain version of its own order (`dense_relu_dense_max_folded_twin`) too;
-    launches on the same inputs are bit-equal, several times over (the running
-    maxima are folded by atomics in any order, a ring stage given back too
-    early shows only sometimes); and a point count that the 128-point tile
-    does not divide, in f32 and bf16. The mean distances to the two plain
-    versions are printed, not gated: the fold is exact, so the two differ only
-    in the order of the f32 sums, as the kernel does from both.
-    -> ptxas' registers and spill bytes of the kernel."""
+def check_tail_design(tag, kernel, plain_fn, folded_fn, x_full, ws, ptxas_name):
+    """What the bf16 K1 and K2 (max on the bare accumulator,
+    `csrc/encoder_tail_wgmma.cuh`, `csrc/encoder_stn_tail_wgmma.cuh`) have to
+    show beyond agreeing with their plain version: they agree with the plain
+    version of their own order (`*_folded_twin`) too; launches on the same
+    inputs are bit-equal, several times over (the running maxima are folded
+    by atomics in any order, a ring slot given back too early shows only
+    sometimes); and a point count that the 128-point tile does not divide, in
+    f32 and bf16. The mean distances to the two plain versions are printed,
+    not gated: the fold is exact, so the two differ only in the order of the
+    f32 sums, as the kernel does from both. -> ptxas' registers, stack frame
+    and spill bytes of the kernel."""
     from catre_tpu_torch.ops import _build
-    from catre_tpu_torch.ops import encoder_epilogue as enc_ops
 
     bf = torch.bfloat16
-    x = x_main.to(bf)
-    out = enc_ops.dense_relu_dense_max(x, *ws, bf)
-    plain = enc_ops.dense_relu_dense_max_twin(x, *ws, bf)
-    folded = enc_ops.dense_relu_dense_max_folded_twin(x, *ws, bf)
-    tensor_errors("kernels", "K1 vs its folded plain version", bf, [out], [folded], ["out"])
-    log("kernels", f"K1 bf16: mean |kernel - folded plain| = {(out - folded).abs().mean().item():.3e}, "
-                   f"mean |per-row plain - folded plain| = "
+    x = x_full.to(bf)
+    out, plain, folded = (fn(x, *ws, bf) for fn in (kernel, plain_fn, folded_fn))
+    tensor_errors("kernels", f"{tag} vs its folded plain version", bf, [out], [folded], ["out"])
+    log("kernels", f"{tag} bf16: mean |kernel - folded plain| = "
+                   f"{(out - folded).abs().mean().item():.3e}, mean |kernel - per-row plain| = "
+                   f"{(out - plain).abs().mean().item():.3e}, mean |per-row plain - folded plain| = "
                    f"{(plain - folded).abs().mean().item():.3e}, elements that differ from the "
                    f"folded plain version {(out != folded).sum().item()} of {out.numel()}")
-    for _ in range(K1_REPEATS):
-        if not torch.equal(out, enc_ops.dense_relu_dense_max(x, *ws, bf)):
-            raise RuntimeError("K1 bf16: two launches on the same inputs differ")
-    log("kernels", f"K1 bf16: {1 + K1_REPEATS} launches on the same inputs bit-equal")
+    for _ in range(TAIL_REPEATS):
+        if not torch.equal(out, kernel(x, *ws, bf)):
+            raise RuntimeError(f"{tag} bf16: two launches on the same inputs differ")
+    log("kernels", f"{tag} bf16: {1 + TAIL_REPEATS} launches on the same inputs bit-equal")
     del x, out, plain, folded
     for cdt in TOL:
-        x = x_main[:, :K1_RAGGED].to(cdt).contiguous()
-        out = enc_ops.dense_relu_dense_max(x, *ws, cdt)
-        tensor_errors("kernels", f"K1 P={K1_RAGGED}", cdt, [out, out],
-                      [enc_ops.dense_relu_dense_max_twin(x, *ws, cdt),
-                       enc_ops.dense_relu_dense_max_folded_twin(x, *ws, cdt)],
+        x = x_full[:, :TAIL_RAGGED].to(cdt).contiguous()
+        out = kernel(x, *ws, cdt)
+        tensor_errors("kernels", f"{tag} P={TAIL_RAGGED}", cdt, [out, out],
+                      [plain_fn(x, *ws, cdt), folded_fn(x, *ws, cdt)],
                       ["vs plain", "vs folded plain"])
-    report = _build.ptxas_report("encoder_epilogue", K1_KERNEL)
-    log("kernels", f"K1 bf16 kernel {K1_KERNEL}: {report}")
+    report = _build.ptxas_report("encoder_epilogue", ptxas_name)
+    log("kernels", f"{tag} bf16 kernel {ptxas_name}: {report}")
     return report
 
 
@@ -683,14 +682,21 @@ def main():
         results["K2"] = check_kernel(
             "K2 dense_relu_max", enc_ops.dense_relu_max, enc_ops.dense_relu_max_twin,
             lambda cdt: (x_stn.to(cdt), enc.stn.conv3.weight, enc.stn.conv3.bias, cdt))
+        results["K2"].update(check_tail_design(
+            "K2", enc_ops.dense_relu_max, enc_ops.dense_relu_max_twin,
+            enc_ops.dense_relu_max_folded_twin, x_stn,
+            [enc.stn.conv3.weight.detach(), enc.stn.conv3.bias.detach()], K2_KERNEL),
+            shared_memory=enc_ops._lib().catre_stn_tail_smem())
         results["K1"] = check_kernel(
             "K1 dense_relu_dense_max", enc_ops.dense_relu_dense_max,
             enc_ops.dense_relu_dense_max_twin,
             lambda cdt: (x_main.to(cdt), enc.conv3.weight, enc.conv3.bias, enc.conv4.weight,
                          enc.conv4.bias, cdt))
-        results["K1"].update(check_k1_design(
-            x_main, [t.detach() for layer in (enc.conv3, enc.conv4) for t in (layer.weight,
-                                                                           layer.bias)]))
+        results["K1"].update(check_tail_design(
+            "K1", enc_ops.dense_relu_dense_max, enc_ops.dense_relu_dense_max_twin,
+            enc_ops.dense_relu_dense_max_folded_twin, x_main,
+            [t.detach() for layer in (enc.conv3, enc.conv4) for t in (layer.weight, layer.bias)],
+            K1_KERNEL))
 
         def rot_args(cdt):
             pack = rot_ops.pack_rot_head(head, cdt)
@@ -856,7 +862,7 @@ def main():
         dict(name="K1 dense_relu_dense_max", route="cuda", source=src + "encoder_tail_wgmma.cuh",
              replaces="catre_tpu/ops/pallas_encoder_epilogue.py:98",
              launches=launches["dense_relu_dense_max"], **results["K1"]),
-        dict(name="K2 dense_relu_max", route="cuda", source=src + "encoder_epilogue.cu",
+        dict(name="K2 dense_relu_max", route="cuda", source=src + "encoder_stn_tail_wgmma.cuh",
              replaces="catre_tpu/ops/pallas_encoder_epilogue.py:89",
              launches=launches["dense_relu_max"], **results["K2"]),
         dict(name="K3 rot_head", route="cuda", source=src + "rot_head.cu",

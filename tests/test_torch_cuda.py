@@ -1,7 +1,7 @@
-"""CUDA kernels K1-K9 vs their plain PyTorch versions on the card (K1's bf16
-build also vs the plain version of its own order, relaunched bit-equal), the
-inference kernels' refusal of a differentiable call, and a train step's
-launch counts.
+"""CUDA kernels K1-K9 vs their plain PyTorch versions on the card (the bf16
+builds of K1 and K2 also vs the plain versions of their own order, relaunched
+bit-equal), the inference kernels' refusal of a differentiable call, and a
+train step's launch counts.
 
 Every test here is marked `cuda` and skips without a card. The file imports
 no JAX, so it runs on a machine without it; `tests/conftest.py` sets up JAX,
@@ -111,6 +111,60 @@ def test_dense_relu_dense_max_bf16_launches_are_bit_equal(dev):
     outs = [enc_ops.dense_relu_dense_max(x, *ws, torch.bfloat16) for _ in range(4)]
     torch.cuda.synchronize()
     assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def _k2_case(seed, n, p, dev, cdt, cin=128, cout=1024):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.relu(torch.randn(n, p, cin, generator=gen)).to(dev, cdt)
+    return x, list(_dense(gen, cin, cout, dev))
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+@pytest.mark.parametrize("p", [1024, 1000, 40])
+def test_dense_relu_max_bf16_kernel_vs_both_plain_versions(dev, n, p):
+    """The wgmma K2 (persistent blocks, max on the bare accumulator) against
+    the plain version that rounds every row and the one in the kernel's own
+    order: fewer work items than SMs, a tile its 128 points do not fill, a
+    slot less than a warp's 16 rows full."""
+    x, ws = _k2_case(300 + n + p, n, p, dev, torch.bfloat16)
+    before = enc_ops.LAUNCHES["dense_relu_max"]
+    out = enc_ops.dense_relu_max(x, *ws, torch.bfloat16)
+    assert enc_ops.LAUNCHES["dense_relu_max"] == before + 1
+    assert out.shape == (n, 1024) and torch.isfinite(out).all()
+    _assert_close(out, enc_ops.dense_relu_max_twin(x, *ws, torch.bfloat16), torch.bfloat16)
+    _assert_close(out, enc_ops.dense_relu_max_folded_twin(x, *ws, torch.bfloat16), torch.bfloat16)
+
+
+def test_dense_relu_max_bf16_launches_are_bit_equal(dev):
+    """The running maxima are folded by atomics in any order and a slot given
+    back too early would show only sometimes: four launches, the same bits."""
+    x, ws = _k2_case(8, 300, 1000, dev, torch.bfloat16)
+    outs = [enc_ops.dense_relu_max(x, *ws, torch.bfloat16) for _ in range(4)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.parametrize("cdt", DTYPES)
+def test_dense_relu_max_train_forward_is_bit_equal_to_k2(dev, cdt):
+    """The K5 forward (per-row rounding, `mma.sync`) and K2 (the bare
+    accumulator's max, `wgmma` in bf16) give the same bits."""
+    x, ws = _k2_case(9, 8, 1000, dev, cdt)
+    with torch.no_grad():
+        out, _ = tail_ops.dense_relu_max_fwd(x, *ws, cdt)
+        assert torch.equal(out, enc_ops.dense_relu_max(x, *ws, cdt))
+
+
+def test_dense_relu_max_bf16_refuses_what_it_does_not_take(dev):
+    x, ws = _k2_case(10, 2, 64, dev, torch.bfloat16, cin=192)
+    with pytest.raises(ValueError, match="64 or 128"):
+        enc_ops.dense_relu_max(x, *ws, torch.bfloat16)
+    enc_ops.dense_relu_max(x.float(), *ws, torch.float32)          # the f32 build takes it
+    x, ws = _k2_case(11, 2, 64, dev, torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        enc_ops.dense_relu_max(x.flatten()[1:1 + 2 * 63 * 128].view(2, 63, 128), *ws,
+                               torch.bfloat16)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        enc_ops.dense_relu_max(x.requires_grad_(), *ws, torch.bfloat16)
 
 
 @pytest.mark.parametrize("cdt", DTYPES)
