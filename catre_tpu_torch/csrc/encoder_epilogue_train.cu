@@ -42,7 +42,9 @@
 //     d W[c]; d goes to an (N, cout) scratch. (2) a warp per (channel, group
 //     of clouds) gathers the argmax rows of x and adds them weighted by d:
 //     per-group partials of dW and db, summed in order by sum_rows.
-//   K6 backward: (1) per cloud, tiles of TM critical rows: the rows of x are
+//   K6 backward, f32 (the bf16 build is encoder_tail_bwd_wgmma.cuh, after a
+//     routing pass `route_clouds` that writes each cloud's sorted keys once):
+//     (1) per cloud, tiles of TM critical rows: the rows of x are
 //     gathered into shared memory, g is built per row from the W4 rows of its
 //     segment, the W3 product (gemm_tile) gates it, the gated tile goes to the
 //     dense (N, P, chid) scratch D and, multiplied by W3 (gemm_tile again),
@@ -56,6 +58,7 @@
 // T = bf16 rounds d, d4, h3 and d_h3 to bf16 as the Pallas kernels do (f32
 // accumulation); T = float is exact FMA, for tight checks on the card.
 #include "encoder_epilogue.cuh"
+#include "encoder_tail_bwd_wgmma.cuh"
 #include "gemm_tn.cuh"
 
 using namespace catre;
@@ -74,9 +77,6 @@ __device__ __forceinline__ float2 load2(const bf16* p) {
 }
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // ---- routing -------------------------------------------------------------------
@@ -139,6 +139,36 @@ struct Route {
 
 constexpr size_t route_bytes(int cout, int cout2) {
   return sizeof(int) * (static_cast<size_t>(cout2) + cout + 32 + cout);
+}
+
+// The bf16 K6 backward's routing pass: one block per cloud sorts its live
+// keys (d4 = round(d_out) != 0) and writes them to the routing buffer as
+// tailbwd::CloudRoute reads it: channels in (row, channel) order with their
+// d4, segment starts, critical rows, their count.
+__global__ void __launch_bounds__(kThreads)
+route_clouds(const int* idx, const float* dout, int* route, int cout, int cout2) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int n_rows;
+  int* keys = reinterpret_cast<int*>(smem);
+  int* seg = keys + cout2;
+  const int n = blockIdx.x, tid = threadIdx.x;
+  const size_t nc = static_cast<size_t>(n) * cout;
+  for (int c = tid; c < cout2; c += kThreads) {
+    int key = kNoKey;
+    if (c < cout && round_to<bf16>(dout[nc + c]) != 0.0f) key = idx[nc + c] * cout + c;
+    keys[c] = key;
+  }
+  sort_keys(keys, cout2);
+  segment_rows(keys, cout2, cout, seg, &n_rows);
+  int* r = route + static_cast<size_t>(n) * tailbwd::route_stride(cout);
+  for (int j = tid; j < seg[n_rows]; j += kThreads) {
+    const int c = keys[j] % cout;
+    r[j] = c;
+    r[cout + j] = __float_as_int(round_to<bf16>(dout[nc + c]));
+  }
+  for (int i = tid; i <= n_rows; i += kThreads) r[2 * cout + i] = seg[i];
+  for (int i = tid; i < n_rows; i += kThreads) r[3 * cout + 1 + i] = keys[seg[i]] / cout;
+  if (tid == 0) r[4 * cout + 1] = n_rows;
 }
 
 template <typename V>
@@ -460,9 +490,11 @@ int run_relu_max_bwd(const void* x, const void* w, const float* b, const int* id
 
 // Pointer slots of catre_dense_relu_dense_max_train_bwd, in the order of
 // catre_tpu_torch/ops/encoder_epilogue_train.py::K6_BWD_SLOTS.
+// The f32 build takes no ROUTE, PART_W3, PART_B3 (null), the bf16 build no
+// W3T, DH3, PDB3, GPART.
 enum Slot {
   X, W3, B3, W3T, W4, IDX, DOUT, DH3, PDB3, PART_W4, PART_B4, GPART,
-  DX, DW3, DB3, DW4, DB4,
+  DX, DW3, DB3, DW4, DB4, ROUTE, PART_W3, PART_B3,
   kSlots
 };
 
@@ -493,6 +525,45 @@ int run_relu_dense_max_bwd(void* const* ptr, int n, int p, int cin, int cin_pad,
   if (err) return err;
   return product_tn<T>(tp(DH3), chid, tp(X), cin, 0, 1, chid, cin, static_cast<long long>(n) * p,
                        splits, f(GPART), f(DW3), stream);
+}
+
+// bf16: route, the three passes of encoder_tail_bwd_wgmma.cuh, then the
+// partials summed in order: dW4 and db4 over `groups` groups of clouds, dW3
+// and db3 over `splits`; the cloud pass runs `grid` persistent blocks.
+template <int KX>
+int run_relu_dense_max_bwd_wgmma(void* const* ptr, int n, int p, int chid, int cout, int cout2,
+                                 int groups, int splits, int grid, void* stream) {
+  constexpr int kCin = 16 * KX;
+  auto f = [&](Slot s) { return static_cast<float*>(ptr[s]); };
+  const bf16* x = static_cast<const bf16*>(ptr[X]);
+  const bf16* w3 = static_cast<const bf16*>(ptr[W3]);
+  const bf16* w4 = static_cast<const bf16*>(ptr[W4]);
+  const float* b3 = f(B3);
+  const float* dout = f(DOUT);
+  const int* idx = static_cast<const int*>(ptr[IDX]);
+  int* route = static_cast<int*>(ptr[ROUTE]);
+  int err = launch(route_clouds, n, sizeof(int) * (cout2 + cout + 32), stream, idx, dout, route,
+                   cout, cout2);
+  if (err) return err;
+  err = launch(tailbwd::cloud_pass<KX>, grid, tailbwd::cloud_smem_bytes(kCin, chid, cout), stream,
+               x, w3, b3, w4, static_cast<const int*>(route), f(DX), n, p, chid, cout);
+  if (err) return err;
+  err = launch(tailbwd::dw3_pass<KX>, dim3(chid / tailbwd::kDw3Chunk, splits),
+               tailbwd::dw3_smem_bytes(kCin, cout), stream, x, w3, b3, w4,
+               static_cast<const int*>(route), f(PART_W3), f(PART_B3), n, p, chid, cout,
+               (n + splits - 1) / splits);
+  if (err) return err;
+  err = launch(tailbwd::dw4_pass<KX>, dim3((cout / tailbwd::kTile) * (chid / tailbwd::kChunk), groups),
+               tailbwd::dw4_smem_bytes(kCin), stream, x, w3, b3, idx, dout, f(PART_W4), f(PART_B4),
+               n, p, chid, cout, (n + groups - 1) / groups);
+  if (err) return err;
+  err = sum_into(f(PART_W4), f(DW4), groups, cout * chid, stream);
+  if (err) return err;
+  err = sum_into(f(PART_B4), f(DB4), groups, cout, stream);
+  if (err) return err;
+  err = sum_into(f(PART_W3), f(DW3), splits, chid * kCin, stream);
+  if (err) return err;
+  return sum_into(f(PART_B3), f(DB3), splits, chid, stream);
 }
 
 }  // namespace
@@ -541,15 +612,53 @@ extern "C" int catre_dense_relu_max_train_bwd(const void* x, const void* w, cons
 }
 
 // K6 backward. ptr: kSlots device pointers in the order of Slot; x, w3, w3t,
-// w4 and dh3 hold T, idx i32, every other array f32 (b3 unrounded).
+// w4 and dh3 hold T, idx and route i32, every other array f32 (b3
+// unrounded). groups: the partials of dW4 and db4; splits: those of dW3 (the
+// f32 build's split-K ranges, the bf16 build's groups of clouds, which also
+// split db3); grid: the bf16 cloud pass's persistent blocks (f32: unused). In
+// bf16 cin is 64 or 128, chid and cout multiples of 128 with
+// catre_k6_bwd_smem(cin, chid, cout, 0 and 1) within the shared memory of a
+// block, and x starts on a 16-byte boundary.
 extern "C" int catre_dense_relu_dense_max_train_bwd(void* const* ptr, int n, int p, int cin,
                                                     int cin_pad, int chid, int cout, int cout2,
-                                                    int groups, int splits, int bf16,
+                                                    int groups, int splits, int grid, int bf16,
                                                     void* stream) {
-  return bf16 ? run_relu_dense_max_bwd<catre::bf16>(ptr, n, p, cin, cin_pad, chid, cout, cout2,
-                                                    groups, splits, stream)
-              : run_relu_dense_max_bwd<float>(ptr, n, p, cin, cin_pad, chid, cout, cout2, groups,
-                                              splits, stream);
+  if (!bf16)
+    return run_relu_dense_max_bwd<float>(ptr, n, p, cin, cin_pad, chid, cout, cout2, groups,
+                                         splits, stream);
+  if ((cin != 64 && cin != 128) || chid <= 0 || chid % 128 || cout <= 0 || cout % 128 || n < 1 ||
+      p < 1 || groups < 1 || splits < 1 || grid < 1 ||
+      tailbwd::cloud_smem_bytes(cin, chid, cout) > tail::kSmemLimit ||
+      tailbwd::dw3_smem_bytes(cin, cout) > tail::kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return cin == 128 ? run_relu_dense_max_bwd_wgmma<8>(ptr, n, p, chid, cout, cout2, groups, splits,
+                                                      grid, stream)
+                    : run_relu_dense_max_bwd_wgmma<4>(ptr, n, p, chid, cout, cout2, groups, splits,
+                                                      grid, stream);
+}
+
+// Dynamic shared memory of the bf16 K6 backward's passes in bytes: 0 the
+// cloud pass (W3 resident), 1 the dW3 pass (W4's chunk resident), 2 the dW4
+// pass. The wrapper refuses widths at which 0 or 1 exceeds the limit.
+extern "C" int catre_k6_bwd_smem(int cin, int chid, int cout, int pass) {
+  return static_cast<int>(pass == 0   ? tailbwd::cloud_smem_bytes(cin, chid, cout)
+                          : pass == 1 ? tailbwd::dw3_smem_bytes(cin, cout)
+                                      : tailbwd::dw4_smem_bytes(cin));
 }
 
 extern "C" int catre_dense_relu_dense_max_train_bwd_slots() { return kSlots; }
+
+// Ints of one cloud's row of the bf16 K6 backward's routing buffer.
+extern "C" int catre_k6_route_stride(int cout) { return tailbwd::route_stride(cout); }
+
+#ifdef CATRE_K6B_PHASE_CLOCKS
+// Diagnostic build only: the clocks the bf16 K6 backward's passes added up
+// since the last call, (3 passes x kPhases) into `out`; then zeroes them.
+extern "C" int catre_k6b_phase_clocks(unsigned long long* out) {
+  constexpr size_t kBytes = sizeof(unsigned long long) * 3 * tailbwd::kPhases;
+  cudaError_t err = cudaMemcpyFromSymbol(out, tailbwd::phase_clocks, kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static const unsigned long long zeros[3 * tailbwd::kPhases] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(tailbwd::phase_clocks, zeros, kBytes));
+}
+#endif

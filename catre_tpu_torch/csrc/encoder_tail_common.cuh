@@ -16,6 +16,8 @@
 namespace catre {
 namespace tail {
 
+constexpr size_t kSmemLimit = 232448;     // dynamic shared memory one block may ask for on sm_90
+
 // A consumer thread: warpgroup wgi, warp w of it, lane = 4 g + t.
 struct Who {
   int wgi, w, lane, g, t;

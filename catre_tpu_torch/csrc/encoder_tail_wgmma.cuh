@@ -58,7 +58,6 @@ constexpr int kConsumerThreads = 256;
 constexpr int kBlockThreads = kConsumerThreads + 128;
 constexpr int kConsumerRegs = 232, kProducerRegs = 40;   // 2 x 128 x 232 + 128 x 40 = 64512
 constexpr int kAllConsumers = 3;           // named barrier ids: 1, 2 a warpgroup each; 3 both
-constexpr size_t kSmemLimit = 232448;
 
 // Shared memory, from a 1024-byte boundary: [h (chid / 64 panels of 128
 // rows) | ring (kStages) | running max keys (cout) | full, empty (kStages each)].

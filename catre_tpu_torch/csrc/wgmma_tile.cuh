@@ -14,7 +14,9 @@
 // same bytes read the other way (a backward product d_y W): `product_n64`.
 // The 64 x 128 product also takes A from shared memory, a K-major panel like
 // B's (`wgmma_m64n128k16_ss`), and `stmatrix_x4` writes such a panel from
-// accumulator fragments.
+// accumulator fragments. And D (64 x 64) += A @ B with both operands in
+// shared memory, either one read MN-major (`wgmma_m64n64k16_ss`): a weight
+// gradient d_y^T x over the rows of a tile, neither operand transposed in memory.
 // A warpgroup is four consecutive warps, the first with warp index % 4 == 0.
 //
 // Fragments. Warp w of the warpgroup owns rows 16 w .. 16 w + 15; lane
@@ -163,6 +165,32 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a_d
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
+// d (64 x 64) = (accumulate ? d : 0) + A @ B with both operands in shared
+// memory, each read MN-major when its flag is 1 (TA: A's 64 rows run along a
+// panel's 128-byte row and its 16 columns down the panel's rows; TB: likewise
+// B's 64 columns), K-major when it is 0. One 64-wide panel each, so the
+// leading offset is not used. Asynchronous, as below.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a_desc,
+                                                   uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // d (64 x 128) = (accumulate ? d : 0) + a (64 x 16, registers) @ B^T, B the 128
@@ -358,6 +386,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
                : "memory");
+}
+
+// The cp.async this thread issued since the last commit form one group;
+// `cp_async_wait<N>` returns once at most N of its groups are still landing.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Barrier `id` (1 .. 15; 0 is __syncthreads) over `n_threads` threads.

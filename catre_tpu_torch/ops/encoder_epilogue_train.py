@@ -28,7 +28,18 @@ Beside each kernel its plain PyTorch version, which the wrappers run for a
 CPU tensor; for a CUDA tensor they launch `csrc/encoder_epilogue_train.cu`
 or raise, never fall back. The plain backwards are routed like the kernels
 (gather the argmax rows, scatter-add the row gradients) where the Pallas
-bodies multiply by a dense one-hot matrix: the function is the same.
+bodies multiply by a dense one-hot matrix: the function is the same. K6's
+backward has a second plain version, `dense_relu_dense_max_bwd_critical_plain`,
+that works in the bf16 kernel's own order (route, g, gate, the three
+products on the critical rows only, `route_rows` mirroring the kernel's
+routing buffer): where the kernel disagrees with both, routing is at fault,
+where with one, rounding. Both plain versions serve tests and checks only.
+
+The bf16 K6 backward (`csrc/encoder_tail_bwd_wgmma.cuh`) takes cin 64 or
+128, chid and cout multiples of 128 that fit its shared memory, and x on a
+16-byte boundary, and allocates nothing of N x P x chid: a routing buffer of
+N rows of about 4 cout int32 and per-group partials of the weight gradients
+(`k6_bwd_schedule`).
 """
 
 from __future__ import annotations
@@ -40,15 +51,17 @@ import torch
 
 from ..models.layers import dense
 from . import _build
-from .encoder_epilogue import _check_widths
+from .encoder_epilogue import _check_widths, _sm_count
 
 LAUNCHES = {"dense_relu_max_train_fwd": 0, "dense_relu_max_train_bwd": 0,
             "dense_relu_dense_max_train_fwd": 0, "dense_relu_dense_max_train_bwd": 0}
 
 # pointer slots of catre_dense_relu_dense_max_train_bwd, the order of `Slot`
-# in csrc/encoder_epilogue_train.cu
+# in csrc/encoder_epilogue_train.cu; each build leaves the other's own slots null
 K6_BWD_SLOTS = ("x", "w3", "b3", "w3t", "w4", "idx", "dout", "dh3", "pdb3", "part_w4", "part_b4",
-                "gpart", "dx", "dw3", "db3", "dw4", "db4")
+                "gpart", "dx", "dw3", "db3", "dw4", "db4", "route", "part_w3", "part_b3")
+K6_BWD_F32_ONLY = ("w3t", "dh3", "pdb3", "gpart")
+K6_BWD_BF16_ONLY = ("route", "part_w3", "part_b3")
 CLOUD_GROUPS = 16    # groups of clouds whose weight-gradient partials are summed in order
 SPLIT_ROWS = 4096    # K rows per range of the dW3 product, at most 128 ranges
 
@@ -99,6 +112,32 @@ def dense_relu_dense_max_fwd_plain(x, w3, b3, w4, b4, cdt):
     return max_argmax(dense(dense(x, w3, b3, cdt, act=True), w4, b4, cdt))
 
 
+def route_rows(idx, d4):
+    """The bf16 K6 backward's routing, as its routing pass writes it per cloud:
+    idx (N, C) int, d4 (N, C) the rounded cotangent -> (chan (N, C): the
+    channels of the live keys (d4 != 0) in (row, channel) order, then -1;
+    seg (N, C + 1): the first key of each critical row, seg[n, count[n]] the
+    live keys, then C; rows (N, C): the critical rows ascending, then -1;
+    count (N,)), all int64."""
+    N, C = idx.shape
+    live = d4 != 0
+    big = torch.iinfo(torch.int64).max
+    keys = torch.where(live, idx.long() * C + torch.arange(C, device=idx.device), big)
+    keys = keys.sort(dim=1).values
+    live_sorted = keys != big
+    row = torch.where(live_sorted, keys // C, -1)
+    head = live_sorted.clone()
+    head[:, 1:] &= row[:, 1:] != row[:, :-1]
+    count = head.sum(dim=1)
+    pos = torch.arange(C, device=idx.device).expand(N, C)
+    first = torch.where(head, pos, C).sort(dim=1).values             # heads first, ascending
+    seg = torch.cat([first, torch.full((N, 1), C, device=idx.device)], dim=1)
+    seg.scatter_(1, count[:, None], live_sorted.sum(dim=1, keepdim=True))
+    has_row = pos < count[:, None]
+    rows = torch.where(has_row, row.gather(1, first.clamp(max=C - 1)), -1)
+    return torch.where(live_sorted, keys % C, -1), seg, rows, count
+
+
 def dense_relu_dense_max_bwd_plain(x, w3, b3, w4, b4, idx, d_out, cdt):
     """Plain K6 backward -> (dx, dW3, db3, dW4, db4), f32; b4 gives db4's shape only."""
     xc, w3c, w4c = x.to(cdt).float(), w3.to(cdt).float(), w4.to(cdt).float()
@@ -112,6 +151,39 @@ def dense_relu_dense_max_bwd_plain(x, w3, b3, w4, b4, idx, d_out, cdt):
     return d_h3 @ w3c, dw3, d_h3.sum(dim=(0, 1)), dw4, d4.sum(dim=0).reshape(b4.shape)
 
 
+def dense_relu_dense_max_bwd_critical_plain(x, w3, b3, w4, b4, idx, d_out, cdt):
+    """Plain K6 backward in the bf16 kernel's order, on the critical rows only:
+    route (`route_rows`), g per critical row as a sum over its segment, the
+    gate, then dx, dW3 and dW4 from those rows -> (dx, dW3, db3, dW4, db4), f32."""
+    xc, w3c, w4c = x.to(cdt).float(), w3.to(cdt).float(), w4.to(cdt).float()
+    N, P, cin = x.shape
+    C = idx.shape[1]
+    d4 = d_out.to(cdt).float()
+    chan, seg, rows, count = route_rows(idx, d4)
+    live = chan >= 0
+    # the critical rows of all clouds in one list; a live key's critical row in it
+    has_row = rows >= 0
+    cloud = torch.arange(N, device=x.device)[:, None].expand(N, C)
+    crit_cloud, crit_row = cloud[has_row], rows[has_row]
+    key_pos = torch.arange(C, device=x.device).expand(N, C)
+    seg_of_key = torch.searchsorted(seg[:, :-1].contiguous(), key_pos.contiguous(), right=True) - 1
+    offset = torch.cumsum(count, 0) - count                           # first critical row of a cloud
+    key_row = (offset[:, None] + seg_of_key)[live]
+    key_chan = chan[live]
+    key_d = d4.gather(1, chan.clamp(min=0))[live]
+    g = torch.zeros(crit_row.numel(), w4.shape[1], device=x.device)
+    g.index_add_(0, key_row, key_d[:, None] * w4c[key_chan])
+    xr = xc[crit_cloud, crit_row]                                     # (R, cin)
+    h3p = xr @ w3c.T + b3.float()
+    d_h3 = torch.where(h3p > 0, g.to(cdt).float(), 0.0)
+    dx = torch.zeros(N, P, cin, device=x.device)
+    dx[crit_cloud, crit_row] = d_h3 @ w3c
+    h3 = torch.relu(h3p).to(cdt).float()
+    dw4 = torch.zeros(C, w4.shape[1], device=x.device)
+    dw4.index_add_(0, key_chan, key_d[:, None] * h3[key_row])
+    return dx, d_h3.T @ xr, d_h3.sum(dim=0), dw4, d4.sum(dim=0).reshape(b4.shape)
+
+
 # ---- kernels -------------------------------------------------------------------------
 
 @functools.cache
@@ -120,10 +192,13 @@ def _lib() -> ctypes.CDLL:
     lib.catre_dense_relu_max_train_fwd.argtypes = [_P] * 5 + [_I] * 5 + [_P]
     lib.catre_dense_relu_dense_max_train_fwd.argtypes = [_P] * 7 + [_I] * 6 + [_P]
     lib.catre_dense_relu_max_train_bwd.argtypes = [_P] * 11 + [_I] * 7 + [_P]
-    lib.catre_dense_relu_dense_max_train_bwd.argtypes = [_P] + [_I] * 10 + [_P]
+    lib.catre_dense_relu_dense_max_train_bwd.argtypes = [_P] + [_I] * 11 + [_P]
+    lib.catre_k6_bwd_smem.argtypes = [_I] * 4
+    lib.catre_k6_route_stride.argtypes = [_I]
     for fn in (lib.catre_dense_relu_max_train_fwd, lib.catre_dense_relu_dense_max_train_fwd,
                lib.catre_dense_relu_max_train_bwd, lib.catre_dense_relu_dense_max_train_bwd,
-               lib.catre_dense_relu_dense_max_train_bwd_slots):
+               lib.catre_dense_relu_dense_max_train_bwd_slots, lib.catre_k6_bwd_smem,
+               lib.catre_k6_route_stride):
         fn.restype = _I
     if lib.catre_dense_relu_dense_max_train_bwd_slots() != len(K6_BWD_SLOTS):
         raise _build.KernelBuildError(
@@ -153,6 +228,16 @@ def _cast(x, cdt, weights, biases=()):
     """(weights in cdt, biases rounded to cdt as f32), contiguous on x's device."""
     return ([w.detach().to(device=x.device, dtype=cdt).contiguous() for w in weights],
             [b.detach().to(device=x.device, dtype=cdt).float().contiguous() for b in biases])
+
+
+def k6_bwd_schedule(n, chid, cout, n_sms):
+    """Grids of the bf16 K6 backward's passes on `n_sms` SMs -> (persistent
+    blocks of the cloud pass, groups of clouds of the dW3 pass (chid / 64
+    blocks a group: it keeps 64 columns of W4 resident), groups of the dW4
+    pass ((cout / 128) x (chid / 128) blocks a group)): each fills the SMs at
+    most once, with at least one group and no more groups than clouds."""
+    return (min(n, n_sms), max(1, min(n, n_sms // (chid // 64))),
+            max(1, min(n, n_sms // ((chid // 128) * (cout // 128)))))
 
 
 def _check_routing(name, P, cout):
@@ -255,6 +340,30 @@ def dense_relu_dense_max_bwd(x, w3, b3, w4, b4, idx, d_out, cdt):
         raise ValueError(f"{name}: idx must be int32, got {idx.dtype}")
     _check_widths(name, cin, chid, cout)
     _check_routing(name, P, cout)
+    bf16 = cdt == torch.bfloat16
+    if bf16:
+        if cin not in (64, 128):
+            raise ValueError(f"{name}: the bf16 kernel takes 64 or 128 input channels, got {cin}")
+        smem = max(_lib().catre_k6_bwd_smem(cin, chid, cout, k) for k in (0, 1))
+        if smem > _build.SMEM_LIMIT:
+            raise ValueError(f"{name}: bf16 widths {cin}->{chid}->{cout} need {smem} bytes of "
+                             f"shared memory (W3, or 64 columns of W4, resident), above a "
+                             f"block's {_build.SMEM_LIMIT}")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: x must start on a 16-byte boundary (16-byte copies)")
+    outs = k6_bwd_launch(_lib(), x, w3, b3, w4, idx, d_out, cdt)
+    LAUNCHES[name] += 1
+    return outs
+
+
+def k6_bwd_launch(lib, x, w3, b3, w4, idx, d_out, cdt):
+    """One launch of `lib`'s K6 backward on checked operands: allocates the
+    outputs and the build's scratch, raises on a launch error; -> (dx, dW3,
+    db3, dW4, db4). The wrapper above passes the library it builds; the probe
+    tool a diagnostic build of the same source."""
+    N, P, cin = x.shape
+    chid, cout = w3.shape[0], w4.shape[0]
+    bf16 = cdt == torch.bfloat16
     (w3c, w4c), _ = _cast(x, cdt, [w3, w4])
     dev = x.device
 
@@ -262,23 +371,27 @@ def dense_relu_dense_max_bwd(x, w3, b3, w4, b4, idx, d_out, cdt):
         return torch.empty(*shape, device=dev, dtype=dtype)
 
     cin_pad = -(-cin // 128) * 128
-    w3t = torch.zeros(cin_pad, chid, device=dev, dtype=cdt)   # W3^T, zero rows past cin
-    w3t[:cin] = w3c.T
-    groups = min(N, CLOUD_GROUPS)
-    splits = max(1, min(128, -(-(N * P) // SPLIT_ROWS)))
-    bufs = dict(
-        x=x, w3=w3c, b3=b3, w3t=w3t, w4=w4c, idx=idx, dout=d_out,
-        dh3=empty(N, P, chid, dtype=cdt), pdb3=empty(N, chid),
-        part_w4=empty(groups, cout, chid), part_b4=empty(groups, cout),
-        gpart=empty(splits, chid, cin),
-        dx=empty(N, P, cin), dw3=empty(chid, cin), db3=empty(chid), dw4=empty(cout, chid),
-        db4=empty(cout))
-    ptrs = (ctypes.c_void_p * len(K6_BWD_SLOTS))(*[bufs[n].data_ptr() for n in K6_BWD_SLOTS])
-    rc = _lib().catre_dense_relu_dense_max_train_bwd(
-        ptrs, N, P, cin, cin_pad, chid, cout, _pow2(cout), groups, splits,
-        int(cdt == torch.bfloat16), _build.stream_handle(dev))
-    _build.check(rc, name)
-    LAUNCHES[name] += 1
+    bufs = dict(x=x, w3=w3c, b3=b3, w4=w4c, idx=idx, dout=d_out, dx=empty(N, P, cin),
+                dw3=empty(chid, cin), db3=empty(chid), dw4=empty(cout, chid), db4=empty(cout))
+    if bf16:
+        grid, splits, groups = k6_bwd_schedule(N, chid, cout, _sm_count(dev.index))
+        bufs.update(route=empty(N, lib.catre_k6_route_stride(cout), dtype=torch.int32),
+                    part_w3=empty(splits, chid, cin), part_b3=empty(splits, chid))
+    else:
+        grid, groups = 0, min(N, CLOUD_GROUPS)
+        splits = max(1, min(128, -(-(N * P) // SPLIT_ROWS)))
+        w3t = torch.zeros(cin_pad, chid, device=dev, dtype=cdt)   # W3^T, zero rows past cin
+        w3t[:cin] = w3c.T
+        bufs.update(w3t=w3t, dh3=empty(N, P, chid, dtype=cdt), pdb3=empty(N, chid),
+                    gpart=empty(splits, chid, cin))
+    bufs.update(part_w4=empty(groups, cout, chid), part_b4=empty(groups, cout))
+    absent = K6_BWD_F32_ONLY if bf16 else K6_BWD_BF16_ONLY
+    ptrs = (ctypes.c_void_p * len(K6_BWD_SLOTS))(*[None if n in absent else bufs[n].data_ptr()
+                                                   for n in K6_BWD_SLOTS])
+    rc = lib.catre_dense_relu_dense_max_train_bwd(
+        ptrs, N, P, cin, cin_pad, chid, cout, _pow2(cout), groups, splits, grid, int(bf16),
+        _build.stream_handle(dev))
+    _build.check(rc, "dense_relu_dense_max_train_bwd")
     return bufs["dx"], bufs["dw3"], bufs["db3"], bufs["dw4"], bufs["db4"]
 
 

@@ -4,8 +4,9 @@
 
 Builds the flagship trainer (`entry.flagship_trainer`: bf16, K3 forward and
 K4 backward in the rotation head, K5/K6 encoder tails; `--plain-encoder`
-turns FUSED_ENCODER_TRAIN off), takes one warm-up step,
-then one step under `torch.profiler` (CPU and CUDA activities). Prints the
+turns FUSED_ENCODER_TRAIN off), takes one warm-up step, two steps timed by
+the host clock (ms a step and the peak device memory of the two), then one
+step under `torch.profiler` (CPU and CUDA activities). Prints the
 card's name and power limit, the step's wall time, the summed device time of
 its kernels and the idle share (1 - device / wall), the host time and GPU
 span of each train-step range (train.forward, train.backward,
@@ -30,6 +31,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..entry import flagship_trainer
 from ..ops import launch_counts, reset_launch_counts
+
+UNPROFILED_STEPS = 2      # timed by the host clock before the profiled step
 
 
 def device_us(evt, total: bool = False) -> float:
@@ -84,6 +87,13 @@ def main(argv=None) -> int:
     t = flagship_trainer("cuda", batch_size=args.batch, seed=0, **overrides)
     t.state, _ = t.step(t.state, t.batch, t.generator, t.lr)        # warm-up
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    for _ in range(UNPROFILED_STEPS):
+        t.state, _ = t.step(t.state, t.batch, t.generator, t.lr)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - start) * 1e3 / UNPROFILED_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
     reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
@@ -98,6 +108,8 @@ def main(argv=None) -> int:
     print(f"card: {card}")
     print(f"B={args.batch} {'plain' if args.plain_encoder else 'K5/K6'} encoder tails, "
           f"launches in the step {launch_counts()}")
+    print(f"B={args.batch} {UNPROFILED_STEPS} steps without the profiler: {step_ms:.3f} ms a step "
+          f"(host clock), peak memory {peak:.2f} GiB")
     print(f"B={args.batch} one train step: wall {wall_ms:.3f} ms, device kernels "
           f"{device_ms:.3f} ms, idle share {1 - device_ms / wall_ms:.4f}")
     # a range's GPU span (kernels launched from the main thread inside it);

@@ -42,7 +42,10 @@ code is non-zero):
                vs their plain versions at the main path's N = 1024 clouds x
                1024 points, f32 (tight) and bf16 (loose), per output tensor;
                forward `out` bit-equal to K2 / K1, two backward launches
-               bit-equal; times in bf16;
+               bit-equal; times in bf16; the bf16 K6 backward also vs the plain
+               version of its own order (critical rows only), six launches
+               bit-equal, P = 1000 in f32 and bf16 vs both plain versions, and
+               its allocation beyond its outputs;
   7. train:    the flagship training step from `catre_tpu_torch.entry.train_entry`
                at the shipped flags (bf16, B = 512, 4 inner iterations,
                FUSED_HEADS_TRAIN and FUSED_ENCODER_TRAIN): one warm-up and 3
@@ -82,6 +85,9 @@ TAIL_REPEATS = 5             # further launches of K1 / K2 that must give the fi
 TAIL_RAGGED = 1000           # points that K1's and K2's 128-point tile does not divide
 K1_KERNEL = "dense_relu_dense_max_wgmmaILi8"   # the bf16 K1 at cin = 128, as ptxas names it
 K2_KERNEL = "dense_relu_max_wgmmaILi8E"       # the bf16 K2 at cin = 128, as ptxas names it
+K6B_KERNELS = ("route_clouds", "cloud_passILi8E", "dw3_passILi8E", "dw4_passILi8E")  # bf16, cin 128
+K6B_REPEATS = 5              # further launches of the bf16 K6 backward that must give the first one's bits
+K6B_SCRATCH = 0.1            # its allocation beyond its outputs, at most this share of N P chid 2 bytes
 K4_CHECK_B, K4_TIME_B = 64, 512
 K4_REPEATS = 3               # further launches of K4 that must give the first one's bits
 TN_TOL = 1e-5                # K4's transposed products alone, x max|plain|
@@ -487,6 +493,71 @@ def check_train_tails(enc, dev, gen, n_clouds, n_pts):
     return results
 
 
+def check_k6_bwd_design(enc, dev, gen, n_clouds, n_pts):
+    """What the bf16 K6 backward (`csrc/encoder_tail_bwd_wgmma.cuh`: critical
+    rows only, no (N, P, chid) scratch) has to show beyond agreeing with the
+    dense plain version (`check_train_tails`): it agrees with the plain version
+    in its own order (route, g, gate, products on the critical rows) per output
+    tensor at the main path's shape; six launches on the same inputs are
+    bit-equal (sums in a fixed order, no float atomics); at P = TAIL_RAGGED, in
+    f32 and bf16, both plain versions; its allocation beyond its outputs stays
+    under K6B_SCRATCH of N P chid 2 bytes. -> ptxas' report and the dynamic
+    shared memory of each of its passes."""
+    from catre_tpu_torch.ops import _build
+    from catre_tpu_torch.ops import encoder_epilogue_train as tt
+
+    ws = [t.detach() for layer in (enc.conv3, enc.conv4) for t in (layer.weight, layer.bias)]
+    names = ("dx", "dW3", "db3", "dW4", "db4")
+    plains = (("plain", tt.dense_relu_dense_max_bwd_plain),
+              ("critical-row plain", tt.dense_relu_dense_max_bwd_critical_plain))
+    bf, chid = torch.bfloat16, ws[0].shape[0]
+    x32 = torch.relu(torch.randn(n_clouds, n_pts, 128, device=dev, generator=gen))
+    d_out = torch.randn(n_clouds, ws[2].shape[0], device=dev, generator=gen)
+    with torch.no_grad():
+        x = x32.to(bf)
+        _, idx = tt.dense_relu_dense_max_fwd(x, *ws, bf)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        grads = tt.dense_relu_dense_max_bwd(x, *ws, idx, d_out, bf)
+        torch.cuda.synchronize()
+        beyond = (torch.cuda.max_memory_allocated() - base
+                  - sum(g.numel() * g.element_size() for g in grads))
+        limit = K6B_SCRATCH * n_clouds * n_pts * chid * 2
+        log("K5K6", f"K6 bwd bf16 N={n_clouds}: allocation beyond its outputs "
+                    f"{beyond / 2**20:.1f} MiB (limit {limit / 2**20:.1f} MiB)")
+        if not beyond <= limit:
+            raise RuntimeError(f"K6 bwd bf16 allocates {beyond} bytes beyond its outputs")
+        tensor_errors("K5K6", f"K6 bwd N={n_clouds} vs its critical-row plain version", bf, grads,
+                      tt.dense_relu_dense_max_bwd_critical_plain(x, *ws, idx, d_out, bf), names)
+        for _ in range(K6B_REPEATS):
+            again = tt.dense_relu_dense_max_bwd(x, *ws, idx, d_out, bf)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise RuntimeError("K6 bwd bf16: two launches on the same inputs differ")
+        log("K5K6", f"K6 bwd bf16: {1 + K6B_REPEATS} launches on the same inputs bit-equal, "
+                    "all five gradients")
+        del x, grads, again
+        for cdt in TOL:
+            xr = x32[:, :TAIL_RAGGED].to(cdt).contiguous()
+            _, idx_r = tt.dense_relu_dense_max_fwd(xr, *ws, cdt)
+            outs = tt.dense_relu_dense_max_bwd(xr, *ws, idx_r, d_out, cdt)
+            for tag, plain in plains:
+                tensor_errors("K5K6", f"K6 bwd P={TAIL_RAGGED} vs {tag}", cdt, outs,
+                              plain(xr, *ws, idx_r, d_out, cdt), names)
+            del xr, outs
+    lib = tt._lib()
+    passes = {k: _build.ptxas_report("encoder_epilogue_train", k) for k in K6B_KERNELS}
+    for i, k in enumerate(K6B_KERNELS[1:]):
+        passes[k]["shared_memory"] = lib.catre_k6_bwd_smem(128, chid, ws[2].shape[0], i)
+    log("K5K6", f"K6 bwd bf16 kernels: {passes}")
+    return {"registers": max(r["registers"] for r in passes.values()),
+            "stack_frame": max(r["stack_frame"] for r in passes.values()),
+            "spill_stores": sum(r["spill_stores"] for r in passes.values()),
+            "spill_loads": sum(r["spill_loads"] for r in passes.values()),
+            "shared_memory": max(r.get("shared_memory", 0) for r in passes.values()),
+            "passes": passes}
+
+
 def train_phase(dev, per_step, steps=TRAIN_STEPS, **model_overrides):
     """The flagship training step through `entry.train_entry` at B = TRAIN_B,
     bf16: one warm-up and `steps` timed steps; returns its launch counts."""
@@ -815,6 +886,7 @@ def main():
 
     # ---- 6b. K5 and K6 vs their plain versions, forward and backward
     results.update(check_train_tails(enc, dev, gen, 2 * TRAIN_B, cfg.num_pcl))
+    results["K6 bwd"].update(check_k6_bwd_design(enc, dev, gen, 2 * TRAIN_B, cfg.num_pcl))
 
     # ---- 7. the training main path, through the port's entry point, at the shipped
     # flags; then with the plain encoder under autograd, in the same run
@@ -881,7 +953,7 @@ def main():
              source=src + "encoder_epilogue_train.cu", replaces=vjp + "107",
              launches=launches["dense_relu_dense_max_train_fwd"], **results["K6 fwd"]),
         dict(name="K6 dense_relu_dense_max_train_bwd", route="cuda",
-             source=src + "encoder_epilogue_train.cu", replaces=vjp + "121",
+             source=src + "encoder_tail_bwd_wgmma.cuh", replaces=vjp + "121",
              launches=launches["dense_relu_dense_max_train_bwd"], **results["K6 bwd"]),
         dict(name="K7 rot_head_grouped", route="cuda", source=src + "rot_head_multi.cu",
              replaces="catre_tpu/ops/pallas_heads.py:358",

@@ -1,7 +1,9 @@
 """CUDA kernels K1-K9 vs their plain PyTorch versions on the card (the bf16
 builds of K1 and K2 also vs the plain versions of their own order, relaunched
-bit-equal), the inference kernels' refusal of a differentiable call, and a
-train step's launch counts.
+bit-equal; the bf16 K6 backward also vs its critical-row plain version, with
+its dx zero off the critical rows, its refused widths and its scratch), the
+inference kernels' refusal of a differentiable call, and a train step's launch
+counts.
 
 Every test here is marked `cuda` and skips without a card. The file imports
 no JAX, so it runs on a machine without it; `tests/conftest.py` sets up JAX,
@@ -485,6 +487,87 @@ def test_train_tail_wrappers_raise_on_bad_input(dev):
         tail_ops.dense_relu_max_fwd(x, w.clone().requires_grad_(), b, torch.float32)
     out = tail_ops.dense_relu_max_train(x, w.clone().requires_grad_(), b, torch.float32)
     assert out.grad_fn is not None
+
+
+def _k6_bwd_case(dev, n, p, seed=0):
+    """The bf16 K6 backward's inputs at the train step's widths: x, weights,
+    idx from the K6 forward, d_out with a sixth of the channels dead."""
+    gen = torch.Generator().manual_seed(seed)
+    x, ws, d_out = _tail_case("K6", gen, n, p, dev, torch.bfloat16, False)
+    d_out[:, ::6] = 0.0
+    with torch.no_grad():
+        _, idx = tail_ops.dense_relu_dense_max_fwd(x, *ws, torch.bfloat16)
+    return x, ws, idx, d_out
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+@pytest.mark.parametrize("p", [1024, 1000, 40])
+def test_k6_bwd_bf16_vs_both_plain_versions(dev, n, p):
+    x, ws, idx, d_out = _k6_bwd_case(dev, n, p, seed=n)
+    bf = torch.bfloat16
+    with torch.no_grad():
+        grads = tail_ops.dense_relu_dense_max_bwd(x, *ws, idx, d_out, bf)
+        for plain in (tail_ops.dense_relu_dense_max_bwd_plain,
+                      tail_ops.dense_relu_dense_max_bwd_critical_plain):
+            for g, ref in zip(grads, plain(x, *ws, idx, d_out, bf)):
+                assert g.shape == ref.shape and g.dtype == torch.float32
+                _assert_close(g, ref, bf)
+
+
+def test_k6_bwd_bf16_six_launches_are_bit_equal(dev):
+    x, ws, idx, d_out = _k6_bwd_case(dev, 40, 1024)
+    with torch.no_grad():
+        first = tail_ops.dense_relu_dense_max_bwd(x, *ws, idx, d_out, torch.bfloat16)
+        for _ in range(5):
+            again = tail_ops.dense_relu_dense_max_bwd(x, *ws, idx, d_out, torch.bfloat16)
+            assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_k6_bwd_bf16_dx_is_zero_on_rows_no_channel_points_at(dev):
+    n, p = 8, 1000
+    x, ws, idx, d_out = _k6_bwd_case(dev, n, p)
+    with torch.no_grad():
+        dx = tail_ops.dense_relu_dense_max_bwd(x, *ws, idx, d_out, torch.bfloat16)[0]
+    hit = torch.zeros(n, p, dtype=torch.bool, device=dev)
+    live = d_out.bfloat16() != 0
+    hit[torch.arange(n, device=dev)[:, None].expand_as(idx)[live], idx.long()[live]] = True
+    assert dx[~hit].abs().max() == 0 and dx[hit].abs().max() > 0
+
+
+def test_k6_bwd_bf16_refuses_widths_it_does_not_take(dev):
+    gen = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+    for cin, chid, cout in [(192, 512, 1024), (128, 1024, 1024)]:   # cin; W3 past shared memory
+        x, ws, d_out = _tail_case("K6", gen, 2, 64, dev, bf, False, (cin, chid, cout))
+        idx = torch.zeros(2, cout, dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="bf16"):
+            tail_ops.dense_relu_dense_max_bwd(x, *ws, idx, d_out, bf)
+    x, ws, idx, d_out = _k6_bwd_case(dev, 2, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        tail_ops.dense_relu_dense_max_bwd(_misaligned(x), *ws, idx, d_out, bf)
+
+
+def _misaligned(x):
+    """x's values in a tensor that starts 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def test_k6_bwd_bf16_allocates_no_scratch_of_n_p_chid(dev):
+    n, p = 256, 1024
+    x, ws, idx, d_out = _k6_bwd_case(dev, n, p)
+    chid = ws[0].shape[0]
+    with torch.no_grad():
+        tail_ops.dense_relu_dense_max_bwd(x, *ws, idx, d_out, torch.bfloat16)   # build, warm up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        outs = tail_ops.dense_relu_dense_max_bwd(x, *ws, idx, d_out, torch.bfloat16)
+        torch.cuda.synchronize()
+    beyond = torch.cuda.max_memory_allocated() - base - sum(o.numel() * 4 for o in outs)
+    assert beyond < 0.1 * n * p * chid * 2, beyond
 
 
 @pytest.mark.parametrize("fused_encoder_train", [True, False])

@@ -8,12 +8,19 @@ custom-VJP Pallas kernels in interpret mode (f32), same numpy inputs:
   - ties (duplicated points, an all-negative channel): both packages send the
     gradient to the lowest row only, where `amax` under autograd splits it;
   - `PointNetFeat(..., ENCODER_TAIL_TRAIN)` vs `pointnet_encode_fused_train`:
-    outputs 1e-5, gradients to every parameter and to x 5e-4.
+    outputs 1e-5, gradients to every parameter and to x 5e-4;
+  - K6's backward in the bf16 kernel's own order
+    (`dense_relu_dense_max_bwd_critical_plain`: route, g, gate, products on
+    the critical rows) vs the dense plain version and vs JAX's VJP, 2e-4, also
+    over a hypothesis sweep of small widths, and its routing (`route_rows`,
+    what the kernel's routing pass writes) checked key by key.
 """
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -207,3 +214,91 @@ def test_encoder_train_tails_match_pointnet_encode_fused_train(feature_transform
         np.testing.assert_allclose(prm.grad.numpy(), want[name].numpy(), atol=5e-4, rtol=0,
                                    err_msg=name)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(g_x), atol=5e-4, rtol=0)
+
+
+def _critical(x, w3, b3, w4, b4, idx, co, cdt=F32):
+    """dense_relu_dense_max_bwd_critical_plain on flax-layout numpy inputs ->
+    the gradients in flax layout, as `_jax_k6` returns them."""
+    g = train_ops.dense_relu_dense_max_bwd_critical_plain(
+        _t(x), _t(w3.T), _t(b3), _t(w4.T), _t(b4), _t(idx), _t(co), cdt)
+    return [g[0].numpy(), g[1].numpy().T, g[2].numpy(), g[3].numpy().T, g[4].numpy()]
+
+
+@pytest.mark.parametrize("n,p,ties", [(4, 64, False), (3, 100, False), (2, 40, True)])
+def test_k6_backward_on_critical_rows_matches_jax_and_the_dense_plain_version(n, p, ties):
+    x, w3, b3, w4, b4, co = _k6_case(50 + n, n, p)
+    if ties:
+        x[:, p // 2:] = x[:, :p // 2]
+    co[:, ::5] = 0.0                       # dead channels: routed nowhere
+    out, idx, ref = _jax_k6(x, w3, b3, w4, b4, co)
+    crit = _critical(x, w3, b3, w4, b4, idx, co)
+    dense_plain = _port_k6(x, w3, b3, w4, b4, co)[2]
+    for i, (a, r, d) in enumerate(zip(crit, ref, dense_plain)):
+        assert a.shape == r.shape and a.dtype == np.float32
+        np.testing.assert_allclose(a, r, atol=2e-4, rtol=0, err_msg=f"gradient {i} vs JAX")
+        np.testing.assert_allclose(a, d, atol=2e-4, rtol=0, err_msg=f"gradient {i} vs dense")
+    # dx is zero on every row no live channel points at, and on the higher tied rows
+    hit = np.zeros((n, p), bool)
+    for k in range(n):
+        hit[k, idx[k][co[k] != 0]] = True
+    assert np.abs(crit[0][~hit]).max(initial=0.0) == 0 and np.abs(crit[0][hit]).max() > 0
+    if ties:
+        assert idx.max() < p // 2 and np.abs(crit[0][:, p // 2:]).max() == 0
+
+
+@pytest.mark.parametrize("n,p,c,seed", [(5, 64, 128, 0), (3, 7, 256, 1)])
+def test_route_rows_puts_every_live_channel_in_one_segment(n, p, c, seed):
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(rng.integers(0, p, size=(n, c)).astype(np.int32))
+    d4 = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32))
+    d4[torch.from_numpy(rng.random((n, c)) < 0.3)] = 0.0
+    d4[0] = 0.0                            # a cloud with no live channel
+    chan, seg, rows, count = train_ops.route_rows(idx, d4)
+    for k in range(n):
+        live = np.flatnonzero(d4[k].numpy() != 0)
+        want_rows = np.unique(idx[k].numpy()[live])
+        assert count[k].item() == want_rows.size          # idx.unique() over the live channels
+        m = count[k].item()
+        np.testing.assert_array_equal(rows[k, :m].numpy(), want_rows)   # ascending
+        assert (rows[k, m:] == -1).all() and seg[k, m].item() == live.size
+        starts = seg[k, :m + 1].numpy()
+        assert (np.diff(starts) > 0).all() and (starts[0] == 0 or m == 0)
+        seen = []
+        for i in range(m):                                # a segment: one row, channels ascending
+            cs = chan[k, starts[i]:starts[i + 1]].numpy()
+            assert (np.diff(cs) > 0).all()
+            assert (idx[k].numpy()[cs] == want_rows[i]).all()
+            seen.extend(cs.tolist())
+        assert sorted(seen) == live.tolist()               # each live channel exactly once
+        assert (chan[k, live.size:] == -1).all()
+
+
+@settings(max_examples=12, deadline=None)
+@given(n=st.integers(1, 3), p=st.integers(1, 40), seed=st.integers(0, 2**16),
+       bf16=st.booleans(), dead=st.floats(0.0, 0.9))
+def test_k6_backward_on_critical_rows_over_small_shapes(n, p, seed, bf16, dead):
+    rng = np.random.default_rng(seed)
+    cdt = torch.bfloat16 if bf16 else F32
+    x = torch.from_numpy(np.maximum(rng.normal(size=(n, p, 64)), 0).astype(np.float32))
+    w3, b3 = (torch.from_numpy((rng.normal(size=s) * 0.2).astype(np.float32)) for s in ((128, 64), 128))
+    w4, b4 = (torch.from_numpy((rng.normal(size=s) * 0.2).astype(np.float32)) for s in ((128, 128), 128))
+    d_out = torch.from_numpy(rng.normal(size=(n, 128)).astype(np.float32))
+    d_out[torch.from_numpy(rng.random((n, 128)) < dead)] = 0.0
+    xc = x.to(cdt)
+    _, idx = train_ops.dense_relu_dense_max_fwd(xc, w3, b3, w4, b4, cdt)
+    crit = train_ops.dense_relu_dense_max_bwd_critical_plain(xc, w3, b3, w4, b4, idx, d_out, cdt)
+    dense_plain = train_ops.dense_relu_dense_max_bwd_plain(xc, w3, b3, w4, b4, idx, d_out, cdt)
+    for i, (a, r) in enumerate(zip(crit, dense_plain)):
+        assert a.shape == r.shape and a.dtype == F32
+        torch.testing.assert_close(a, r, atol=2e-4, rtol=0, msg=f"gradient {i}")
+
+
+def test_k6_backward_schedule_fills_the_sms_once():
+    # the train step's widths on 132 SMs: a cloud pass block per SM, 8 x 16 dW3
+    # blocks, 32 x 4 dW4 blocks
+    assert train_ops.k6_bwd_schedule(1024, 512, 1024, 132) == (132, 16, 4)
+    for n, chid, cout, sms in [(1, 512, 1024, 132), (3, 384, 640, 132), (1000, 128, 128, 8)]:
+        grid, g3, g4 = train_ops.k6_bwd_schedule(n, chid, cout, sms)
+        assert 1 <= grid <= min(n, sms) and 1 <= g3 <= n and 1 <= g4 <= n
+        assert g3 * chid // 64 <= max(sms, chid // 64)
+        assert g4 * (chid // 128) * (cout // 128) <= max(sms, (chid // 128) * (cout // 128))
