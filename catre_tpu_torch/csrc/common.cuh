@@ -55,6 +55,19 @@ template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16_rn(v); }
 
+// What a max-over-points kernel writes: out (n, cout) f32 and, with kIdx,
+// idx (n, cout) i32. Without kIdx it is the one pointer the inference kernels
+// always took.
+template <bool kIdx>
+struct MaxOut {
+  float* out;
+};
+template <>
+struct MaxOut<true> {
+  float* out;
+  int* idx;
+};
+
 // Round an f32 value to T and back (identity for float).
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));

@@ -35,7 +35,7 @@ using namespace catre;
 extern "C" int catre_dense_relu_max(const void* x, const void* w, const void* b, void* out, int n,
                                     int p, int cin, int cout, int bf16, int grid, void* stream) {
   if (bf16) return stn::run<stn::kChunks>(x, w, b, out, n, p, cin, cout, grid, stream);
-  const enc::MaxOut<false> o{static_cast<float*>(out)};
+  const MaxOut<false> o{static_cast<float*>(out)};
   return enc::run_relu_max<float, false>(x, w, b, o, n, p, cin, cout, stream);
 }
 
@@ -52,7 +52,7 @@ extern "C" int catre_stn_tail_smem() { return static_cast<int>(stn::smem_bytes<8
 extern "C" int catre_dense_relu_dense_max(const void* x, const void* w3, const void* b3,
                                           const void* w4, const void* b4, void* out, int n, int p,
                                           int cin, int chid, int cout, int bf16, void* stream) {
-  if (bf16) return tail::run(x, w3, b3, w4, b4, out, n, p, cin, chid, cout, stream);
-  const enc::MaxOut<false> o{static_cast<float*>(out)};
+  const MaxOut<false> o{static_cast<float*>(out)};
+  if (bf16) return tail::run(x, w3, b3, w4, b4, o, n, p, cin, chid, cout, stream);
   return enc::run_relu_dense_max<float, false>(x, w3, b3, w4, b4, o, n, p, cin, chid, cout, stream);
 }

@@ -1,8 +1,9 @@
 // Device code of the PointNet encoder tails: dense (+ReLU +dense) fused with
 // the per-cloud max, shared by the f32 builds of the inference kernels K1 and
 // K2 (encoder_epilogue.cu; their bf16 builds are encoder_tail_wgmma.cuh and
-// encoder_stn_tail_wgmma.cuh) and the training forwards K5/K6
-// (encoder_epilogue_train.cu). The two differ by one
+// encoder_stn_tail_wgmma.cuh), the K5 forward and the f32 K6 forward
+// (encoder_epilogue_train.cu; the bf16 K6 forward is K1's body in
+// encoder_tail_wgmma.cuh). The two differ by one
 // template flag: with kIdx the kernels also return, per (cloud, channel), the
 // lowest point row that attains the max, which is all the routed backward needs.
 //
@@ -51,18 +52,6 @@ struct Tiles {
     xs = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(stage) + kStageBytes<T>);
     hs = xs + kTileM<T> * (cin + kPad);
   }
-};
-
-// What a kernel writes: out (n, cout) f32 and, with kIdx, idx (n, cout) i32.
-// Without kIdx it is the one pointer the inference kernels always took.
-template <bool kIdx>
-struct MaxOut {
-  float* out;
-};
-template <>
-struct MaxOut<true> {
-  float* out;
-  int* idx;
 };
 
 template <bool kIdx>

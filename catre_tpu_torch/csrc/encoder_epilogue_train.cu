@@ -6,9 +6,12 @@
 //      _bwd_kernel_1 (:77);  out[n, c] = max_p relu(x[n, p] W^T + b)[c]
 //   K6 dense_relu_dense_max_t (:294): forward _fwd_kernel_2 (:107), backward
 //      _bwd_kernel_2 (:121);  out = max_p (relu(x W3^T + b3) W4^T + b4)
-// The forwards are K2/K1 (encoder_epilogue.cuh) with kIdx: they also return
-// idx[n, c], the lowest point row that attains the max, so `out` is bit-equal
-// to the inference kernels'.
+// The forwards are K2/K1 with kIdx: they also return idx[n, c], the lowest
+// point row that attains the max, so `out` is bit-equal to the inference
+// kernels'. K5's (both types) and K6's f32 build are encoder_epilogue.cuh's
+// body; K6's bf16 build is K1's `wgmma` body (encoder_tail_wgmma.cuh), whose
+// argmax fold rounds every element and keeps the lowest tied row by an
+// unsigned key per candidate.
 //
 // The backwards. The gradient of a max goes to one row per (cloud, channel),
 // so d_h has cout non-zeros per cloud among P x cout entries. The Pallas
@@ -59,6 +62,7 @@
 // accumulation); T = float is exact FMA, for tight checks on the card.
 #include "encoder_epilogue.cuh"
 #include "encoder_tail_bwd_wgmma.cuh"
+#include "encoder_tail_wgmma.cuh"
 #include "gemm_tn.cuh"
 
 using namespace catre;
@@ -574,21 +578,26 @@ int run_relu_dense_max_bwd_wgmma(void* const* ptr, int n, int p, int chid, int c
 extern "C" int catre_dense_relu_max_train_fwd(const void* x, const void* w, const void* b,
                                               void* out, void* idx, int n, int p, int cin, int cout,
                                               int bf16, void* stream) {
-  const enc::MaxOut<true> o{static_cast<float*>(out), static_cast<int*>(idx)};
+  const MaxOut<true> o{static_cast<float*>(out), static_cast<int*>(idx)};
   return bf16 ? enc::run_relu_max<catre::bf16, true>(x, w, b, o, n, p, cin, cout, stream)
               : enc::run_relu_max<float, true>(x, w, b, o, n, p, cin, cout, stream);
 }
 
-// K6 forward. As catre_dense_relu_dense_max, with idx (n, cout) i32.
+// K6 forward. As catre_dense_relu_dense_max (in bf16 the weights repacked,
+// cin 64 or 128, chid at most 512), with idx (n, cout) i32; in bf16 1 <= p <=
+// 65536 (the argmax keys hold 16 bits of row).
 extern "C" int catre_dense_relu_dense_max_train_fwd(const void* x, const void* w3, const void* b3,
                                                     const void* w4, const void* b4, void* out,
                                                     void* idx, int n, int p, int cin, int chid,
                                                     int cout, int bf16, void* stream) {
-  const enc::MaxOut<true> o{static_cast<float*>(out), static_cast<int*>(idx)};
-  return bf16 ? enc::run_relu_dense_max<catre::bf16, true>(x, w3, b3, w4, b4, o, n, p, cin, chid,
-                                                           cout, stream)
-              : enc::run_relu_dense_max<float, true>(x, w3, b3, w4, b4, o, n, p, cin, chid, cout,
-                                                     stream);
+  const MaxOut<true> o{static_cast<float*>(out), static_cast<int*>(idx)};
+  if (bf16) return tail::run(x, w3, b3, w4, b4, o, n, p, cin, chid, cout, stream);
+  return enc::run_relu_dense_max<float, true>(x, w3, b3, w4, b4, o, n, p, cin, chid, cout, stream);
+}
+
+// Dynamic shared memory of the bf16 K6 forward (K1's body) in bytes.
+extern "C" int catre_tail_smem(int chid, int cout) {
+  return static_cast<int>(tail::smem_bytes(chid, cout));
 }
 
 // K5 backward. x, w in T; b (cout) f32 unrounded; idx (n, cout) i32 from the

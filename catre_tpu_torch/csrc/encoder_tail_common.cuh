@@ -4,10 +4,12 @@
 // two consumer warpgroups and one producer warpgroup that feeds x rows through
 // a ring of shared-memory stages (K1 by 1-D bulk copies, K2 by 16-byte
 // `cp.async`); both take the max over points on the bare f32 accumulator and
-// round once per (cloud, channel).
+// round once per (cloud, channel). K1's body with kIdx is also the bf16 K6
+// forward, which needs the lowest row among the rows tied after rounding.
 // Here: a consumer thread's coordinates, the ring, the A registers of x rows,
-// the order-preserving integer image of a float, and the max over the row
-// lanes of a fragment with its fold into a table of running maxima.
+// the order-preserving integer image of a float, the max over the row lanes
+// of a fragment with its fold into a table of running maxima, and the argmax
+// keys of the K6 forward with their fold.
 #pragma once
 
 #include "common.cuh"
@@ -117,33 +119,106 @@ __device__ __forceinline__ void rows_max(const float (&acc)[64], float (&v)[32])
     for (int e = 0; e < 2; ++e) v[2 * jj + e] = fmaxf(acc[4 * jj + e], acc[4 * jj + 2 + e]);
 }
 
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ uint32_t vmax(uint32_t a, uint32_t b) { return max(a, b); }
+
 // One step of the reduce-scatter below: lanes that differ in bit kHalf swap
 // halves, each keeps the max of the half it owns.
-template <int kHalf>
-__device__ __forceinline__ void scatter_step(float (&v)[32], int lane) {
+template <int kHalf, typename T>
+__device__ __forceinline__ void scatter_step(T (&v)[32], int lane) {
   const bool upper = (lane & kHalf) != 0;
 #pragma unroll
   for (int i = 0; i < kHalf; ++i) {
-    const float send = upper ? v[i] : v[i + kHalf];
-    const float keep = upper ? v[i + kHalf] : v[i];
-    v[i] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, kHalf));
+    const T send = upper ? v[i] : v[i + kHalf];
+    const T keep = upper ? v[i + kHalf] : v[i];
+    v[i] = vmax(keep, __shfl_xor_sync(0xffffffffu, send, kHalf));
   }
 }
 
-// Fold the 32 column values of `rows_max` into the running maxima of their
-// 128 channels (`keys`, order keys in shared memory): the eight row lanes
-// (lane bits 4, 3, 2 = g bits 2, 1, 0) reduce and scatter in 28 shuffles,
-// after which lane (g, t) holds values 4 g + i, i = 0 .. 3: columns 16 g + 8
-// (i / 2) + 2 t + i % 2, each folded by an atomic max on its key. Exact and
-// commutative: the table does not depend on the order of arrival. v is
-// overwritten.
-__device__ __forceinline__ void fold_keys(float (&v)[32], int* keys, const Who& me) {
+// The max over the eight row lanes (lane bits 4, 3, 2 = g bits 2, 1, 0) of 32
+// column values, reduced and scattered in 28 shuffles: afterwards lane (g, t)
+// holds in v[i], i = 0 .. 3, the max of column `scattered_column(i, me)`.
+template <typename T>
+__device__ __forceinline__ void reduce_scatter(T (&v)[32], const Who& me) {
   scatter_step<16>(v, me.lane);
   scatter_step<8>(v, me.lane);
   scatter_step<4>(v, me.lane);
+}
+__device__ __forceinline__ int scattered_column(int i, const Who& me) {
+  return 16 * me.g + 8 * (i / 2) + 2 * me.t + i % 2;
+}
+
+// Fold the 32 column values of `rows_max` into the running maxima of their
+// 128 channels (`keys`, order keys in shared memory) by an atomic max on each
+// lane's four keys after `reduce_scatter`. Exact and commutative: the table
+// does not depend on the order of arrival. v is overwritten.
+__device__ __forceinline__ void fold_keys(float (&v)[32], int* keys, const Who& me) {
+  reduce_scatter(v, me);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    atomicMax(keys + 16 * me.g + 8 * (i / 2) + 2 * me.t + i % 2, order_key(v[i]));
+  for (int i = 0; i < 4; ++i) atomicMax(keys + scattered_column(i, me), order_key(v[i]));
+}
+
+// ---- the argmax keys of the K6 forward
+// A candidate (v, row) for a channel's max is one unsigned 32-bit key: the
+// high 16 bits order v, a bf16 value, with -0 equal to +0 (`order2`); the low
+// kRowBits bits are kRowMask - row. The largest key holds the largest value
+// and, among equal values, the lowest row: the rule of the Pallas forward,
+// jnp.min(jnp.where(blk == m, row, P)) over the rounded values
+// (catre_tpu/ops/pallas_encoder_epilogue_vjp.py:38-48), where blk == m holds
+// -0 and +0 equal. An unsigned atomic max on a table of keys is exact and
+// commutative, so warpgroups, lanes and tiles may arrive in any order. Every
+// candidate's key is at least 0x00800000 (v = -inf), so a table starts at 0
+// and rows past P enter as 0.
+constexpr int kRowBits = 16;                            // rows 0 .. 65535: P <= 65536
+constexpr uint32_t kRowMask = (1u << kRowBits) - 1;
+
+// The order images of the two bf16 values packed in p, each in its own half:
+// a negative value of magnitude m becomes 0x8000 - m, any other v becomes
+// v | 0x8000, so that the halves compare as unsigned integers as the values
+// do, with -0 and +0 both 0x8000. (p ^ 0xFFFF) + 1 = 0x8000 - m on a negative
+// half, and never carries into the next half.
+__device__ __forceinline__ uint32_t order2(uint32_t p) {
+  const uint32_t neg = (p >> 15) & 0x00010001u;
+  return (p ^ (neg * 0x7FFFu | 0x80008000u)) + neg;
+}
+__device__ __forceinline__ float key_value(uint32_t key) {
+  const uint32_t ord = key >> kRowBits;
+  return __uint_as_float((ord >= 0x8000u ? ord ^ 0x8000u : (0x8000u - ord) | 0x8000u) << 16);
+}
+__device__ __forceinline__ int key_row(uint32_t key) { return static_cast<int>(kRowMask - (key & kRowMask)); }
+
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) { return *reinterpret_cast<const uint32_t*>(&v); }
+
+// Fold a 64 x 128 accumulator's argmax candidates into `keys` (the 128
+// channels' running keys in shared memory). Each element is rounded as the
+// Pallas forward rounds it, v = round(round(acc) + b) with b the channel's
+// bias (already a bf16 value), two columns at a time: one cvt packs the
+// rounded pair, one bf16x2 add rounds the sum once, which equals rounding
+// the f32 sum (an f32 sum of two bf16 values loses nothing that the bf16
+// rounding keeps). Of a thread's two rows per column the larger key wins, so
+// the upper row (g + 8) only if its v is strictly greater; rows at or past P
+// (ok0: row g, ok1: row g + 8 below P) enter as key 0. row_bits is kRowMask
+// - (row g's index in the cloud). The 32 winners go through `reduce_scatter`
+// and an atomic max as `fold_keys` does.
+__device__ __forceinline__ void fold_argmax(const float (&acc)[64], const float* b, bool ok0,
+                                            bool ok1, uint32_t row_bits, uint32_t* keys,
+                                            const Who& me) {
+  const uint32_t v0 = ok0 ? 0xFFFF0000u : 0u, v1 = ok1 ? 0xFFFF0000u : 0u;
+  const uint32_t r0 = ok0 ? row_bits : 0u, r1 = ok1 ? row_bits - 8 : 0u;
+  uint32_t k[32];
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj) {
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(b + 8 * jj + 2 * me.t));
+    const __nv_bfloat162 b2 = __floats2bfloat162_rn(bb.x, bb.y);
+    // columns 8 jj + 2 t (low halves) and + 1 (high halves) of rows g and g + 8
+    const uint32_t lo = order2(bf2_bits(__hadd2(__floats2bfloat162_rn(acc[4 * jj], acc[4 * jj + 1]), b2)));
+    const uint32_t hi = order2(bf2_bits(__hadd2(__floats2bfloat162_rn(acc[4 * jj + 2], acc[4 * jj + 3]), b2)));
+    k[2 * jj] = max(((lo << 16) & v0) | r0, ((hi << 16) & v1) | r1);
+    k[2 * jj + 1] = max((lo & v0) | r0, (hi & v1) | r1);
+  }
+  reduce_scatter(k, me);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) atomicMax(keys + scattered_column(i, me), k[i]);
 }
 
 }  // namespace tail

@@ -4,8 +4,11 @@
 // x (N, P, cin) bf16, W3 (chid, cin), W4 (cout, chid) bf16, biases f32 already
 // rounded to bf16, out (N, cout) f32. It replaces the Pallas kernel
 // catre_tpu/ops/pallas_encoder_epilogue.py::fused_dense_relu_dense_max (:98,
-// body _kernel_2 :51). The f32 build and the training forward (with the
-// argmax) stay on `encoder_epilogue.cuh`.
+// body _kernel_2 :51). With kIdx it is also the bf16 K6 forward, which
+// replaces catre_tpu/ops/pallas_encoder_epilogue_vjp.py::_fwd_kernel_2 (:107,
+// under dense_relu_dense_max_t :294): the same out and idx[n, c], the lowest
+// point row whose rounded value equals out[n, c]. The f32 builds stay on
+// `encoder_epilogue.cuh`.
 //
 // What bounds it on the card: operations. 1.21 GFLOP per cloud of 1024 points
 // on 256 KB of input; the weights (1.1 MB) are re-read from L2 once per tile.
@@ -41,6 +44,17 @@
 //   - a stage goes back to the producer only after the products that read it
 //     (or the registers loaded from it) have completed; GEMM2 keeps one group
 //     of products in flight while it gives back the stage before.
+// kIdx (the K6 forward) changes only the fold after each GEMM2 chunk and the
+// final write; the products are the same code, so out is K1's value. The max
+// on the bare accumulator cannot give the argmax: rows whose accumulators
+// differ may tie after the two roundings, and the largest accumulator's row
+// need not be the lowest of them. So every element is rounded (two at a time,
+// in bf16x2) and keyed as an unsigned 32-bit integer, value above row
+// (`fold_argmax`, encoder_tail_common.cuh); a thread keeps the larger key of
+// its two rows per column, and the 32 winners fold by the same reduce-scatter
+// and an atomic max into the same 4-byte-per-channel table: exact and
+// commutative, launches bit-equal. At the end the key gives out (already
+// rounded and biased) and idx. Rows are 16 bits: P <= 65536.
 #pragma once
 
 #include "encoder_tail_common.cuh"
@@ -158,6 +172,14 @@ __device__ __forceinline__ void store_h(const float (&acc)[64], unsigned char* h
   }
 }
 
+#ifdef CATRE_K6F_BARE_FOLD
+// diagnostic build (tools/probe_k1.py --train): the K6 forward folds the bare
+// accumulator as K1 does and writes idx = 0, the time without the rounded fold
+constexpr bool kBareFold = true;
+#else
+constexpr bool kBareFold = false;
+#endif
+
 // Fold a GEMM2 chunk into the running maxima of its 128 channels (`gmax` keys).
 __device__ __forceinline__ void fold_max(const float (&acc)[64], bool ok0, bool ok1, int* gmax,
                                          const Who& me) {
@@ -166,22 +188,25 @@ __device__ __forceinline__ void fold_max(const float (&acc)[64], bool ok0, bool 
   fold_keys(v, gmax, me);
 }
 
-template <int KX>     // k-steps of GEMM1: cin / 16
+// KX: k-steps of GEMM1, cin / 16; kIdx: the K6 forward (out and idx)
+template <int KX, bool kIdx>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 dense_relu_dense_max_wgmma(const bf16* x, const unsigned char* w3p, const float* b3,
-                           const unsigned char* w4p, const float* b4, float* out, int P, int chid,
-                           int cout) {
+                           const unsigned char* w4p, const float* b4, MaxOut<kIdx> o, int P,
+                           int chid, int cout) {
   constexpr int kCin = 16 * KX;
+  constexpr bool kRounded = kIdx && !kBareFold;       // the argmax fold
   extern __shared__ unsigned char raw[];
   const Smem sm(raw, chid, cout);
   const int tid = threadIdx.x;
   const int n_tiles = (P + kTile - 1) / kTile;
   const int w3_stages = (KX / 4) * (chid / 128), w4_stages = (chid / 64) * (cout / 128);
 
-  // the ring zeroed, so that x rows no copy fills hold finite values; the running maxima at -inf
+  // the ring zeroed, so that x rows no copy fills hold finite values; the running maxima at
+  // -inf (argmax keys: below every candidate)
   for (int i = tid; i < kStages * kStageBytes / 16; i += kBlockThreads)
     reinterpret_cast<uint4*>(sm.ring.slots)[i] = make_uint4(0, 0, 0, 0);
-  for (int c = tid; c < cout; c += kBlockThreads) sm.gmax[c] = order_key(-INFINITY);
+  for (int c = tid; c < cout; c += kBlockThreads) sm.gmax[c] = kRounded ? 0 : order_key(-INFINITY);
   if (tid == 0) sm.ring.init(1, kConsumerThreads);   // every consumer thread gives back every stage
   wg::fence_proxy_async();
   __syncthreads();
@@ -238,39 +263,54 @@ dense_relu_dense_max_wgmma(const bf16* x, const unsigned char* w3p, const float*
       for (int c = 0; c < cout / 128; ++c) {
         float acc[64];
         product_h(acc, h_rows, chid / 64, sm, n);
-        fold_max(acc, ok0, ok1, sm.gmax + 128 * c, me);
+        if constexpr (kRounded)
+          fold_argmax(acc, b4 + 128 * c, ok0, ok1, kRowMask - r0,
+                      reinterpret_cast<uint32_t*>(sm.gmax) + 128 * c, me);
+        else
+          fold_max(acc, ok0, ok1, sm.gmax + 128 * c, me);
       }
     }
     wg::named_barrier(kAllConsumers, kConsumerThreads);
-    for (int c = tid; c < cout; c += kConsumerThreads)
-      out[static_cast<size_t>(blockIdx.x) * cout + c] =
-          round_to<bf16>(round_to<bf16>(from_key(sm.gmax[c])) + b4[c]);
+    for (int c = tid; c < cout; c += kConsumerThreads) {
+      const size_t at = static_cast<size_t>(blockIdx.x) * cout + c;
+      if constexpr (kRounded) {
+        const uint32_t key = static_cast<uint32_t>(sm.gmax[c]);
+        o.out[at] = key_value(key);
+        o.idx[at] = key_row(key);
+      } else {
+        o.out[at] = round_to<bf16>(round_to<bf16>(from_key(sm.gmax[c])) + b4[c]);
+        if constexpr (kIdx) o.idx[at] = 0;
+      }
+    }
   }
 }
 
-template <int KX>
+template <int KX, bool kIdx>
 int launch(const void* x, const void* w3p, const void* b3, const void* w4p, const void* b4,
-           void* out, int n, int p, int chid, int cout, size_t smem, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(dense_relu_dense_max_wgmma<KX>,
+           MaxOut<kIdx> o, int n, int p, int chid, int cout, size_t smem, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(dense_relu_dense_max_wgmma<KX, kIdx>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dense_relu_dense_max_wgmma<KX><<<n, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  dense_relu_dense_max_wgmma<KX, kIdx><<<n, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const unsigned char*>(w3p),
       static_cast<const float*>(b3), static_cast<const unsigned char*>(w4p),
-      static_cast<const float*>(b4), static_cast<float*>(out), p, chid, cout);
+      static_cast<const float*>(b4), o, p, chid, cout);
   return static_cast<int>(cudaGetLastError());
 }
 
 // x (n, p, cin) bf16 with cin 64 or 128; w3p, w4p the repacked weights;
-// chid a multiple of 128 up to kMaxHid, cout a multiple of 128.
-inline int run(const void* x, const void* w3p, const void* b3, const void* w4p, const void* b4,
-               void* out, int n, int p, int cin, int chid, int cout, void* stream) {
+// chid a multiple of 128 up to kMaxHid, cout a multiple of 128; with kIdx
+// (the K6 forward) 1 <= p <= kRowMask + 1.
+template <bool kIdx>
+int run(const void* x, const void* w3p, const void* b3, const void* w4p, const void* b4,
+        MaxOut<kIdx> o, int n, int p, int cin, int chid, int cout, void* stream) {
   const size_t smem = smem_bytes(chid, cout);
-  if ((cin != 64 && cin != 128) || chid % 128 || chid > kMaxHid || cout % 128 || smem > kSmemLimit)
+  if ((cin != 64 && cin != 128) || chid % 128 || chid > kMaxHid || cout % 128 || smem > kSmemLimit ||
+      (kIdx && (p < 1 || p > static_cast<int>(kRowMask) + 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return cin == 128 ? launch<8>(x, w3p, b3, w4p, b4, out, n, p, chid, cout, smem, stream)
-                    : launch<4>(x, w3p, b3, w4p, b4, out, n, p, chid, cout, smem, stream);
+  return cin == 128 ? launch<8>(x, w3p, b3, w4p, b4, o, n, p, chid, cout, smem, stream)
+                    : launch<4>(x, w3p, b3, w4p, b4, o, n, p, chid, cout, smem, stream);
 }
 
 }  // namespace tail

@@ -162,6 +162,18 @@ def _check_widths(name, cin, *couts):
 BF16_MAX_CIN, BF16_MAX_HID, BF16_MAX_OUT = 128, 512, 4096
 
 
+def check_k1_bf16(name, x, cin, chid, cout):
+    """Raise for what the bf16 K1 body (`csrc/encoder_tail_wgmma.cuh`, also
+    the bf16 K6 forward) does not take: widths above 128 -> 512 -> 4096
+    (multiples of 64 -> 128 are checked by `_check_widths`), or an x that
+    does not start on a 16-byte boundary (its rows arrive by bulk copy)."""
+    if cin > BF16_MAX_CIN or chid > BF16_MAX_HID or cout > BF16_MAX_OUT:
+        raise ValueError(f"{name}: bf16 widths {cin}->{chid}->{cout} exceed "
+                         f"{BF16_MAX_CIN}->{BF16_MAX_HID}->{BF16_MAX_OUT}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must start on a 16-byte boundary (bulk copies)")
+
+
 def dense_relu_max(x, w, b, cdt):
     """K2: max over P of relu(x @ w^T + b); x (N, P, Cin) -> (N, Cout) f32.
     In bf16 Cin is 64 or 128 and x starts on a 16-byte boundary (its rows
@@ -197,7 +209,7 @@ def dense_relu_dense_max(x, w3, b3, w4, b4, cdt):
     """K1: max over P of (relu(x @ w3^T + b3) @ w4^T + b4); x (N, P, Cin) ->
     (N, C4) f32. The (N, P, C4) activation never reaches device memory. In
     bf16 the weights are repacked per call (`pack_panels`, 1.2 MB at the
-    flagship widths)."""
+    flagship widths) and x starts on a 16-byte boundary."""
     if x.device.type == "cpu":
         return dense_relu_dense_max_twin(x, w3, b3, w4, b4, cdt)
     (w3, w4), (b3, b4) = _kernel_operands("dense_relu_dense_max", x, cdt, [w3, w4], [b3, b4])
@@ -209,9 +221,7 @@ def dense_relu_dense_max(x, w3, b3, w4, b4, cdt):
                          f"do not fit x {tuple(x.shape)}")
     _check_widths("dense_relu_dense_max", cin, chid, cout)
     if cdt == torch.bfloat16:
-        if cin > BF16_MAX_CIN or chid > BF16_MAX_HID or cout > BF16_MAX_OUT:
-            raise ValueError(f"dense_relu_dense_max: bf16 widths {cin}->{chid}->{cout} exceed "
-                             f"{BF16_MAX_CIN}->{BF16_MAX_HID}->{BF16_MAX_OUT}")
+        check_k1_bf16("dense_relu_dense_max", x, cin, chid, cout)
         w3, w4 = pack_panels(w3), pack_panels(w4)
     out = torch.empty(N, cout, device=x.device, dtype=torch.float32)
     rc = _lib().catre_dense_relu_dense_max(

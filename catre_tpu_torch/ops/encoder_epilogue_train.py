@@ -35,6 +35,16 @@ products on the critical rows only, `route_rows` mirroring the kernel's
 routing buffer): where the kernel disagrees with both, routing is at fault,
 where with one, rounding. Both plain versions serve tests and checks only.
 
+The bf16 K6 forward is K1's `wgmma` body (`csrc/encoder_tail_wgmma.cuh`
+with kIdx), so its `out` is K1's by construction. It takes K1's weight
+repack and widths (`encoder_epilogue.check_k1_bf16`) and at most
+`ARGMAX_MAX_ROWS` points: the rounded value of every element becomes an
+unsigned 32-bit key, value above the row (`argmax_key`), and the largest key
+per (cloud, channel) is the max and its lowest tied row, whatever order the
+kernel folds them in. `max_argmax_keyed` is the plain version of that fold,
+for the tests and the card checks; on the CPU the wrapper runs
+`dense_relu_dense_max_fwd_plain`.
+
 The bf16 K6 backward (`csrc/encoder_tail_bwd_wgmma.cuh`) takes cin 64 or
 128, chid and cout multiples of 128 that fit its shared memory, and x on a
 16-byte boundary, and allocates nothing of N x P x chid: a routing buffer of
@@ -51,7 +61,7 @@ import torch
 
 from ..models.layers import dense
 from . import _build
-from .encoder_epilogue import _check_widths, _sm_count
+from .encoder_epilogue import _check_widths, _sm_count, check_k1_bf16, pack_panels
 
 LAUNCHES = {"dense_relu_max_train_fwd": 0, "dense_relu_max_train_bwd": 0,
             "dense_relu_dense_max_train_fwd": 0, "dense_relu_dense_max_train_bwd": 0}
@@ -63,6 +73,11 @@ K6_BWD_SLOTS = ("x", "w3", "b3", "w3t", "w4", "idx", "dout", "dh3", "pdb3", "par
 K6_BWD_F32_ONLY = ("w3t", "dh3", "pdb3", "gpart")
 K6_BWD_BF16_ONLY = ("route", "part_w3", "part_b3")
 CLOUD_GROUPS = 16    # groups of clouds whose weight-gradient partials are summed in order
+# the bf16 K6 forward's argmax keys: the low ARGMAX_ROW_BITS bits hold kRowMask - row
+# (csrc/encoder_tail_common.cuh: kRowBits, kRowMask)
+ARGMAX_ROW_BITS = 16
+ARGMAX_MAX_ROWS = 1 << ARGMAX_ROW_BITS
+_ROW_MASK = ARGMAX_MAX_ROWS - 1
 SPLIT_ROWS = 4096    # K rows per range of the dW3 product, at most 128 ranges
 
 _P = ctypes.c_void_p
@@ -78,6 +93,34 @@ def max_argmax(h):
     rows = torch.arange(P, device=h.device, dtype=torch.int32).view(1, P, 1)
     idx = torch.where(h == m, rows, P).amin(dim=1)
     return m[:, 0].float(), idx
+
+
+def argmax_key(v, rows):
+    """The bf16 K6 forward's key of each candidate (value v, point row):
+    v (any shape) holds bf16 values in float32, rows broadcasts against it
+    -> int64 keys in [0, 2**32), as `csrc/encoder_tail_common.cuh::fold_argmax`
+    builds them: the high 16 bits order v with -0 equal to +0 (`order2`), the
+    low bits are _ROW_MASK - row, so the larger key is the larger value, then
+    the lower row. Raises for a value that is not a bf16 value."""
+    u = v.float().contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    if (u & _ROW_MASK).any():
+        raise ValueError("argmax_key: the keys order bf16 values; got f32 values beyond bf16")
+    order = torch.where(u >= 2**31, 2**31 - (u & 0x7FFFFFFF), u | 2**31)
+    return (order & ~_ROW_MASK) | (_ROW_MASK - rows)
+
+
+def max_argmax_keyed(h):
+    """Plain version of the bf16 K6 forward's fold: (N, P, C) rounded bf16
+    values (in any float type) -> the largest key of each (cloud, channel)
+    over P, decoded as (max (N, C) f32, its lowest row (N, C) int32).
+    P <= ARGMAX_MAX_ROWS."""
+    P = h.shape[1]
+    rows = torch.arange(P, device=h.device).view(1, P, 1)
+    key = argmax_key(h, rows).amax(dim=1)
+    order = key & ~_ROW_MASK
+    bits = torch.where(order >= 2**31, order - 2**31, (2**31 - order) | 2**31)
+    out = torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).view(torch.float32)
+    return out, (_ROW_MASK - (key & _ROW_MASK)).to(torch.int32)
 
 
 def _rows_at(t, idx):
@@ -195,10 +238,11 @@ def _lib() -> ctypes.CDLL:
     lib.catre_dense_relu_dense_max_train_bwd.argtypes = [_P] + [_I] * 11 + [_P]
     lib.catre_k6_bwd_smem.argtypes = [_I] * 4
     lib.catre_k6_route_stride.argtypes = [_I]
+    lib.catre_tail_smem.argtypes = [_I] * 2
     for fn in (lib.catre_dense_relu_max_train_fwd, lib.catre_dense_relu_dense_max_train_fwd,
                lib.catre_dense_relu_max_train_bwd, lib.catre_dense_relu_dense_max_train_bwd,
                lib.catre_dense_relu_dense_max_train_bwd_slots, lib.catre_k6_bwd_smem,
-               lib.catre_k6_route_stride):
+               lib.catre_k6_route_stride, lib.catre_tail_smem):
         fn.restype = _I
     if lib.catre_dense_relu_dense_max_train_bwd_slots() != len(K6_BWD_SLOTS):
         raise _build.KernelBuildError(
@@ -269,7 +313,8 @@ def dense_relu_max_fwd(x, w, b, cdt):
 
 def dense_relu_dense_max_fwd(x, w3, b3, w4, b4, cdt):
     """K6 forward -> (max over P of (relu(x @ w3^T + b3) @ w4^T + b4) (N, C4)
-    f32, idx (N, C4) int32)."""
+    f32, idx (N, C4) int32). In bf16 on the card: K1's limits (widths at most
+    128 -> 512 -> 4096, x on a 16-byte boundary) and 1 <= P <= ARGMAX_MAX_ROWS."""
     if x.device.type == "cpu":
         return dense_relu_dense_max_fwd_plain(x, w3, b3, w4, b4, cdt)
     name = "dense_relu_dense_max_train_fwd"
@@ -280,6 +325,12 @@ def dense_relu_dense_max_fwd(x, w3, b3, w4, b4, cdt):
     _operands(name, x, cdt, [(w3, (chid, cin)), (b3, (chid,)), (w4, (cout, chid)), (b4, (cout,))])
     _check_widths(name, cin, chid, cout)
     (w3c, w4c), (b3c, b4c) = _cast(x, cdt, [w3, w4], [b3, b4])
+    if cdt == torch.bfloat16:
+        check_k1_bf16(name, x, cin, chid, cout)
+        if not 1 <= P <= ARGMAX_MAX_ROWS:
+            raise ValueError(f"{name}: the bf16 kernel's argmax keys hold rows 0 .. "
+                             f"{ARGMAX_MAX_ROWS - 1}, got P = {P}")
+        w3c, w4c = pack_panels(w3c), pack_panels(w4c)
     out = torch.empty(N, cout, device=x.device, dtype=torch.float32)
     idx = torch.empty(N, cout, device=x.device, dtype=torch.int32)
     rc = _lib().catre_dense_relu_dense_max_train_fwd(

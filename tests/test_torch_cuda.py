@@ -1,9 +1,11 @@
 """CUDA kernels K1-K9 vs their plain PyTorch versions on the card (the bf16
 builds of K1 and K2 also vs the plain versions of their own order, relaunched
-bit-equal; the bf16 K6 backward also vs its critical-row plain version, with
-its dx zero off the critical rows, its refused widths and its scratch), the
-inference kernels' refusal of a differentiable call, and a train step's launch
-counts.
+bit-equal; the K6 forward's idx bit-equal to the plain version's on
+exact-integer operands, with ties at -0 / +0, relaunched bit-equal, and what
+its bf16 build refuses; the bf16 K6 backward also vs its critical-row plain
+version, with its dx zero off the critical rows, its refused widths and its
+scratch), the inference kernels' refusal of a differentiable call, and a train
+step's launch counts.
 
 Every test here is marked `cuda` and skips without a card. The file imports
 no JAX, so it runs on a machine without it; `tests/conftest.py` sets up JAX,
@@ -568,6 +570,131 @@ def test_k6_bwd_bf16_allocates_no_scratch_of_n_p_chid(dev):
         torch.cuda.synchronize()
     beyond = torch.cuda.max_memory_allocated() - base - sum(o.numel() * 4 for o in outs)
     assert beyond < 0.1 * n * p * chid * 2, beyond
+
+
+def _k6_int_case(seed, n, p, dev, cdt, widths=(128, 512, 1024), twice=False):
+    """Exact-integer K6 operands: x in {0, 1, 2}, weights in {-2 .. 2}, integer
+    biases. Every f32 sum is an integer below 2^24, exact in any order, so the
+    card's rounded values are the plain version's bit for bit, while the bf16
+    roundings tie rows whose accumulators differ."""
+    gen = torch.Generator().manual_seed(seed)
+    cin, chid, cout = widths
+    x = torch.randint(0, 3, (n, p, cin), generator=gen).float()
+    if twice:
+        x[:, p // 2:2 * (p // 2)] = x[:, :p // 2]
+    ws = [torch.randint(lo, hi, shape, generator=gen).float().to(dev)
+          for lo, hi, shape in ((-2, 3, (chid, cin)), (-8, 9, (chid,)), (-2, 3, (cout, chid)),
+                                (-8, 9, (cout,)))]
+    return x.to(dev, cdt), ws
+
+
+@pytest.mark.parametrize("cdt", DTYPES)
+@pytest.mark.parametrize("n,p,widths,twice", [
+    (8, 1024, (128, 512, 1024), False), (8, 1000, (128, 512, 1024), False),
+    (6, 100, (128, 512, 1024), True), (5, 40, (128, 512, 1024), False),
+    (20, 150, (64, 384, 640), False)])
+def test_k6_fwd_idx_is_exact_on_integer_operands(dev, cdt, n, p, widths, twice):
+    """The K6 forward (bf16: K1's `wgmma` body with the keyed argmax fold) on
+    operands whose sums are exact: out and idx bit-equal to the plain
+    version's, out bit-equal to K1, the lower of two equal points."""
+    x, ws = _k6_int_case(400 + n + p, n, p, dev, cdt, widths, twice)
+    before = tail_ops.LAUNCHES["dense_relu_dense_max_train_fwd"]
+    with torch.no_grad():
+        out, idx = tail_ops.dense_relu_dense_max_fwd(x, *ws, cdt)
+        assert tail_ops.LAUNCHES["dense_relu_dense_max_train_fwd"] == before + 1
+        out_p, idx_p = tail_ops.dense_relu_dense_max_fwd_plain(x, *ws, cdt)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, idx_p) and torch.equal(out, out_p)
+        assert torch.equal(out, enc_ops.dense_relu_dense_max(x, *ws, cdt))
+        if cdt == torch.bfloat16:
+            h = dense(dense(x, ws[0], ws[1], cdt, act=True), ws[2], ws[3], cdt)
+            assert all(torch.equal(a, b) for a, b in zip(tail_ops.max_argmax_keyed(h), (out, idx)))
+        if twice:
+            assert idx.max() < p // 2
+
+
+@pytest.mark.parametrize("p", [1024, 1000, 40])
+def test_k6_fwd_bf16_vs_both_plain_versions(dev, p):
+    """Random operands: out within the bf16 tolerance of the per-row plain
+    version and of K1's folded plain version; idx as the plain one's but
+    where the kernel's and the library's sums round apart, and there the
+    plain activation at the kernel's row holds the plain max."""
+    x, ws, _ = _tail_case("K6", torch.Generator().manual_seed(500 + p), 8, p, dev,
+                          torch.bfloat16, False)
+    bf = torch.bfloat16
+    with torch.no_grad():
+        out, idx = tail_ops.dense_relu_dense_max_fwd(x, *ws, bf)
+        h = dense(dense(x, ws[0], ws[1], bf, act=True), ws[2], ws[3], bf).float()
+        out_p, idx_p = tail_ops.max_argmax_keyed(h)
+        assert all(torch.equal(a, b) for a, b in zip((out_p, idx_p), tail_ops.max_argmax(h)))
+        _assert_close(out, out_p, bf)
+        _assert_close(out, enc_ops.dense_relu_dense_max_folded_twin(x, *ws, bf), bf)
+        assert idx.min() >= 0 and idx.max() < p
+        assert (idx != idx_p).float().mean().item() < 1e-2
+        at_idx = h.gather(1, idx.long()[:, None, :])[:, 0]
+        _assert_close(at_idx, out_p, bf)
+
+
+def test_k6_fwd_bf16_six_launches_are_bit_equal(dev):
+    x, ws = _k6_int_case(7, 40, 1000, dev, torch.bfloat16)
+    with torch.no_grad():
+        first = tail_ops.dense_relu_dense_max_fwd(x, *ws, torch.bfloat16)
+        for _ in range(5):
+            again = tail_ops.dense_relu_dense_max_fwd(x, *ws, torch.bfloat16)
+            assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+def test_k6_fwd_bf16_holds_minus_zero_equal_to_plus_zero(dev):
+    """Channel 0's rows: t = 2^-70 in h against -t / +t in W4 gives the f32
+    accumulators -2^-140 / +2^-140, which round to -0 / +0 in bf16 (b4 = -0
+    keeps the sign); every other row is -1. The lowest row among the zeros
+    must win whatever its sign: cloud 0 a -0 row (3) ahead of +0 rows, cloud 1
+    a +0 row (2) ahead of -0 rows. (Where the tensor cores flush the tiny
+    products, every zero has one sign and the check still holds the tie.)"""
+    n, p, cin, chid, cout = 2, 40, 64, 128, 128
+    t = 2.0 ** -70
+    zeros = {0: ([3, 17], [5, 30]), 1: ([9, 33], [2, 20])}     # cloud: (-0 rows, +0 rows)
+    x = torch.zeros(n, p, cin)
+    x[:, :, 2] = 1.0
+    for k, (neg, pos) in zeros.items():
+        x[k, neg, 2], x[k, neg, 0] = 0.0, t
+        x[k, pos, 2], x[k, pos, 1] = 0.0, t
+    w3 = torch.zeros(chid, cin)
+    w3[0, 0] = w3[1, 1] = w3[2, 2] = 1.0
+    w4 = torch.zeros(cout, chid)
+    w4[0, 0], w4[0, 1], w4[0, 2] = -t, t, -1.0
+    b4 = torch.zeros(cout)
+    b4[0] = -0.0
+    ws = [w.to(dev) for w in (w3, torch.zeros(chid), w4, b4)]
+    bf = torch.bfloat16
+    with torch.no_grad():
+        out, idx = tail_ops.dense_relu_dense_max_fwd(x.to(dev, bf), *ws, bf)
+        torch.cuda.synchronize()
+        assert idx[0, 0] == 3 and idx[1, 0] == 2 and out[:, 0].abs().max() == 0
+        assert torch.equal(idx, tail_ops.dense_relu_dense_max_fwd_plain(x, *[w.cpu() for w in ws],
+                                                                        bf)[1].to(dev))
+
+
+def test_k6_fwd_bf16_refuses_what_it_does_not_take(dev):
+    bf = torch.bfloat16
+    for widths in [(192, 512, 1024), (128, 1024, 1024), (128, 512, 4224)]:   # past K1's limits
+        x, ws = _k6_int_case(0, 2, 64, dev, bf, widths)
+        with pytest.raises(ValueError, match="exceed"):
+            tail_ops.dense_relu_dense_max_fwd(x, *ws, bf)
+    x, ws = _k6_int_case(1, 1, tail_ops.ARGMAX_MAX_ROWS + 64, dev, bf, (64, 128, 128))
+    with pytest.raises(ValueError, match="argmax keys"):
+        tail_ops.dense_relu_dense_max_fwd(x, *ws, bf)
+    x, ws = _k6_int_case(2, 2, 64, dev, bf)
+    with pytest.raises(ValueError, match="16-byte"):
+        tail_ops.dense_relu_dense_max_fwd(_misaligned(x), *ws, bf)
+    with pytest.raises(ValueError, match="16-byte"):                # K1, the same body
+        enc_ops.dense_relu_dense_max(_misaligned(x), *ws, bf)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tail_ops.dense_relu_dense_max_fwd(x.float().requires_grad_(), *ws, torch.float32)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tail_ops.dense_relu_dense_max_fwd(x, ws[0].clone().requires_grad_(), *ws[1:], bf)
+    out, _ = tail_ops.dense_relu_dense_max_fwd(x.float(), *ws, torch.float32)   # f32 takes it
+    assert out.shape == (2, 1024)
 
 
 @pytest.mark.parametrize("fused_encoder_train", [True, False])
