@@ -21,7 +21,8 @@
 // the argmax. The bf16 builds, the production ones, take the max on the bare
 // accumulator: K1's is encoder_tail_wgmma.cuh (wgmma, the hidden tile in
 // shared memory), K2's encoder_stn_tail_wgmma.cuh (wgmma, persistent blocks
-// that keep their slice of W in shared memory).
+// that keep their slice of W in shared memory); with kIdx the same two are
+// the bf16 training forwards K6 and K5.
 #include "encoder_epilogue.cuh"
 #include "encoder_stn_tail_wgmma.cuh"
 #include "encoder_tail_wgmma.cuh"
@@ -34,9 +35,9 @@ using namespace catre;
 // (ops/encoder_epilogue.py::stn_tail_grid); f32 launches a block per cloud.
 extern "C" int catre_dense_relu_max(const void* x, const void* w, const void* b, void* out, int n,
                                     int p, int cin, int cout, int bf16, int grid, void* stream) {
-  if (bf16) return stn::run<stn::kChunks>(x, w, b, out, n, p, cin, cout, grid, stream);
   const MaxOut<false> o{static_cast<float*>(out)};
-  return enc::run_relu_max<float, false>(x, w, b, o, n, p, cin, cout, stream);
+  if (bf16) return stn::run<stn::kChunks>(x, w, b, o, n, p, cin, cout, grid, stream);
+  return enc::run_relu_max<false>(x, w, b, o, n, p, cin, cout, stream);
 }
 
 // What the bf16 K2 keeps per block: its 128-channel chunks (the wrapper's
@@ -54,5 +55,5 @@ extern "C" int catre_dense_relu_dense_max(const void* x, const void* w3, const v
                                           int cin, int chid, int cout, int bf16, void* stream) {
   const MaxOut<false> o{static_cast<float*>(out)};
   if (bf16) return tail::run(x, w3, b3, w4, b4, o, n, p, cin, chid, cout, stream);
-  return enc::run_relu_dense_max<float, false>(x, w3, b3, w4, b4, o, n, p, cin, chid, cout, stream);
+  return enc::run_relu_dense_max<false>(x, w3, b3, w4, b4, o, n, p, cin, chid, cout, stream);
 }

@@ -1,15 +1,16 @@
-// Device code of the PointNet encoder tails: dense (+ReLU +dense) fused with
-// the per-cloud max, shared by the f32 builds of the inference kernels K1 and
-// K2 (encoder_epilogue.cu; their bf16 builds are encoder_tail_wgmma.cuh and
-// encoder_stn_tail_wgmma.cuh), the K5 forward and the f32 K6 forward
-// (encoder_epilogue_train.cu; the bf16 K6 forward is K1's body in
-// encoder_tail_wgmma.cuh). The two differ by one
-// template flag: with kIdx the kernels also return, per (cloud, channel), the
+// Device code of the PointNet encoder tails in f32: dense (+ReLU +dense)
+// fused with the per-cloud max, the f32 builds of the inference kernels K1
+// and K2 (encoder_epilogue.cu) and of the training forwards K5 and K6
+// (encoder_epilogue_train.cu), which hold the card's arithmetic to tight
+// tolerances. The bf16 builds of all four are `wgmma` kernels: K1's body in
+// encoder_tail_wgmma.cuh (K6 with kIdx), K2's in encoder_stn_tail_wgmma.cuh
+// (K5 with kIdx). The inference and training kernels here differ by one
+// template flag: with kIdx they also return, per (cloud, channel), the
 // lowest point row that attains the max, which is all the routed backward needs.
 //
-// Design: one block per cloud walks the cloud in tiles of TM points (128 in
-// bf16, 64 in f32). For K1/K6 the tile's whole hidden activation h (TM x 512)
-// stays in shared memory (133 KB in either type), so GEMM1 is computed once
+// Design: one block per cloud walks the cloud in tiles of TM = 64 points. For
+// K1/K6 the tile's whole hidden activation h (TM x 512) stays in shared
+// memory (133 KB), so GEMM1 is computed once
 // per point and not once per output-channel block; GEMM2 then runs over
 // output chunks of 128 channels, each folded from its register accumulators
 // into a running max per output channel (1024 floats in shared memory). No
@@ -29,28 +30,28 @@ namespace enc {
 // Shared memory: [red f32 (2 x 128) | running max f32 (cout) | with kIdx: red
 // rows i32 (2 x 128) | running argmax i32 (cout) | weight stage |
 // x tile (TM x cin+pad) | h tile (TM x chid+pad)].
-template <typename T, bool kIdx>
+template <bool kIdx>
 struct Tiles {
   float* red;
   float* gmax;
   int* redi;
   int* gidx;
-  T* stage;
-  T* xs;
-  T* hs;
+  float* stage;
+  float* xs;
+  float* hs;
   __device__ Tiles(unsigned char* smem, int cin, int cout) {
     red = reinterpret_cast<float*>(smem);
     gmax = red + 2 * kTileN;
     if constexpr (kIdx) {
       redi = reinterpret_cast<int*>(gmax + cout);
       gidx = redi + 2 * kTileN;
-      stage = reinterpret_cast<T*>(gidx + cout);
+      stage = reinterpret_cast<float*>(gidx + cout);
     } else {
       redi = gidx = nullptr;
-      stage = reinterpret_cast<T*>(gmax + cout);
+      stage = reinterpret_cast<float*>(gmax + cout);
     }
-    xs = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(stage) + kStageBytes<T>);
-    hs = xs + kTileM<T> * (cin + kPad);
+    xs = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(stage) + kStageBytes<float>);
+    hs = xs + kTileM<float> * (cin + kPad);
   }
 };
 
@@ -61,19 +62,19 @@ __device__ __forceinline__ void write_max(const MaxOut<kIdx>& o, size_t at, floa
   if constexpr (kIdx) o.idx[at] = gidx[c];
 }
 
-template <typename T, bool kIdx>
+template <bool kIdx>
 constexpr size_t smem_bytes(int cin, int chid, int cout) {
-  return (kIdx ? 2 : 1) * sizeof(float) * (2 * kTileN + cout) + kStageBytes<T> +
-         sizeof(T) * kTileM<T> * ((cin + kPad) + (chid ? chid + kPad : 0));
+  return (kIdx ? 2 : 1) * sizeof(float) * (2 * kTileN + cout) + kStageBytes<float> +
+         sizeof(float) * kTileM<float> * ((cin + kPad) + (chid ? chid + kPad : 0));
 }
 
-// gmax[c] = max(gmax[c], max over the tile's valid rows of
-// round(round(acc[r][c]) + bias[c])), ReLU'd when `relu` (relu commutes with max).
-template <typename T, int MI>
+// gmax[c] = max(gmax[c], max over the tile's valid rows of acc[r][c] +
+// bias[c]), ReLU'd when `relu` (relu commutes with max).
+template <int MI>
 __device__ __forceinline__ void fold_max(const Acc<MI>& acc, const float* bias, int rows, bool relu,
                                          float* red, float* gmax) {
   acc_col_reduce(acc, MaxOp(), [&](int r, int c, float v) {
-    return r < rows ? round_to<T>(round_to<T>(v) + bias[c]) : -INFINITY;
+    return r < rows ? v + bias[c] : -INFINITY;
   }, red);
   __syncthreads();
   if (threadIdx.x < kTileN) {
@@ -90,7 +91,7 @@ __device__ __forceinline__ void fold_max(const Acc<MI>& acc, const float* bias, 
 // later one only if strictly greater; partners in a shuffle and the two warp
 // rows are merged preferring the lower row; tiles come in increasing p0 and
 // replace the running pair only if strictly greater.
-template <typename T, int MI>
+template <int MI>
 __device__ __forceinline__ void fold_argmax(const Acc<MI>& acc, const float* bias, int rows,
                                             bool relu, int p0, float* red, int* redi, float* gmax,
                                             int* gidx) {
@@ -107,7 +108,7 @@ __device__ __forceinline__ void fold_argmax(const Acc<MI>& acc, const float* bia
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = acc_row<MI>(l, i, 2 * h);
-          float v = round_to<T>(round_to<T>(acc.v[i][j][2 * h + e]) + bias[c]);
+          float v = acc.v[i][j][2 * h + e] + bias[c];
           if (relu) v = fmaxf(v, 0.0f);
           if (r < rows && v > best) {
             best = v;
@@ -144,28 +145,28 @@ __device__ __forceinline__ void fold_argmax(const Acc<MI>& acc, const float* bia
   }
 }
 
-template <typename T, bool kIdx>
+template <bool kIdx>
 __global__ void __launch_bounds__(kThreads)
-dense_relu_max_kernel(const T* x, const T* w, const float* b, MaxOut<kIdx> o, int P, int cin,
-                      int cout) {
-  constexpr int TM = kTileM<T>;
+dense_relu_max_kernel(const float* x, const float* w, const float* b, MaxOut<kIdx> o, int P,
+                      int cin, int cout) {
+  constexpr int TM = kTileM<float>;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Tiles<T, kIdx> t(smem, cin, cout);
+  const Tiles<kIdx> t(smem, cin, cout);
   const int ldx = cin + kPad;
   const int n = blockIdx.x;
   for (int c = threadIdx.x; c < cout; c += kThreads) {
     t.gmax[c] = -INFINITY;
     if constexpr (kIdx) t.gidx[c] = 0;
   }
-  const T* xn = x + static_cast<size_t>(n) * P * cin;
+  const float* xn = x + static_cast<size_t>(n) * P * cin;
   for (int p0 = 0; p0 < P; p0 += TM) {
     const int rows = min(TM, P - p0);
     load_tile(t.xs, ldx, xn + static_cast<size_t>(p0) * cin, rows, TM, cin);
     for (int c0 = 0; c0 < cout; c0 += kTileN) {
       Acc<TM / 32> acc;
       gemm_tile(acc, t.xs, ldx, w + static_cast<size_t>(c0) * cin, cin, cin, t.stage);
-      if constexpr (kIdx) fold_argmax<T>(acc, b + c0, rows, true, p0, t.red, t.redi, t.gmax + c0, t.gidx + c0);
-      else fold_max<T>(acc, b + c0, rows, true, t.red, t.gmax + c0);
+      if constexpr (kIdx) fold_argmax(acc, b + c0, rows, true, p0, t.red, t.redi, t.gmax + c0, t.gidx + c0);
+      else fold_max(acc, b + c0, rows, true, t.red, t.gmax + c0);
     }
   }
   __syncthreads();
@@ -173,38 +174,35 @@ dense_relu_max_kernel(const T* x, const T* w, const float* b, MaxOut<kIdx> o, in
     write_max(o, static_cast<size_t>(n) * cout + c, t.gmax[c], t.gidx, c);
 }
 
-template <typename T, bool kIdx>
+template <bool kIdx>
 __global__ void __launch_bounds__(kThreads)
-dense_relu_dense_max_kernel(const T* x, const T* w3, const float* b3, const T* w4, const float* b4,
-                            MaxOut<kIdx> o, int P, int cin, int chid, int cout) {
-  constexpr int TM = kTileM<T>;
+dense_relu_dense_max_kernel(const float* x, const float* w3, const float* b3, const float* w4,
+                            const float* b4, MaxOut<kIdx> o, int P, int cin, int chid, int cout) {
+  constexpr int TM = kTileM<float>;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Tiles<T, kIdx> t(smem, cin, cout);
+  const Tiles<kIdx> t(smem, cin, cout);
   const int ldx = cin + kPad, ldh = chid + kPad;
   const int n = blockIdx.x;
   for (int c = threadIdx.x; c < cout; c += kThreads) {
     t.gmax[c] = -INFINITY;
     if constexpr (kIdx) t.gidx[c] = 0;
   }
-  const T* xn = x + static_cast<size_t>(n) * P * cin;
+  const float* xn = x + static_cast<size_t>(n) * P * cin;
   for (int p0 = 0; p0 < P; p0 += TM) {
     const int rows = min(TM, P - p0);
     load_tile(t.xs, ldx, xn + static_cast<size_t>(p0) * cin, rows, TM, cin);
-    // GEMM1 once per point: h = relu(round(round(x @ W3^T) + b3)) into shared memory
+    // GEMM1 once per point: h = relu(x @ W3^T + b3) into shared memory
     for (int c0 = 0; c0 < chid; c0 += kTileN) {
       Acc<TM / 32> acc;
       gemm_tile(acc, t.xs, ldx, w3 + static_cast<size_t>(c0) * cin, cin, cin, t.stage);
-      acc_for_each(acc, [&](int r, int c, float v) {
-        const float h = round_to<T>(round_to<T>(v) + b3[c0 + c]);
-        t.hs[r * ldh + c0 + c] = from_f32<T>(fmaxf(h, 0.0f));
-      });
+      acc_for_each(acc, [&](int r, int c, float v) { t.hs[r * ldh + c0 + c] = fmaxf(v + b3[c0 + c], 0.0f); });
     }
     // GEMM2 per output chunk, folded into the running max
     for (int c0 = 0; c0 < cout; c0 += kTileN) {
       Acc<TM / 32> acc;
       gemm_tile(acc, t.hs, ldh, w4 + static_cast<size_t>(c0) * chid, chid, chid, t.stage);
-      if constexpr (kIdx) fold_argmax<T>(acc, b4 + c0, rows, false, p0, t.red, t.redi, t.gmax + c0, t.gidx + c0);
-      else fold_max<T>(acc, b4 + c0, rows, false, t.red, t.gmax + c0);
+      if constexpr (kIdx) fold_argmax(acc, b4 + c0, rows, false, p0, t.red, t.redi, t.gmax + c0, t.gidx + c0);
+      else fold_max(acc, b4 + c0, rows, false, t.red, t.gmax + c0);
     }
   }
   __syncthreads();
@@ -212,23 +210,22 @@ dense_relu_dense_max_kernel(const T* x, const T* w3, const float* b3, const T* w
     write_max(o, static_cast<size_t>(n) * cout + c, t.gmax[c], t.gidx, c);
 }
 
-// The launchers: x (n, p, cin) and the weights (out, in) in T, biases f32
-// already rounded to T.
-template <typename T, bool kIdx>
+// The launchers: x (n, p, cin), the weights (out, in) and the biases in f32.
+template <bool kIdx>
 int run_relu_max(const void* x, const void* w, const void* b, MaxOut<kIdx> o, int n, int p, int cin,
                  int cout, void* stream) {
-  return launch(dense_relu_max_kernel<T, kIdx>, n, smem_bytes<T, kIdx>(cin, 0, cout), stream,
-                static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(b),
-                o, p, cin, cout);
+  return launch(dense_relu_max_kernel<kIdx>, n, smem_bytes<kIdx>(cin, 0, cout), stream,
+                static_cast<const float*>(x), static_cast<const float*>(w),
+                static_cast<const float*>(b), o, p, cin, cout);
 }
 
-template <typename T, bool kIdx>
+template <bool kIdx>
 int run_relu_dense_max(const void* x, const void* w3, const void* b3, const void* w4,
                        const void* b4, MaxOut<kIdx> o, int n, int p, int cin, int chid, int cout,
                        void* stream) {
-  return launch(dense_relu_dense_max_kernel<T, kIdx>, n, smem_bytes<T, kIdx>(cin, chid, cout),
-                stream, static_cast<const T*>(x), static_cast<const T*>(w3),
-                static_cast<const float*>(b3), static_cast<const T*>(w4),
+  return launch(dense_relu_dense_max_kernel<kIdx>, n, smem_bytes<kIdx>(cin, chid, cout), stream,
+                static_cast<const float*>(x), static_cast<const float*>(w3),
+                static_cast<const float*>(b3), static_cast<const float*>(w4),
                 static_cast<const float*>(b4), o, p, cin, chid, cout);
 }
 

@@ -8,9 +8,10 @@
 //      _bwd_kernel_2 (:121);  out = max_p (relu(x W3^T + b3) W4^T + b4)
 // The forwards are K2/K1 with kIdx: they also return idx[n, c], the lowest
 // point row that attains the max, so `out` is bit-equal to the inference
-// kernels'. K5's (both types) and K6's f32 build are encoder_epilogue.cuh's
-// body; K6's bf16 build is K1's `wgmma` body (encoder_tail_wgmma.cuh), whose
-// argmax fold rounds every element and keeps the lowest tied row by an
+// kernels'. The f32 builds are encoder_epilogue.cuh's body; the bf16 builds
+// are the inference kernels' `wgmma` bodies, K5's K2's persistent kernel
+// (encoder_stn_tail_wgmma.cuh), K6's K1's (encoder_tail_wgmma.cuh), whose
+// argmax folds round every element and keep the lowest tied row by an
 // unsigned key per candidate.
 //
 // The backwards. The gradient of a max goes to one row per (cloud, channel),
@@ -61,6 +62,7 @@
 // T = bf16 rounds d, d4, h3 and d_h3 to bf16 as the Pallas kernels do (f32
 // accumulation); T = float is exact FMA, for tight checks on the card.
 #include "encoder_epilogue.cuh"
+#include "encoder_stn_tail_wgmma.cuh"
 #include "encoder_tail_bwd_wgmma.cuh"
 #include "encoder_tail_wgmma.cuh"
 #include "gemm_tn.cuh"
@@ -574,13 +576,24 @@ int run_relu_dense_max_bwd_wgmma(void* const* ptr, int n, int p, int chid, int c
 
 // K5 forward. x (n, p, cin) and w (cout, cin) in T = bf16 if `bf16` else f32;
 // b (cout) f32 already rounded to T; out (n, cout) f32, idx (n, cout) i32.
-// cin % 64 == 0, cout % 128 == 0.
+// cin % 64 == 0, cout % 128 == 0. In bf16 (K2's kernel with kIdx) cin is 64
+// or 128, x starts on a 16-byte boundary, 1 <= p <= 65536 (the argmax keys
+// hold 16 bits of row) and `grid` is the number of persistent blocks
+// (ops/encoder_epilogue.py::stn_tail_grid with catre_k5_fwd_chunks()); f32
+// launches a block per cloud.
 extern "C" int catre_dense_relu_max_train_fwd(const void* x, const void* w, const void* b,
                                               void* out, void* idx, int n, int p, int cin, int cout,
-                                              int bf16, void* stream) {
+                                              int bf16, int grid, void* stream) {
   const MaxOut<true> o{static_cast<float*>(out), static_cast<int*>(idx)};
-  return bf16 ? enc::run_relu_max<catre::bf16, true>(x, w, b, o, n, p, cin, cout, stream)
-              : enc::run_relu_max<float, true>(x, w, b, o, n, p, cin, cout, stream);
+  if (bf16) return stn::run<stn::kChunks>(x, w, b, o, n, p, cin, cout, grid, stream);
+  return enc::run_relu_max<true>(x, w, b, o, n, p, cin, cout, stream);
+}
+
+// What the bf16 K5 forward keeps per block: its 128-channel chunks and its
+// dynamic shared memory in bytes at cin = 128.
+extern "C" int catre_k5_fwd_chunks() { return stn::kChunks; }
+extern "C" int catre_k5_fwd_smem() {
+  return static_cast<int>(stn::smem_bytes<8, stn::kChunks, true>());
 }
 
 // K6 forward. As catre_dense_relu_dense_max (in bf16 the weights repacked,
@@ -592,7 +605,7 @@ extern "C" int catre_dense_relu_dense_max_train_fwd(const void* x, const void* w
                                                     int cout, int bf16, void* stream) {
   const MaxOut<true> o{static_cast<float*>(out), static_cast<int*>(idx)};
   if (bf16) return tail::run(x, w3, b3, w4, b4, o, n, p, cin, chid, cout, stream);
-  return enc::run_relu_dense_max<float, true>(x, w3, b3, w4, b4, o, n, p, cin, chid, cout, stream);
+  return enc::run_relu_dense_max<true>(x, w3, b3, w4, b4, o, n, p, cin, chid, cout, stream);
 }
 
 // Dynamic shared memory of the bf16 K6 forward (K1's body) in bytes.

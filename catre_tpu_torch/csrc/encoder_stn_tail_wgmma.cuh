@@ -3,8 +3,11 @@
 // x (N, P, cin) bf16, W (cout, cin) bf16, b f32 already rounded to bf16, out
 // (N, cout) f32. It replaces the Pallas kernel
 // catre_tpu/ops/pallas_encoder_epilogue.py::fused_dense_relu_max (:89, body
-// _kernel_1 :41). The f32 build and the training forward K5 (with the argmax)
-// stay on `encoder_epilogue.cuh`.
+// _kernel_1 :41). With kIdx the same kernel is the bf16 training forward K5
+// (catre_tpu/ops/pallas_encoder_epilogue_vjp.py::dense_relu_max_t, :263, body
+// _fwd_kernel_1 :67), which also returns idx[n, c], the lowest row among the
+// rows tied after rounding and the ReLU (`_per_cloud_max_argmax`, :38-48).
+// The f32 builds stay on `encoder_epilogue.cuh`.
 //
 // What bounds it on the card: operations. 0.268 GFLOP per cloud of 1024
 // points on 256 KB of input (1024 FLOP a byte); W is 256 KB.
@@ -45,7 +48,20 @@
 //     reset. Rounding to nearest even, adding a constant and ReLU are monotone
 //     non-decreasing, so max_p relu(round(round(a_p) + b)) = relu(round(
 //     round(max_p a_p) + b)) exactly: flax Dense's rounding, applied once.
+// With kIdx (the K5 forward) the value alone is not enough: the row must be
+// the lowest whose own rounded, ReLU'd value equals the max, and rows that
+// differ before rounding, or are negative before the ReLU, tie after it. So
+// every element is rounded, biased (the group's bias pairs in shared memory,
+// bf16x2), rounded and ReLU'd, and keyed as one unsigned integer, value above
+// kRowMask - row (`encoder_tail_common.cuh::relu_keys`): the register that
+// held a column's running max holds its running key, k[kChunks][32], and the
+// fold once a cloud is the same reduce-scatter and an unsigned atomic max
+// into the same table, reset to 0. The largest key decodes to the max and the
+// lowest row that holds it, in any order of tiles, lanes and warpgroups; its
+// value is the max of the same rounded values K2 takes, so `out` is K2's.
 #pragma once
+
+#include <type_traits>
 
 #include "encoder_tail_common.cuh"
 
@@ -64,6 +80,13 @@ constexpr int kBlockThreads = kConsumerThreads + 128;
 constexpr int kConsumerRegs = 232, kProducerRegs = 40;   // 2 x 128 x 232 + 128 x 40 = 64512
 constexpr int kAllConsumers = 1;           // named barrier id
 
+#ifdef CATRE_K5F_BARE_FOLD
+constexpr bool kBareFold = true;  // diagnostic build (tools/probe_k2.py --train): the K5 forward
+                                  // folds the bare accumulator as K2 does and writes idx = 0
+#else
+constexpr bool kBareFold = false;
+#endif
+
 #ifdef CATRE_K2_SKIP_X_LOADS
 constexpr bool kSkipX = true;    // diagnostic build (tools/probe_k2.py --skip-x): x lands for a
                                  // block's first cloud only, later clouds read stale slots
@@ -79,25 +102,29 @@ template <int KX, int C>
 constexpr int kWeightBytes = C * (KX / 4) * kPanelBytes;
 
 // Shared memory, from a 1024-byte boundary: [W (cin / 64 panels of 128 C rows)
-// | ring (kStages slots) | keys (2 x C x 128) | full, empty (kStages each)].
+// | ring (kStages slots) | keys (2 x C x 128) | full, empty (kStages each) |
+// with kIdx: the group's bias pairs (C x 64 bf16x2)].
 template <int KX, int C>
 struct Smem {
   unsigned char* w;
   tail::Ring<kStages, kSlotBytes<KX>> ring;
   int* keys;
+  uint32_t* bias2;
   __device__ Smem(unsigned char* raw) {
     w = raw + ((1024 - (wg::smem_addr(raw) & 1023)) & 1023);
     ring.slots = w + kWeightBytes<KX, C>;
     keys = reinterpret_cast<int*>(ring.slots + kStages * kSlotBytes<KX>);
     ring.full = reinterpret_cast<uint64_t*>(keys + 2 * C * 128);
     ring.empty = ring.full + kStages;
+    bias2 = reinterpret_cast<uint32_t*>(ring.empty + kStages);
   }
 };
 
-template <int KX, int C>
+template <int KX, int C, bool kIdx = false>
 constexpr size_t smem_bytes() {
   return 1024 + kWeightBytes<KX, C> + static_cast<size_t>(kStages) * kSlotBytes<KX> +
-         sizeof(int) * 2 * C * 128 + sizeof(uint64_t) * 2 * kStages;
+         sizeof(int) * 2 * C * 128 + sizeof(uint64_t) * 2 * kStages +
+         (kIdx ? sizeof(uint32_t) * C * 64 : 0);
 }
 
 // groups of C chunks that cover cout channels; the last may hold fewer chunks
@@ -106,11 +133,14 @@ __host__ __device__ constexpr int n_groups(int cout) {
   return (cout / 128 + C - 1) / C;
 }
 
-template <int KX, int C>
+// KX: k-steps, cin / 16; C: chunks a group; kIdx: the K5 forward (out and idx)
+template <int KX, int C, bool kIdx>
 __global__ void __launch_bounds__(kBlockThreads, 1)
-dense_relu_max_wgmma(const bf16* x, const bf16* w, const float* b, float* out, int N, int P,
+dense_relu_max_wgmma(const bf16* x, const bf16* w, const float* b, MaxOut<kIdx> o, int N, int P,
                      int cout) {
   constexpr int kCin = 16 * KX, kRowBytes = 2 * kCin, kPieces = kRowBytes / 16;
+  constexpr bool kKeyed = kIdx && !kBareFold;        // the argmax fold
+  using Run = std::conditional_t<kKeyed, uint32_t, float>;
   extern __shared__ unsigned char raw[];
   const Smem<KX, C> sm(raw);
   const int tid = threadIdx.x;
@@ -120,12 +150,20 @@ dense_relu_max_wgmma(const bf16* x, const bf16* w, const float* b, float* out, i
   const int n_tiles = (P + kTile - 1) / kTile;
 
   // the group's W rows as swizzled panels; the ring zeroed, so that rows no copy fills
-  // hold finite values; both key tables at -inf
+  // hold finite values; both key tables at -inf (argmax keys: 0, below every candidate);
+  // the keyed fold's bias pairs
   wg::stage_weight(sm.w, w + static_cast<size_t>(g) * C * 128 * kCin, kCin, n_rows, kCin, tid,
                    kBlockThreads);
   for (int i = tid; i < kStages * kSlotBytes<KX> / 16; i += kBlockThreads)
     reinterpret_cast<uint4*>(sm.ring.slots)[i] = make_uint4(0, 0, 0, 0);
-  for (int c = tid; c < 2 * C * 128; c += kBlockThreads) sm.keys[c] = tail::order_key(-INFINITY);
+  for (int c = tid; c < 2 * C * 128; c += kBlockThreads)
+    sm.keys[c] = kKeyed ? 0 : tail::order_key(-INFINITY);
+  if constexpr (kKeyed)
+    for (int i = tid; i < C * 64; i += kBlockThreads) {
+      const float2 bb = 2 * i < n_rows ? *reinterpret_cast<const float2*>(b + g * C * 128 + 2 * i)
+                                       : make_float2(0.0f, 0.0f);
+      sm.bias2[i] = tail::bf2_bits(__floats2bfloat162_rn(bb.x, bb.y));
+    }
   if (tid == 0) sm.ring.init(kProducerThreads, 128);   // the warpgroup that reads a slot gives it back
   wg::fence_proxy_async();
   __syncthreads();
@@ -151,16 +189,19 @@ dense_relu_max_wgmma(const bf16* x, const bf16* w, const float* b, float* out, i
     // ---- consumers: warpgroup wgi takes the slots n = 2 i + wgi of tiles i = 0, 1, ...
     wg::reg_alloc<kConsumerRegs>();
     const tail::Who me;
-    const float bias = tid < n_rows ? b[g * C * 128 + tid] : 0.0f;
+    const float bias = !kKeyed && tid < n_rows ? b[g * C * 128 + tid] : 0.0f;
     uint32_t n = me.wgi;
     int parity = 0;
 #pragma unroll 1
     for (int cloud = first; cloud < N; cloud += stride, parity ^= 1) {
-      float v[C][32];
+      Run v[C][32];      // a column's running max, or with kKeyed its running key
 #pragma unroll
       for (int c = 0; c < C; ++c)
 #pragma unroll
-        for (int i = 0; i < 32; ++i) v[c][i] = -INFINITY;
+        for (int i = 0; i < 32; ++i) {
+          if constexpr (kKeyed) v[c][i] = 0u;
+          else v[c][i] = -INFINITY;
+        }
 #pragma unroll 1
       for (int i = 0; i < n_tiles; ++i, n += 2) {
         const int row0 = i * kTile + kHalfTile * me.wgi;
@@ -171,56 +212,73 @@ dense_relu_max_wgmma(const bf16* x, const bf16* w, const float* b, float* out, i
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           if (128 * c < n_rows) {
-            float acc[64], m[32];
+            float acc[64];
             wg::product<KX>(acc, xa, sm.w, n_rows, c);
             if (c == 0) sm.ring.release(n);    // the registers loaded from it have been read
-            if (whole) tail::rows_max(acc, m);
-            else tail::rows_max(acc, r < P, r + 8 < P, m);
+            if constexpr (kKeyed) {
+              const uint32_t row_bits = tail::kRowMask - static_cast<uint32_t>(r);
+              if (whole) tail::relu_keys<false>(acc, sm.bias2 + 64 * c, true, true, row_bits, v[c], me);
+              else tail::relu_keys<true>(acc, sm.bias2 + 64 * c, r < P, r + 8 < P, row_bits, v[c], me);
+            } else {
+              float m[32];
+              if (whole) tail::rows_max(acc, m);
+              else tail::rows_max(acc, r < P, r + 8 < P, m);
 #pragma unroll
-            for (int k = 0; k < 32; ++k) v[c][k] = fmaxf(v[c][k], m[k]);
+              for (int k = 0; k < 32; ++k) v[c][k] = fmaxf(v[c][k], m[k]);
+            }
           }
         }
       }
-      int* keys = sm.keys + parity * C * 128;
+      using Key = std::conditional_t<kKeyed, uint32_t, int>;
+      Key* keys = reinterpret_cast<Key*>(sm.keys) + parity * C * 128;
 #pragma unroll
       for (int c = 0; c < C; ++c)
         if (128 * c < n_rows) tail::fold_keys(v[c], keys + 128 * c, me);
       wg::named_barrier(kAllConsumers, kConsumerThreads);
       if (tid < n_rows) {
-        const float m = round_to<bf16>(round_to<bf16>(tail::from_key(keys[tid])) + bias);
-        out[static_cast<size_t>(cloud) * cout + g * C * 128 + tid] = fmaxf(m, 0.0f);
-        keys[tid] = tail::order_key(-INFINITY);
+        const size_t at = static_cast<size_t>(cloud) * cout + g * C * 128 + tid;
+        if constexpr (kKeyed) {
+          o.out[at] = tail::relu_key_value(keys[tid]);
+          o.idx[at] = tail::key_row(keys[tid]);
+          keys[tid] = 0;
+        } else {
+          const float m = round_to<bf16>(round_to<bf16>(tail::from_key(keys[tid])) + bias);
+          o.out[at] = fmaxf(m, 0.0f);
+          if constexpr (kIdx) o.idx[at] = 0;
+          keys[tid] = tail::order_key(-INFINITY);
+        }
       }
     }
   }
 }
 
-template <int KX, int C>
-int launch(const void* x, const void* w, const void* b, void* out, int n, int p, int cout,
+template <int KX, int C, bool kIdx>
+int launch(const void* x, const void* w, const void* b, MaxOut<kIdx> o, int n, int p, int cout,
            int grid, void* stream) {
-  constexpr size_t smem = smem_bytes<KX, C>();
-  cudaError_t err = cudaFuncSetAttribute(dense_relu_max_wgmma<KX, C>,
+  constexpr size_t smem = smem_bytes<KX, C, kIdx>();
+  cudaError_t err = cudaFuncSetAttribute(dense_relu_max_wgmma<KX, C, kIdx>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dense_relu_max_wgmma<KX, C><<<grid, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(b),
-      static_cast<float*>(out), n, p, cout);
+  dense_relu_max_wgmma<KX, C, kIdx><<<grid, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(b), o, n,
+      p, cout);
   return static_cast<int>(cudaGetLastError());
 }
 
 // x (n, p, cin) bf16 with cin 64 or 128, 16-byte aligned; w (cout, cin) bf16;
 // b (cout) f32 rounded to bf16; cout a multiple of 128; grid a multiple of
-// n_groups<C>(cout), at most n times it.
-template <int C>
-inline int run(const void* x, const void* w, const void* b, void* out, int n, int p, int cin,
+// n_groups<C>(cout), at most n times it; with kIdx (the K5 forward) p at most
+// kRowMask + 1.
+template <int C, bool kIdx>
+inline int run(const void* x, const void* w, const void* b, MaxOut<kIdx> o, int n, int p, int cin,
                int cout, int grid, void* stream) {
   const int groups = n_groups<C>(cout);
   if ((cin != 64 && cin != 128) || cout <= 0 || cout % 128 || n < 1 || p < 1 || grid < groups ||
-      grid % groups || grid / groups > n)
+      grid % groups || grid / groups > n || (kIdx && p > static_cast<int>(tail::kRowMask) + 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  return cin == 128 ? launch<8, C>(x, w, b, out, n, p, cout, grid, stream)
-                    : launch<4, C>(x, w, b, out, n, p, cout, grid, stream);
+  return cin == 128 ? launch<8, C>(x, w, b, o, n, p, cout, grid, stream)
+                    : launch<4, C>(x, w, b, o, n, p, cout, grid, stream);
 }
 
 }  // namespace stn

@@ -5,11 +5,12 @@
 // a ring of shared-memory stages (K1 by 1-D bulk copies, K2 by 16-byte
 // `cp.async`); both take the max over points on the bare f32 accumulator and
 // round once per (cloud, channel). K1's body with kIdx is also the bf16 K6
-// forward, which needs the lowest row among the rows tied after rounding.
-// Here: a consumer thread's coordinates, the ring, the A registers of x rows,
-// the order-preserving integer image of a float, the max over the row lanes
-// of a fragment with its fold into a table of running maxima, and the argmax
-// keys of the K6 forward with their fold.
+// forward, and K2's the bf16 K5 forward: both need the lowest row among the
+// rows tied after rounding. Here: a consumer thread's coordinates, the ring,
+// the A registers of x rows, the order-preserving integer image of a float,
+// the max over the row lanes of a fragment with its fold into a table of
+// running maxima, and the argmax keys of the K6 and K5 forwards with their
+// folds.
 #pragma once
 
 #include "common.cuh"
@@ -157,6 +158,12 @@ __device__ __forceinline__ void fold_keys(float (&v)[32], int* keys, const Who& 
 #pragma unroll
   for (int i = 0; i < 4; ++i) atomicMax(keys + scattered_column(i, me), order_key(v[i]));
 }
+// The same for 32 columns' unsigned argmax keys (below): an unsigned atomic max.
+__device__ __forceinline__ void fold_keys(uint32_t (&k)[32], uint32_t* keys, const Who& me) {
+  reduce_scatter(k, me);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) atomicMax(keys + scattered_column(i, me), k[i]);
+}
 
 // ---- the argmax keys of the K6 forward
 // A candidate (v, row) for a channel's max is one unsigned 32-bit key: the
@@ -216,9 +223,63 @@ __device__ __forceinline__ void fold_argmax(const float (&acc)[64], const float*
     k[2 * jj] = max(((lo << 16) & v0) | r0, ((hi << 16) & v1) | r1);
     k[2 * jj + 1] = max((lo & v0) | r0, (hi & v1) | r1);
   }
-  reduce_scatter(k, me);
+  fold_keys(k, keys, me);
+}
+
+// ---- the argmax keys of the K5 forward
+// The same key, built where the ReLU comes last: v = relu(round(round(acc) +
+// b)) is +0 or above, so the bf16 bits of v order it as an unsigned integer
+// and no order image is needed; a negative value and -0 become +0 before
+// keying, so every row at or below zero ties at +0 and the lowest of them
+// wins, as in the Pallas forward `_fwd_kernel_1` (jnp.maximum(h + b, 0), then
+// `_per_cloud_max_argmax`). The key is bits(v) << 16 | kRowMask - row; a row
+// past P is key 0, below every candidate's (row 0's is at least kRowMask), so
+// a table starts at 0. Decoded, the high half is v's f32 bits.
+
+// Per 16-bit half of p: the bf16 value if it is +0 or above, else +0 (a
+// signed 16-bit max with 0: a set sign bit, -0 included, reads as negative).
+__device__ __forceinline__ uint32_t relu2(uint32_t p) {
+  uint32_t r;
+  asm("max.s16x2 %0, %1, %2;" : "=r"(r) : "r"(p), "r"(0u));
+  return r;
+}
+// The keys of the low (column 2 t) and high (column 2 t + 1) halves of a
+// ReLU'd pair p at a row whose kRowMask - row is r: the half's 16 bits above
+// r's low 16 bits, one byte permute each.
+__device__ __forceinline__ uint32_t relu_key_lo(uint32_t p, uint32_t r) { return __byte_perm(p, r, 0x1054); }
+__device__ __forceinline__ uint32_t relu_key_hi(uint32_t p, uint32_t r) { return __byte_perm(p, r, 0x3254); }
+__device__ __forceinline__ float relu_key_value(uint32_t key) { return __uint_as_float(key & ~kRowMask); }
+
+// Fold a 64 x 128 accumulator's ReLU'd argmax candidates into a thread's
+// running keys k[32] (k[2 jj + e]: column 8 jj + 2 t + e, as `rows_max`), in
+// registers across a cloud: each element rounded as the Pallas forward
+// rounds it, a row's column pair by one cvt, one bf16x2 add of the bias pair
+// (b2[4 jj + t], bf16x2) and one `relu2`; then keyed and folded by unsigned
+// max, so the order of tiles does not matter. row_bits is kRowMask - (row g's
+// index in the cloud). With kMasked, rows at or past P (ok0: row g, ok1: row
+// g + 8 below P) enter as key 0: a ring slot past P holds another cloud's rows.
+template <bool kMasked>
+__device__ __forceinline__ void relu_keys(const float (&acc)[64], const uint32_t* b2, bool ok0,
+                                          bool ok1, uint32_t row_bits, uint32_t (&k)[32],
+                                          const Who& me) {
+  const uint32_t r0 = row_bits, r1 = row_bits - 8;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) atomicMax(keys + scattered_column(i, me), k[i]);
+  for (int jj = 0; jj < 16; ++jj) {
+    const uint32_t bb = b2[4 * jj + me.t];
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&bb);
+    const uint32_t pg = relu2(bf2_bits(__hadd2(__floats2bfloat162_rn(acc[4 * jj], acc[4 * jj + 1]), b)));
+    const uint32_t pg8 = relu2(bf2_bits(__hadd2(__floats2bfloat162_rn(acc[4 * jj + 2], acc[4 * jj + 3]), b)));
+    uint32_t lo0 = relu_key_lo(pg, r0), hi0 = relu_key_hi(pg, r0);
+    uint32_t lo1 = relu_key_lo(pg8, r1), hi1 = relu_key_hi(pg8, r1);
+    if constexpr (kMasked) {
+      lo0 = ok0 ? lo0 : 0u;
+      hi0 = ok0 ? hi0 : 0u;
+      lo1 = ok1 ? lo1 : 0u;
+      hi1 = ok1 ? hi1 : 0u;
+    }
+    k[2 * jj] = max(k[2 * jj], max(lo0, lo1));
+    k[2 * jj + 1] = max(k[2 * jj + 1], max(hi0, hi1));
+  }
 }
 
 }  // namespace tail

@@ -27,7 +27,9 @@ that is the same function. `dense_relu_max_folded_twin` and
 `dense_relu_dense_max_folded_twin` are the plain versions of that order,
 which tell a rounding fault from an accumulation fault. K2's bf16 kernel runs
 a persistent grid of blocks that each keep one group of output channels for
-the whole launch (`stn_tail_grid`, `stn_tail_schedule`).
+the whole launch (`stn_tail_grid`, `stn_tail_schedule`). The bf16 bodies of
+K1 and K2 are also the bf16 training forwards K6 and K5, which take their
+limits (`check_k1_bf16`, `check_k2_bf16`).
 """
 
 from __future__ import annotations
@@ -174,6 +176,19 @@ def check_k1_bf16(name, x, cin, chid, cout):
         raise ValueError(f"{name}: x must start on a 16-byte boundary (bulk copies)")
 
 
+def check_k2_bf16(name, x, cin):
+    """Raise for what the bf16 K2 body (`csrc/encoder_stn_tail_wgmma.cuh`,
+    also the bf16 K5 forward) does not take: an input width other than 64 or
+    128 (its A registers; cout a multiple of 128 is checked by
+    `_check_widths`), or an x that does not start on a 16-byte boundary (its
+    rows are copied 16 bytes at a time)."""
+    if cin not in (64, 128):
+        raise ValueError(f"{name}: the bf16 kernel takes 64 or 128 input channels "
+                         f"(its A registers), got {cin}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must start on a 16-byte boundary (16-byte copies)")
+
+
 def dense_relu_max(x, w, b, cdt):
     """K2: max over P of relu(x @ w^T + b); x (N, P, Cin) -> (N, Cout) f32.
     In bf16 Cin is 64 or 128 and x starts on a 16-byte boundary (its rows
@@ -189,11 +204,7 @@ def dense_relu_max(x, w, b, cdt):
     _check_widths("dense_relu_max", cin, cout)
     grid = 0
     if cdt == torch.bfloat16:
-        if cin not in (64, 128):
-            raise ValueError(f"dense_relu_max: the bf16 kernel takes 64 or 128 input channels "
-                             f"(its A registers), got {cin}")
-        if x.data_ptr() % 16:
-            raise ValueError("dense_relu_max: x must start on a 16-byte boundary (16-byte copies)")
+        check_k2_bf16("dense_relu_max", x, cin)
         grid, _ = stn_tail_grid(N, cout, _sm_count(x.device.index),
                                 _lib().catre_stn_tail_chunks())
     out = torch.empty(N, cout, device=x.device, dtype=torch.float32)

@@ -43,7 +43,12 @@ unsigned 32-bit key, value above the row (`argmax_key`), and the largest key
 per (cloud, channel) is the max and its lowest tied row, whatever order the
 kernel folds them in. `max_argmax_keyed` is the plain version of that fold,
 for the tests and the card checks; on the CPU the wrapper runs
-`dense_relu_dense_max_fwd_plain`.
+`dense_relu_dense_max_fwd_plain`. The bf16 K5 forward is likewise K2's
+persistent `wgmma` body (`csrc/encoder_stn_tail_wgmma.cuh` with kIdx) on K2's
+limits (`encoder_epilogue.check_k2_bf16`, its grid `stn_tail_grid`) and at
+most `ARGMAX_MAX_ROWS` points; its keys are built after the ReLU, where the
+bf16 bits of a value at or above +0 order it without an order image, and
+`dense_relu_max_fwd_keyed_plain` is the plain version of its fold.
 
 The bf16 K6 backward (`csrc/encoder_tail_bwd_wgmma.cuh`) takes cin 64 or
 128, chid and cout multiples of 128 that fit its shared memory, and x on a
@@ -61,7 +66,8 @@ import torch
 
 from ..models.layers import dense
 from . import _build
-from .encoder_epilogue import _check_widths, _sm_count, check_k1_bf16, pack_panels
+from .encoder_epilogue import (_check_widths, _sm_count, check_k1_bf16, check_k2_bf16,
+                               pack_panels, stn_tail_grid)
 
 LAUNCHES = {"dense_relu_max_train_fwd": 0, "dense_relu_max_train_bwd": 0,
             "dense_relu_dense_max_train_fwd": 0, "dense_relu_dense_max_train_bwd": 0}
@@ -138,6 +144,13 @@ def _route(rows, idx, P):
 def dense_relu_max_fwd_plain(x, w, b, cdt):
     """Plain K5 forward: materialises the (N, P, Cout) activation."""
     return max_argmax(dense(x, w, b, cdt, act=True))
+
+
+def dense_relu_max_fwd_keyed_plain(x, w, b, cdt):
+    """Plain version of the bf16 K5 forward's fold, for tests and checks:
+    the ReLU'd rounded activation keyed and folded as `max_argmax_keyed`
+    does. P <= ARGMAX_MAX_ROWS."""
+    return max_argmax_keyed(dense(x, w, b, cdt, act=True))
 
 
 def dense_relu_max_bwd_plain(x, w, b, idx, d_out, cdt):
@@ -232,7 +245,7 @@ def dense_relu_dense_max_bwd_critical_plain(x, w3, b3, w4, b4, idx, d_out, cdt):
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("encoder_epilogue_train")
-    lib.catre_dense_relu_max_train_fwd.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+    lib.catre_dense_relu_max_train_fwd.argtypes = [_P] * 5 + [_I] * 6 + [_P]
     lib.catre_dense_relu_dense_max_train_fwd.argtypes = [_P] * 7 + [_I] * 6 + [_P]
     lib.catre_dense_relu_max_train_bwd.argtypes = [_P] * 11 + [_I] * 7 + [_P]
     lib.catre_dense_relu_dense_max_train_bwd.argtypes = [_P] + [_I] * 11 + [_P]
@@ -242,7 +255,8 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.catre_dense_relu_max_train_fwd, lib.catre_dense_relu_dense_max_train_fwd,
                lib.catre_dense_relu_max_train_bwd, lib.catre_dense_relu_dense_max_train_bwd,
                lib.catre_dense_relu_dense_max_train_bwd_slots, lib.catre_k6_bwd_smem,
-               lib.catre_k6_route_stride, lib.catre_tail_smem):
+               lib.catre_k6_route_stride, lib.catre_tail_smem, lib.catre_k5_fwd_chunks,
+               lib.catre_k5_fwd_smem):
         fn.restype = _I
     if lib.catre_dense_relu_dense_max_train_bwd_slots() != len(K6_BWD_SLOTS):
         raise _build.KernelBuildError(
@@ -289,9 +303,17 @@ def _check_routing(name, P, cout):
         raise ValueError(f"{name}: P x Cout = {P} x {cout} overflows the routing keys")
 
 
+def _check_argmax_rows(name, P):
+    if not 1 <= P <= ARGMAX_MAX_ROWS:
+        raise ValueError(f"{name}: the bf16 kernel's argmax keys hold rows 0 .. "
+                         f"{ARGMAX_MAX_ROWS - 1}, got P = {P}")
+
+
 def dense_relu_max_fwd(x, w, b, cdt):
     """K5 forward: x (N, P, Cin) in cdt, w (Cout, Cin), b (Cout) ->
-    (max over P of relu(x @ w^T + b) (N, Cout) f32, idx (N, Cout) int32)."""
+    (max over P of relu(x @ w^T + b) (N, Cout) f32, idx (N, Cout) int32). In
+    bf16 on the card: K2's limits (Cin 64 or 128, x on a 16-byte boundary)
+    and 1 <= P <= ARGMAX_MAX_ROWS."""
     if x.device.type == "cpu":
         return dense_relu_max_fwd_plain(x, w, b, cdt)
     name = "dense_relu_max_train_fwd"
@@ -301,11 +323,16 @@ def dense_relu_max_fwd(x, w, b, cdt):
     _operands(name, x, cdt, [(w, (cout, cin)), (b, (cout,))])
     _check_widths(name, cin, cout)
     (wc,), (bc,) = _cast(x, cdt, [w], [b])
+    grid = 0
+    if cdt == torch.bfloat16:
+        check_k2_bf16(name, x, cin)
+        _check_argmax_rows(name, P)
+        grid, _ = stn_tail_grid(N, cout, _sm_count(x.device.index), _lib().catre_k5_fwd_chunks())
     out = torch.empty(N, cout, device=x.device, dtype=torch.float32)
     idx = torch.empty(N, cout, device=x.device, dtype=torch.int32)
     rc = _lib().catre_dense_relu_max_train_fwd(
         x.data_ptr(), wc.data_ptr(), bc.data_ptr(), out.data_ptr(), idx.data_ptr(), N, P, cin,
-        cout, int(cdt == torch.bfloat16), _build.stream_handle(x.device))
+        cout, int(cdt == torch.bfloat16), grid, _build.stream_handle(x.device))
     _build.check(rc, name)
     LAUNCHES[name] += 1
     return out, idx
@@ -327,9 +354,7 @@ def dense_relu_dense_max_fwd(x, w3, b3, w4, b4, cdt):
     (w3c, w4c), (b3c, b4c) = _cast(x, cdt, [w3, w4], [b3, b4])
     if cdt == torch.bfloat16:
         check_k1_bf16(name, x, cin, chid, cout)
-        if not 1 <= P <= ARGMAX_MAX_ROWS:
-            raise ValueError(f"{name}: the bf16 kernel's argmax keys hold rows 0 .. "
-                             f"{ARGMAX_MAX_ROWS - 1}, got P = {P}")
+        _check_argmax_rows(name, P)
         w3c, w4c = pack_panels(w3c), pack_panels(w4c)
     out = torch.empty(N, cout, device=x.device, dtype=torch.float32)
     idx = torch.empty(N, cout, device=x.device, dtype=torch.int32)

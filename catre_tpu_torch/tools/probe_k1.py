@@ -37,8 +37,8 @@ from ..ops import encoder_epilogue as enc_ops
 from ..ops import encoder_epilogue_train as train_ops
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}     # x max(1, max|plain|), as chip_smoke.py
-KERNELS = ("dense_relu_dense_max_wgmma", "dense_relu_dense_max_kernelIfLb0")
-K6F_KERNELS = ("dense_relu_dense_max_wgmmaILi8ELb1E", "dense_relu_dense_max_kernelIfLb1")
+KERNELS = ("dense_relu_dense_max_wgmma", "dense_relu_dense_max_kernelILb0")
+K6F_KERNELS = ("dense_relu_dense_max_wgmmaILi8ELb1E", "dense_relu_dense_max_kernelILb1")
 SKIP_W4 = "CATRE_K1_SKIP_W4_LOADS"
 BARE_FOLD = "CATRE_K6F_BARE_FOLD"
 TRAIN_CLOUDS = 1024          # the train step's clouds per K6 forward (2 x B = 512)

@@ -15,8 +15,12 @@ launches and share. A second profiled step records input shapes and lists
 the library matrix products (`aten::mm`, `addmm`, `bmm`, `baddbmm`) by
 shape, so that one can see which products did not go through a kernel of
 this package: with K5/K6 on, none has a tail's shape (128 -> 1024,
-128 -> 512 or 512 -> 1024 over all N x P point rows). `--trace` writes the
-Chrome trace of the first step.
+128 -> 512 or 512 -> 1024 over all N x P point rows). With K5/K6 on it also
+splits the K5 backward's device time in the first profiled step by its
+kernels, read off the timeline: `relu_max_bwd_cloud`, `relu_max_bwd_weight`,
+the two `sum_rows` launches that follow (dW, then db), and the kernel after
+them, the cast of dx from f32 to x's dtype in `DenseReluMaxTrain.backward`.
+`--trace` writes the Chrome trace of the first step.
 """
 
 from __future__ import annotations
@@ -72,6 +76,34 @@ def print_products(prof, top: int) -> None:
         print(f"{device_us(e) / 1e3:10.3f} {e.count:8d}  {e.key} {e.input_shapes}")
 
 
+def print_k5_backward(prof) -> None:
+    """The K5 backward's launches in the step's timeline: each
+    `relu_max_bwd_weight` is followed by its two `sum_rows` (dW, db) and then
+    the dx cast; -> device ms summed over the step's K5 backwards."""
+    timeline = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+    parts = dict.fromkeys(("relu_max_bwd_cloud", "relu_max_bwd_weight", "sum_rows dW",
+                           "sum_rows db", "dx cast"), 0.0)
+    launches = 0
+    for i, e in enumerate(timeline):
+        if "relu_max_bwd_cloud" in e.name:
+            parts["relu_max_bwd_cloud"] += e.time_range.elapsed_us()
+        elif "relu_max_bwd_weight" in e.name:
+            launches += 1
+            parts["relu_max_bwd_weight"] += e.time_range.elapsed_us()
+            after = timeline[i + 1:i + 4]
+            if [("sum_rows" in a.name) for a in after[:2]] != [True, True] or len(after) < 3:
+                print(f"K5 backward: unexpected kernels after relu_max_bwd_weight: "
+                      f"{[a.name[:40] for a in after]}")
+                return
+            parts["sum_rows dW"] += after[0].time_range.elapsed_us()
+            parts["sum_rows db"] += after[1].time_range.elapsed_us()
+            if "copy" in after[2].name:
+                parts["dx cast"] += after[2].time_range.elapsed_us()
+    print(f"K5 backward, {launches} launches in the step, device ms: "
+          + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in parts.items()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=512)
@@ -121,6 +153,8 @@ def main(argv=None) -> int:
             ms = (device_us(e) if e.device_type == DeviceType.CUDA else e.cpu_time_total) / 1e3
             print(f"range {e.key}: calls {e.count}, {side} {ms:.3f} ms")
     print_kernels(kernels, args.top)
+    if not args.plain_encoder:
+        print_k5_backward(prof)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t.state, _ = t.step(t.state, t.batch, t.generator, t.lr)

@@ -46,7 +46,9 @@ code is non-zero):
                bit-equal to the plain version's on exact-integer operands (x
                in {0, 1, 2}, weights in {-2 .. 2}) at P = 1024 and 1000 in f32
                and bf16, and in bf16 six launches bit-equal at the main path's
-               shape; the bf16 K6 backward also vs the plain
+               shape; the same for the K5 forward (K2's kernel with the keyed
+               fold), with a quarter of the channels negative on every row
+               before the ReLU (idx 0); the bf16 K6 backward also vs the plain
                version of its own order (critical rows only), six launches
                bit-equal, P = 1000 in f32 and bf16 vs both plain versions, and
                its allocation beyond its outputs;
@@ -89,8 +91,9 @@ TAIL_REPEATS = 5             # further launches of K1 / K2 that must give the fi
 TAIL_RAGGED = 1000           # points that K1's and K2's 128-point tile does not divide
 K1_KERNEL = "dense_relu_dense_max_wgmmaILi8"   # the bf16 K1 at cin = 128, as ptxas names it
 K6F_KERNEL = "dense_relu_dense_max_wgmmaILi8ELb1E"   # K1's body with kIdx: the bf16 K6 forward
-K6F_INT_CLOUDS = 128         # clouds of the K6 forward's exact-integer idx gate
-K6F_REPEATS = 5              # further launches of the bf16 K6 forward that must give the first one's bits
+ARGMAX_INT_CLOUDS = 128      # clouds of the K5 / K6 forwards' exact-integer idx gates
+ARGMAX_REPEATS = 5           # further launches of the bf16 K5 / K6 forwards that must give the first one's bits
+K5F_KERNEL = "dense_relu_max_wgmmaILi8ELi2ELb1E"    # K2's body with kIdx: the bf16 K5 forward
 K2_KERNEL = "dense_relu_max_wgmmaILi8E"       # the bf16 K2 at cin = 128, as ptxas names it
 K6B_KERNELS = ("route_clouds", "cloud_passILi8E", "dw3_passILi8E", "dw4_passILi8E")  # bf16, cin 128
 K6B_REPEATS = 5              # further launches of the bf16 K6 backward that must give the first one's bits
@@ -517,7 +520,7 @@ def check_k6_fwd_design(enc, dev, n_clouds, n_pts):
     ws = [t.detach() for layer in (enc.conv3, enc.conv4) for t in (layer.weight, layer.bias)]
     chid, cout = ws[0].shape[0], ws[2].shape[0]
     ints = torch.Generator(device="cuda").manual_seed(6)     # its own: `gen` keeps its sequence
-    x_int = torch.randint(0, 3, (K6F_INT_CLOUDS, n_pts, 128), device=dev, generator=ints).float()
+    x_int = torch.randint(0, 3, (ARGMAX_INT_CLOUDS, n_pts, 128), device=dev, generator=ints).float()
     w_int = [torch.randint(lo, hi, shape, device=dev, generator=ints).float()
              for lo, hi, shape in ((-2, 3, (chid, 128)), (-8, 9, (chid,)), (-2, 3, (cout, chid)),
                                    (-8, 9, (cout,)))]
@@ -533,7 +536,7 @@ def check_k6_fwd_design(enc, dev, n_clouds, n_pts):
                 acc = torch.nn.functional.linear(h3.float(), w_int[2])     # exact: integers
                 bare = (plain[1] != acc.argmax(dim=1)).sum().item()
                 del h3, acc
-                log("K5K6", f"K6 fwd {str(cdt)[6:]} integer operands N={K6F_INT_CLOUDS} P={p}: "
+                log("K5K6", f"K6 fwd {str(cdt)[6:]} integer operands N={ARGMAX_INT_CLOUDS} P={p}: "
                             f"idx differs from the plain version's at {(idx != plain[1]).sum().item()} "
                             f"of {idx.numel()}, from the keyed plain fold's at "
                             f"{(idx != keyed[1]).sum().item()}; out equal {torch.equal(out, plain[0])}; "
@@ -546,15 +549,70 @@ def check_k6_fwd_design(enc, dev, n_clouds, n_pts):
                 del x, h, plain, keyed
         x = torch.relu(torch.randn(n_clouds, n_pts, 128, device=dev, generator=ints)).bfloat16()
         first = tt.dense_relu_dense_max_fwd(x, *ws, torch.bfloat16)
-        for _ in range(K6F_REPEATS):
+        for _ in range(ARGMAX_REPEATS):
             again = tt.dense_relu_dense_max_fwd(x, *ws, torch.bfloat16)
             if not (torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])):
                 raise RuntimeError("K6 fwd bf16: two launches on the same inputs differ")
-        log("K5K6", f"K6 fwd bf16 N={n_clouds}: {1 + K6F_REPEATS} launches on the same inputs "
+        log("K5K6", f"K6 fwd bf16 N={n_clouds}: {1 + ARGMAX_REPEATS} launches on the same inputs "
                     "bit-equal, out and idx")
     report = _build.ptxas_report("encoder_epilogue_train", K6F_KERNEL)
     report["shared_memory"] = tt._lib().catre_tail_smem(chid, cout)
     log("K5K6", f"K6 fwd bf16 kernel {K6F_KERNEL}: {report}")
+    return report
+
+
+def check_k5_fwd_design(enc, dev, n_clouds, n_pts):
+    """What the bf16 K5 forward (K2's kernel with the keyed fold after the
+    ReLU, `csrc/encoder_stn_tail_wgmma.cuh`) has to show beyond
+    `check_argmax`: on exact-integer operands, with every fourth channel's
+    weights at or below 0 and its bias at -50 (every row negative before the
+    ReLU, so all tie at 0 and idx is 0), out and idx bit-equal to the plain
+    version's (and in bf16 to the plain version of the keyed fold), out
+    bit-equal to K2, at P = n_pts and TAIL_RAGGED, in f32 and bf16; six
+    launches on the main path's inputs bit-equal in out and idx. -> ptxas'
+    report and the dynamic shared memory of the kernel."""
+    from catre_tpu_torch.ops import _build
+    from catre_tpu_torch.ops import encoder_epilogue as enc_ops
+    from catre_tpu_torch.ops import encoder_epilogue_train as tt
+
+    ws = [enc.stn.conv3.weight.detach(), enc.stn.conv3.bias.detach()]
+    cout = ws[0].shape[0]
+    ints = torch.Generator(device="cuda").manual_seed(5)     # its own: `gen` keeps its sequence
+    x_int = torch.randint(0, 3, (ARGMAX_INT_CLOUDS, n_pts, 128), device=dev, generator=ints).float()
+    w_int = torch.randint(-2, 3, (cout, 128), device=dev, generator=ints).float()
+    b_int = torch.randint(-8, 9, (cout,), device=dev, generator=ints).float()
+    w_int[::4], b_int[::4] = -w_int[::4].abs(), -50.0
+    with torch.no_grad():
+        for cdt in TOL:
+            for p in (n_pts, TAIL_RAGGED):
+                x = x_int[:, :p].to(cdt).contiguous()
+                out, idx = tt.dense_relu_max_fwd(x, w_int, b_int, cdt)
+                plain = tt.dense_relu_max_fwd_plain(x, w_int, b_int, cdt)
+                keyed = (tt.dense_relu_max_fwd_keyed_plain(x, w_int, b_int, cdt)
+                         if cdt == torch.bfloat16 else plain)
+                dead = bool((idx[:, ::4] == 0).all())
+                log("K5K6", f"K5 fwd {str(cdt)[6:]} integer operands N={ARGMAX_INT_CLOUDS} P={p}: "
+                            f"idx differs from the plain version's at {(idx != plain[1]).sum().item()} "
+                            f"of {idx.numel()}, from the keyed plain fold's at "
+                            f"{(idx != keyed[1]).sum().item()}; out equal {torch.equal(out, plain[0])}; "
+                            f"channels negative on every row all idx 0 {dead}")
+                if not (torch.equal(idx, plain[1]) and torch.equal(idx, keyed[1])
+                        and torch.equal(out, plain[0]) and torch.equal(out, keyed[0]) and dead
+                        and torch.equal(out, enc_ops.dense_relu_max(x, w_int, b_int, cdt))):
+                    raise RuntimeError(f"K5 fwd {cdt} P={p}: out / idx not the plain version's on "
+                                       "exact-integer operands")
+                del x, plain, keyed
+        x = torch.relu(torch.randn(n_clouds, n_pts, 128, device=dev, generator=ints)).bfloat16()
+        first = tt.dense_relu_max_fwd(x, *ws, torch.bfloat16)
+        for _ in range(ARGMAX_REPEATS):
+            again = tt.dense_relu_max_fwd(x, *ws, torch.bfloat16)
+            if not (torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])):
+                raise RuntimeError("K5 fwd bf16: two launches on the same inputs differ")
+        log("K5K6", f"K5 fwd bf16 N={n_clouds}: {1 + ARGMAX_REPEATS} launches on the same inputs "
+                    "bit-equal, out and idx")
+    report = _build.ptxas_report("encoder_epilogue_train", K5F_KERNEL)
+    report["shared_memory"] = tt._lib().catre_k5_fwd_smem()
+    log("K5K6", f"K5 fwd bf16 kernel {K5F_KERNEL}: {report}")
     return report
 
 
@@ -952,6 +1010,7 @@ def main():
     # ---- 6b. K5 and K6 vs their plain versions, forward and backward
     results.update(check_train_tails(enc, dev, gen, 2 * TRAIN_B, cfg.num_pcl))
     results["K6 fwd"].update(check_k6_fwd_design(enc, dev, 2 * TRAIN_B, cfg.num_pcl))
+    results["K5 fwd"].update(check_k5_fwd_design(enc, dev, 2 * TRAIN_B, cfg.num_pcl))
     results["K6 bwd"].update(check_k6_bwd_design(enc, dev, gen, 2 * TRAIN_B, cfg.num_pcl))
 
     # ---- 7. the training main path, through the port's entry point, at the shipped
@@ -1010,7 +1069,7 @@ def main():
              replaces="catre_tpu/ops/pallas_heads_vjp.py:100",
              launches=launches["rot_head_bwd"], **results["K4"]),
         dict(name="K5 dense_relu_max_train_fwd", route="cuda",
-             source=src + "encoder_epilogue_train.cu", replaces=vjp + "67",
+             source=src + "encoder_stn_tail_wgmma.cuh", replaces=vjp + "67",
              launches=launches["dense_relu_max_train_fwd"], **results["K5 fwd"]),
         dict(name="K5 dense_relu_max_train_bwd", route="cuda",
              source=src + "encoder_epilogue_train.cu", replaces=vjp + "77",

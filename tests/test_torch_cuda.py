@@ -1,8 +1,8 @@
 """CUDA kernels K1-K9 vs their plain PyTorch versions on the card (the bf16
 builds of K1 and K2 also vs the plain versions of their own order, relaunched
-bit-equal; the K6 forward's idx bit-equal to the plain version's on
+bit-equal; the K6 and K5 forwards' idx bit-equal to the plain version's on
 exact-integer operands, with ties at -0 / +0, relaunched bit-equal, and what
-its bf16 build refuses; the bf16 K6 backward also vs its critical-row plain
+their bf16 builds refuse; the bf16 K6 backward also vs its critical-row plain
 version, with its dx zero off the critical rows, its refused widths and its
 scratch), the inference kernels' refusal of a differentiable call, and a train
 step's launch counts.
@@ -150,8 +150,9 @@ def test_dense_relu_max_bf16_launches_are_bit_equal(dev):
 
 @pytest.mark.parametrize("cdt", DTYPES)
 def test_dense_relu_max_train_forward_is_bit_equal_to_k2(dev, cdt):
-    """The K5 forward (per-row rounding, `mma.sync`) and K2 (the bare
-    accumulator's max, `wgmma` in bf16) give the same bits."""
+    """The K5 forward (per-row rounding, in bf16 K2's `wgmma` kernel with the
+    keyed fold) and K2 (the bare accumulator's max in bf16) give the same
+    bits."""
     x, ws = _k2_case(9, 8, 1000, dev, cdt)
     with torch.no_grad():
         out, _ = tail_ops.dense_relu_max_fwd(x, *ws, cdt)
@@ -695,6 +696,124 @@ def test_k6_fwd_bf16_refuses_what_it_does_not_take(dev):
         tail_ops.dense_relu_dense_max_fwd(x, ws[0].clone().requires_grad_(), *ws[1:], bf)
     out, _ = tail_ops.dense_relu_dense_max_fwd(x.float(), *ws, torch.float32)   # f32 takes it
     assert out.shape == (2, 1024)
+
+
+def _k5_int_case(seed, n, p, dev, cdt, widths=(128, 1024), twice=False):
+    """Exact-integer K5 operands (x in {0, 1, 2}, weights in {-2 .. 2}, integer
+    biases: every f32 sum exact in any order), every fourth channel with
+    weights at or below 0 and a bias of -50: negative on every row before the
+    ReLU, so every row ties at 0 and idx is 0."""
+    gen = torch.Generator().manual_seed(seed)
+    cin, cout = widths
+    x = torch.randint(0, 3, (n, p, cin), generator=gen).float()
+    if twice:
+        x[:, p // 2:2 * (p // 2)] = x[:, :p // 2]
+    w = torch.randint(-2, 3, (cout, cin), generator=gen).float()
+    b = torch.randint(-8, 9, (cout,), generator=gen).float()
+    w[::4], b[::4] = -w[::4].abs(), -50.0
+    return x.to(dev, cdt), [w.to(dev), b.to(dev)]
+
+
+@pytest.mark.parametrize("cdt", DTYPES)
+@pytest.mark.parametrize("n,p,widths,twice", [
+    (8, 1024, (128, 1024), False), (8, 1000, (128, 1024), False), (6, 100, (128, 1024), True),
+    (5, 40, (128, 1024), False), (20, 1000, (64, 640), False)])
+def test_k5_fwd_idx_is_exact_on_integer_operands(dev, cdt, n, p, widths, twice):
+    """The K5 forward (bf16: K2's `wgmma` kernel with the keyed fold after the
+    ReLU) on operands whose sums are exact: out and idx bit-equal to the plain
+    version's (bf16: also to the plain version of the keyed fold), out
+    bit-equal to K2, idx 0 where every row is negative before the ReLU, the
+    lower of two equal points."""
+    x, ws = _k5_int_case(600 + n + p, n, p, dev, cdt, widths, twice)
+    before = tail_ops.LAUNCHES["dense_relu_max_train_fwd"]
+    with torch.no_grad():
+        out, idx = tail_ops.dense_relu_max_fwd(x, *ws, cdt)
+        assert tail_ops.LAUNCHES["dense_relu_max_train_fwd"] == before + 1
+        out_p, idx_p = tail_ops.dense_relu_max_fwd_plain(x, *ws, cdt)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, idx_p) and torch.equal(out, out_p)
+        assert torch.equal(out, enc_ops.dense_relu_max(x, *ws, cdt))
+        assert (idx[:, ::4] == 0).all() and (out[:, ::4] == 0).all()
+        if cdt == torch.bfloat16:
+            keyed = tail_ops.dense_relu_max_fwd_keyed_plain(x, *ws, cdt)
+            assert torch.equal(keyed[0], out) and torch.equal(keyed[1], idx)
+        if twice:
+            assert idx.max() < p // 2
+
+
+@pytest.mark.parametrize("p", [1024, 1000, 40])
+def test_k5_fwd_bf16_vs_both_plain_versions(dev, p):
+    """Random operands: out bit-equal to K2 and within the bf16 tolerance of
+    the per-row plain version and of K2's folded plain version; idx as the
+    plain one's but where the kernel's and the library's sums round apart,
+    and there the plain activation at the kernel's row holds the plain max."""
+    x, ws = _k2_case(700 + p, 8, p, dev, torch.bfloat16)
+    bf = torch.bfloat16
+    with torch.no_grad():
+        out, idx = tail_ops.dense_relu_max_fwd(x, *ws, bf)
+        h = dense(x, *ws, bf, act=True).float()
+        out_p, idx_p = tail_ops.dense_relu_max_fwd_keyed_plain(x, *ws, bf)
+        assert all(torch.equal(a, b) for a, b in zip((out_p, idx_p), tail_ops.max_argmax(h)))
+        assert torch.equal(out, enc_ops.dense_relu_max(x, *ws, bf))
+        _assert_close(out, out_p, bf)
+        _assert_close(out, enc_ops.dense_relu_max_folded_twin(x, *ws, bf), bf)
+        assert idx.min() >= 0 and idx.max() < p
+        assert (idx != idx_p).float().mean().item() < 1e-2
+        _assert_close(h.gather(1, idx.long()[:, None, :])[:, 0], out_p, bf)
+
+
+def test_k5_fwd_bf16_six_launches_are_bit_equal(dev):
+    x, ws = _k5_int_case(8, 300, 1000, dev, torch.bfloat16)
+    with torch.no_grad():
+        first = tail_ops.dense_relu_max_fwd(x, *ws, torch.bfloat16)
+        for _ in range(5):
+            again = tail_ops.dense_relu_max_fwd(x, *ws, torch.bfloat16)
+            assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+def test_k5_fwd_bf16_keys_minus_zero_as_plus_zero(dev):
+    """Channel 0 of cloud 0: row 3's product is -2^-140, which rounds to -0 in
+    bf16 (b = -0 keeps the sign), row 7 is +1, every other row -1: row 7 wins,
+    a -0 keyed by its raw bits would beat it. Channel 1: every row at or
+    below 0, row 0 among them: idx 0. (Where the tensor cores flush the tiny
+    product, row 3 is a zero of either sign and the check still holds.)"""
+    n, p, cin, cout = 2, 40, 64, 128
+    t = 2.0 ** -70
+    x = torch.zeros(n, p, cin)
+    x[:, :, 2] = 1.0
+    x[0, 3, 2], x[0, 3, 0] = 0.0, t
+    x[0, 7, 2], x[0, 7, 1] = 0.0, 1.0
+    w = torch.zeros(cout, cin)
+    w[0, 0], w[0, 1], w[0, 2] = -t, 1.0, -1.0
+    w[1, 0], w[1, 2] = -t, -1.0
+    b = torch.zeros(cout)
+    b[:2] = -0.0
+    ws = [w.to(dev), b.to(dev)]
+    bf = torch.bfloat16
+    with torch.no_grad():
+        out, idx = tail_ops.dense_relu_max_fwd(x.to(dev, bf), *ws, bf)
+        torch.cuda.synchronize()
+        assert idx[0, 0] == 7 and out[0, 0] == 1.0 and idx[0, 1] == 0 and out[0, 1] == 0
+        assert torch.equal(idx, tail_ops.dense_relu_max_fwd_plain(x, w, b, bf)[1].to(dev))
+
+
+def test_k5_fwd_bf16_refuses_what_it_does_not_take(dev):
+    bf = torch.bfloat16
+    x, ws = _k5_int_case(0, 2, 64, dev, bf, (192, 1024))
+    with pytest.raises(ValueError, match="64 or 128"):
+        tail_ops.dense_relu_max_fwd(x, *ws, bf)
+    out, _ = tail_ops.dense_relu_max_fwd(x.float(), *ws, torch.float32)   # the f32 build takes it
+    assert out.shape == (2, 1024)
+    x, ws = _k5_int_case(1, 1, tail_ops.ARGMAX_MAX_ROWS + 64, dev, bf, (64, 128))
+    with pytest.raises(ValueError, match="argmax keys"):
+        tail_ops.dense_relu_max_fwd(x, *ws, bf)
+    x, ws = _k5_int_case(2, 2, 64, dev, bf)
+    with pytest.raises(ValueError, match="16-byte"):
+        tail_ops.dense_relu_max_fwd(_misaligned(x), *ws, bf)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tail_ops.dense_relu_max_fwd(x, ws[0].clone().requires_grad_(), ws[1], bf)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tail_ops.dense_relu_max_fwd(x.float().requires_grad_(), *ws, torch.float32)
 
 
 @pytest.mark.parametrize("fused_encoder_train", [True, False])
