@@ -304,15 +304,21 @@ __device__ __forceinline__ void acc_col_reduce(const Acc<MI>& acc, Op op, F valu
     }
 }
 
-// Ask for more than 48 KB of dynamic shared memory, then launch; returns the
-// first CUDA error.
+// Ask for more than 48 KB of dynamic shared memory, then launch blocks of
+// `threads` threads; returns the first CUDA error.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
+int launch_threads(Kernel kernel, dim3 grid, int threads, size_t smem, void* stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same with blocks of kThreads threads, as every kernel here but one takes.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
+  return launch_threads(kernel, grid, kThreads, smem, stream, args...);
 }
 
 }  // namespace catre

@@ -30,21 +30,24 @@
 //       dW4[c] = sum_n d4[n, c] round_T(relu(h3p[n, idx[n, c]])).
 // Rows of dx that no channel points at are written as zero.
 //
-// What bounds it on the card: bytes. K5 backward must write dx (N P cin f32,
-// 512 MB at N = P = 1024) and read x once (256 MB): 0.25 ms at 3.35 TB/s,
-// against 0.4 GMAC of arithmetic. K6 backward does about 0.2 TFLOP on the
-// critical rows (tensor cores) beside the same bytes.
+// What bounds it on the card: bytes. K5 backward must write dx (N P cin, 268
+// MB in bf16 at N = P = 1024) and read the argmax rows of x once (139 MB):
+// 0.124 ms at 3.35 TB/s, against 0.4 GMAC of arithmetic. K6 backward does
+// about 0.2 TFLOP on the critical rows (tensor cores) beside the same bytes.
 //
 // Design.
-//   routing: one block per cloud sorts its live channels (d != 0) by
-//     (row, channel) with a bitonic sort of the keys row * cout + c in shared
-//     memory and cuts the sorted list into one segment per critical row. The
-//     segments give every sum over {c: idx = p} a fixed order: no float
-//     atomics, two launches give the same bits.
-//   K5 backward: (1) per cloud: gate (a warp per channel, dot of length
-//     cin), route, zero dx, then a warp per critical row adds its segment's
-//     d W[c]; d goes to an (N, cout) scratch. (2) a warp per (channel, group
-//     of clouds) gathers the argmax rows of x and adds them weighted by d:
+//   routing: one block per cloud orders its live channels (d != 0) by
+//     (row, channel) and cuts the list into one segment per critical row (the
+//     f32 bodies by a bitonic sort of the keys row * cout + c in shared
+//     memory, the bf16 builds' routing pass `route_clouds` by a counting sort
+//     by row). The segments give every sum over {c: idx = p} a fixed order: no
+//     float atomics, two launches give the same bits.
+//   K5 backward, f32 (the bf16 build is encoder_stn_tail_bwd.cuh: a gate and
+//     dW pass, `route_clouds` on the gated d, a dx pass that writes bf16 rows
+//     in order): (1) per cloud: gate (a warp per channel, dot of length cin),
+//     route, zero dx, then a warp per critical row adds its segment's d W[c];
+//     d goes to an (N, cout) scratch. (2) a warp per (channel, group of
+//     clouds) gathers the argmax rows of x and adds them weighted by d:
 //     per-group partials of dW and db, summed in order by sum_rows.
 //   K6 backward, f32 (the bf16 build is encoder_tail_bwd_wgmma.cuh, after a
 //     routing pass `route_clouds` that writes each cloud's sorted keys once):
@@ -60,8 +63,11 @@
 //     the split-K product_tn over all N P rows (gemm_tn.cuh); D is zero on
 //     the rows that are not critical.
 // T = bf16 rounds d, d4, h3 and d_h3 to bf16 as the Pallas kernels do (f32
-// accumulation); T = float is exact FMA, for tight checks on the card.
+// accumulation); T = float is exact FMA, for tight checks on the card. Both
+// bf16 backwards write dx in bf16, each element rounded once from its f32
+// sum, as the Pallas wrappers cast the kernels' f32 dx to x's dtype.
 #include "encoder_epilogue.cuh"
+#include "encoder_stn_tail_bwd.cuh"
 #include "encoder_stn_tail_wgmma.cuh"
 #include "encoder_tail_bwd_wgmma.cuh"
 #include "encoder_tail_wgmma.cuh"
@@ -77,9 +83,6 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -147,34 +150,110 @@ constexpr size_t route_bytes(int cout, int cout2) {
   return sizeof(int) * (static_cast<size_t>(cout2) + cout + 32 + cout);
 }
 
-// The bf16 K6 backward's routing pass: one block per cloud sorts its live
-// keys (d4 = round(d_out) != 0) and writes them to the routing buffer as
-// tailbwd::CloudRoute reads it: channels in (row, channel) order with their
-// d4, segment starts, critical rows, their count.
+// The bf16 backwards' routing pass (K6: on d4 = round(d_out); K5: on the
+// gated d): one block per cloud writes its live keys (round(d) != 0) in (row,
+// channel) order to the routing buffer as tailbwd::CloudRoute reads it:
+// channels with their d, segment starts, critical rows, their count. A
+// counting sort by row, kRouteRows rows at a time: a histogram of the live
+// channels' rows (integer atomics: the counts do not depend on their order),
+// one scan that gives each row its first key and each critical row its index,
+// then warp 0 places the channels 32 at a time in channel order, ranking
+// equal rows by __match_any_sync. The order is (row, channel) however the
+// threads run. Shared memory: [counts, then cursors (kRouteRows) | each
+// channel's row or -1 (cout) | its d (cout)].
+constexpr int kRouteRows = 1024;
+
+constexpr size_t route_smem_bytes(int cout) {
+  return sizeof(int) * (static_cast<size_t>(kRouteRows) + 2 * cout);
+}
+
 __global__ void __launch_bounds__(kThreads)
-route_clouds(const int* idx, const float* dout, int* route, int cout, int cout2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int n_rows;
-  int* keys = reinterpret_cast<int*>(smem);
-  int* seg = keys + cout2;
-  const int n = blockIdx.x, tid = threadIdx.x;
+route_clouds(const int* idx, const float* dout, int* route, int P, int cout) {
+  extern __shared__ __align__(16) int route_smem[];
+  int* hist = route_smem;
+  int* row_of = hist + kRouteRows;
+  float* d_of = reinterpret_cast<float*>(row_of + cout);
+  __shared__ unsigned warp_sums[kWarps];
+  __shared__ int base_keys, base_rows;      // keys and critical rows of the earlier tiles
+  constexpr int kPer = kRouteRows / kThreads;
+  const int n = blockIdx.x, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const size_t nc = static_cast<size_t>(n) * cout;
-  for (int c = tid; c < cout2; c += kThreads) {
-    int key = kNoKey;
-    if (c < cout && round_to<bf16>(dout[nc + c]) != 0.0f) key = idx[nc + c] * cout + c;
-    keys[c] = key;
-  }
-  sort_keys(keys, cout2);
-  segment_rows(keys, cout2, cout, seg, &n_rows);
   int* r = route + static_cast<size_t>(n) * tailbwd::route_stride(cout);
-  for (int j = tid; j < seg[n_rows]; j += kThreads) {
-    const int c = keys[j] % cout;
-    r[j] = c;
-    r[cout + j] = __float_as_int(round_to<bf16>(dout[nc + c]));
+  for (int c = tid; c < cout; c += kThreads) {
+    const float dv = round_to<bf16>(dout[nc + c]);
+    row_of[c] = dv != 0.0f ? idx[nc + c] : -1;
+    d_of[c] = dv;
   }
-  for (int i = tid; i <= n_rows; i += kThreads) r[2 * cout + i] = seg[i];
-  for (int i = tid; i < n_rows; i += kThreads) r[3 * cout + 1 + i] = keys[seg[i]] / cout;
-  if (tid == 0) r[4 * cout + 1] = n_rows;
+  if (tid == 0) base_keys = base_rows = 0;
+#pragma unroll 1
+  for (int t0 = 0; t0 < P; t0 += kRouteRows) {
+    for (int i = tid; i < kRouteRows; i += kThreads) hist[i] = 0;
+    __syncthreads();
+    for (int c = tid; c < cout; c += kThreads) {
+      const int row = row_of[c] - t0;
+      if (row_of[c] >= 0 && row >= 0 && row < kRouteRows) atomicAdd(&hist[row], 1);
+    }
+    __syncthreads();
+    // exclusive scan of (count << 16 | count > 0) over the tile's rows, kPer
+    // consecutive rows a thread: each row's first key, each critical row's index
+    unsigned pre[kPer], sum = 0;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const unsigned h = hist[tid * kPer + k];
+      pre[k] = sum;
+      sum += (h << 16) | (h > 0 ? 1u : 0u);
+    }
+    unsigned incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off *= 2) {
+      const unsigned y = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += y;
+    }
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    unsigned before = incl - sum;
+    for (int w = 0; w < warp; ++w) before += warp_sums[w];
+    const int bk = base_keys, br = base_rows;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int row = tid * kPer + k;
+      const unsigned e = before + pre[k];
+      const int first = bk + static_cast<int>(e >> 16);
+      if (hist[row] > 0) {
+        const int i = br + static_cast<int>(e & 0xFFFFu);
+        r[2 * cout + i] = first;          // seg
+        r[3 * cout + 1 + i] = t0 + row;   // rows
+      }
+      hist[row] = first;                  // from here on: the row's next key
+    }
+    __syncthreads();
+    if (tid == kThreads - 1) {
+      const unsigned total = before + sum;
+      base_keys = bk + static_cast<int>(total >> 16);
+      base_rows = br + static_cast<int>(total & 0xFFFFu);
+    }
+    if (warp == 0) {
+      for (int c0 = 0; c0 < cout; c0 += 32) {
+        const int c = c0 + lane;
+        int row = c < cout ? row_of[c] - t0 : -1;
+        if (c >= cout || row_of[c] < 0 || row < 0 || row >= kRouteRows) row = -1;
+        const unsigned same = __match_any_sync(kFull, row);
+        if (row >= 0) {
+          const int j = hist[row] + __popc(same & ((1u << lane) - 1u));
+          r[j] = c;
+          r[cout + j] = __float_as_int(d_of[c]);
+        }
+        __syncwarp();
+        if (row >= 0 && lane == __ffs(same) - 1) hist[row] += __popc(same);
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    r[2 * cout + base_rows] = base_keys;   // seg[count]: the live keys
+    r[4 * cout + 1] = base_rows;
+  }
 }
 
 template <typename V>
@@ -476,22 +555,46 @@ int sum_into(const float* part, float* out, int rows, int n, void* stream) {
   return launch(sum_rows, (n + kThreads - 1) / kThreads, 0, stream, part, out, rows, n);
 }
 
-template <typename T>
-int run_relu_max_bwd(const void* x, const void* w, const float* b, const int* idx,
-                     const float* dout, float* d_scratch, float* part_w, float* part_b, float* dx,
-                     float* dw, float* db, int n, int p, int cin, int cout, int cout2, int groups,
-                     void* stream) {
-  const T* xt = static_cast<const T*>(x);
-  int err = launch(relu_max_bwd_cloud<T>, n, route_bytes(cout, cout2), stream, xt,
-                   static_cast<const T*>(w), b, idx, dout, d_scratch, dx, p, cin, cout, cout2);
+// f32 (the tight checks' build): the per-cloud body and the weight pass above.
+int run_relu_max_bwd_f32(const float* x, const float* w, const float* b, const int* idx,
+                         const float* dout, float* d_scratch, float* part_w, float* part_b,
+                         float* dx, float* dw, float* db, int n, int p, int cin, int cout, int cout2,
+                         int groups, void* stream) {
+  int err = launch(relu_max_bwd_cloud<float>, n, route_bytes(cout, cout2), stream, x, w, b, idx,
+                   dout, d_scratch, dx, p, cin, cout, cout2);
   if (err) return err;
   const int chunk = (n + groups - 1) / groups;
-  err = launch(relu_max_bwd_weight<T>, dim3(cout / kWarps, groups), 0, stream, xt, idx,
+  err = launch(relu_max_bwd_weight<float>, dim3(cout / kWarps, groups), 0, stream, x, idx,
                static_cast<const float*>(d_scratch), part_w, part_b, n, p, cin, cout, chunk);
   if (err) return err;
   err = sum_into(part_w, dw, groups, cout * cin, stream);
   if (err) return err;
   return sum_into(part_b, db, groups, cout, stream);
+}
+
+// bf16 (encoder_stn_tail_bwd.cuh): the gate pass, its partials summed in
+// order, the routing pass on the gated d, the dx pass on `grid` persistent
+// blocks. The routing rows may share storage with the partials: they are
+// written only after the partials are summed.
+template <int KX>
+int run_relu_max_bwd_bf16(const bf16* x, const bf16* w, const float* b, const int* idx,
+                          const float* dout, float* d, float* part_w, float* part_b, int* route,
+                          bf16* dx, float* dw, float* db, int n, int p, int cout, int groups,
+                          int grid, void* stream) {
+  constexpr int kCin = 16 * KX;
+  int err = launch(stnbwd::gate_pass<KX>, dim3(cout / stnbwd::kGateChannels, groups),
+                   stnbwd::gate_smem_bytes<KX>(), stream, x, w, b, idx, dout, d, part_w, part_b, n,
+                   p, cout, (n + groups - 1) / groups);
+  if (err) return err;
+  err = sum_into(part_w, dw, groups, cout * kCin, stream);
+  if (err) return err;
+  err = sum_into(part_b, db, groups, cout, stream);
+  if (err) return err;
+  err = launch(route_clouds, n, route_smem_bytes(cout), stream, idx, static_cast<const float*>(d),
+               route, p, cout);
+  if (err) return err;
+  return launch_threads(stnbwd::dx_pass, grid, stnbwd::kDxThreads, stnbwd::dx_smem_bytes(cout),
+                        stream, w, static_cast<const int*>(route), dx, n, p, kCin, cout);
 }
 
 // Pointer slots of catre_dense_relu_dense_max_train_bwd, in the order of
@@ -537,7 +640,7 @@ int run_relu_dense_max_bwd(void* const* ptr, int n, int p, int cin, int cin_pad,
 // partials summed in order: dW4 and db4 over `groups` groups of clouds, dW3
 // and db3 over `splits`; the cloud pass runs `grid` persistent blocks.
 template <int KX>
-int run_relu_dense_max_bwd_wgmma(void* const* ptr, int n, int p, int chid, int cout, int cout2,
+int run_relu_dense_max_bwd_wgmma(void* const* ptr, int n, int p, int chid, int cout,
                                  int groups, int splits, int grid, void* stream) {
   constexpr int kCin = 16 * KX;
   auto f = [&](Slot s) { return static_cast<float*>(ptr[s]); };
@@ -548,11 +651,11 @@ int run_relu_dense_max_bwd_wgmma(void* const* ptr, int n, int p, int chid, int c
   const float* dout = f(DOUT);
   const int* idx = static_cast<const int*>(ptr[IDX]);
   int* route = static_cast<int*>(ptr[ROUTE]);
-  int err = launch(route_clouds, n, sizeof(int) * (cout2 + cout + 32), stream, idx, dout, route,
-                   cout, cout2);
+  int err = launch(route_clouds, n, route_smem_bytes(cout), stream, idx, dout, route, p, cout);
   if (err) return err;
   err = launch(tailbwd::cloud_pass<KX>, grid, tailbwd::cloud_smem_bytes(kCin, chid, cout), stream,
-               x, w3, b3, w4, static_cast<const int*>(route), f(DX), n, p, chid, cout);
+               x, w3, b3, w4, static_cast<const int*>(route), static_cast<bf16*>(ptr[DX]), n, p,
+               chid, cout);
   if (err) return err;
   err = launch(tailbwd::dw3_pass<KX>, dim3(chid / tailbwd::kDw3Chunk, splits),
                tailbwd::dw3_smem_bytes(kCin, cout), stream, x, w3, b3, w4,
@@ -613,28 +716,50 @@ extern "C" int catre_tail_smem(int chid, int cout) {
   return static_cast<int>(tail::smem_bytes(chid, cout));
 }
 
-// K5 backward. x, w in T; b (cout) f32 unrounded; idx (n, cout) i32 from the
-// forward; dout (n, cout) f32. Scratch: d_scratch (n, cout), part_w (groups,
-// cout, cin), part_b (groups, cout), all f32. Out: dx (n, p, cin), dw (cout,
-// cin), db (cout), f32. cout2 is cout rounded up to a power of two.
+// K5 backward. x, w in T = bf16 if `bf16` else f32; b (cout) f32 unrounded;
+// idx (n, cout) i32 from the forward; dout (n, cout) f32. Scratch: d_scratch
+// (n, cout), part_w (groups, cout, cin), part_b (groups, cout), all f32; in
+// bf16 also route (n, catre_k6_route_stride(cout)) i32, which may share
+// storage with part_w and part_b (f32: null). Out: dx (n, p, cin) in T, dw
+// (cout, cin), db (cout) f32. cout2 is cout rounded up to a power of two. In
+// bf16 cin is 64 or 128, cout a multiple of 128 with catre_k5_bwd_smem(cin,
+// cout, 1) within a block's shared memory, x starts on a 16-byte boundary, and
+// `grid` (the dx pass's persistent blocks) is a multiple of cin / 64.
 extern "C" int catre_dense_relu_max_train_bwd(const void* x, const void* w, const void* b,
                                               const void* idx, const void* dout, void* d_scratch,
-                                              void* part_w, void* part_b, void* dx, void* dw,
-                                              void* db, int n, int p, int cin, int cout, int cout2,
-                                              int groups, int bf16, void* stream) {
+                                              void* part_w, void* part_b, void* route, void* dx,
+                                              void* dw, void* db, int n, int p, int cin, int cout,
+                                              int cout2, int groups, int grid, int bf16,
+                                              void* stream) {
   auto f = [](void* v) { return static_cast<float*>(v); };
   auto cf = [](const void* v) { return static_cast<const float*>(v); };
   const int* i = static_cast<const int*>(idx);
-  return bf16 ? run_relu_max_bwd<catre::bf16>(x, w, cf(b), i, cf(dout), f(d_scratch), f(part_w),
-                                              f(part_b), f(dx), f(dw), f(db), n, p, cin, cout,
-                                              cout2, groups, stream)
-              : run_relu_max_bwd<float>(x, w, cf(b), i, cf(dout), f(d_scratch), f(part_w),
-                                        f(part_b), f(dx), f(dw), f(db), n, p, cin, cout, cout2,
-                                        groups, stream);
+  if (!bf16)
+    return run_relu_max_bwd_f32(cf(x), cf(w), cf(b), i, cf(dout), f(d_scratch), f(part_w),
+                                f(part_b), f(dx), f(dw), f(db), n, p, cin, cout, cout2, groups,
+                                stream);
+  if ((cin != 64 && cin != 128) || cout <= 0 || cout % stnbwd::kGateChannels || n < 1 || p < 1 ||
+      groups < 1 || grid < cin / stnbwd::kCols || grid % (cin / stnbwd::kCols) ||
+      stnbwd::dx_smem_bytes(cout) > tail::kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto args = [&](auto run) {
+    return run(static_cast<const catre::bf16*>(x), static_cast<const catre::bf16*>(w), cf(b), i,
+               cf(dout), f(d_scratch), f(part_w), f(part_b), static_cast<int*>(route),
+               static_cast<catre::bf16*>(dx), f(dw), f(db), n, p, cout, groups, grid, stream);
+  };
+  return cin == 128 ? args(run_relu_max_bwd_bf16<8>) : args(run_relu_max_bwd_bf16<4>);
+}
+
+// Dynamic shared memory of the bf16 K5 backward's passes in bytes: 0 the
+// gate pass, 1 the dx pass (W's 64-column chunk and two routing rows
+// resident). The wrapper refuses widths at which 1 exceeds the limit.
+extern "C" int catre_k5_bwd_smem(int cin, int cout, int pass) {
+  if (pass == 1) return static_cast<int>(stnbwd::dx_smem_bytes(cout));
+  return static_cast<int>(cin == 128 ? stnbwd::gate_smem_bytes<8>() : stnbwd::gate_smem_bytes<4>());
 }
 
 // K6 backward. ptr: kSlots device pointers in the order of Slot; x, w3, w3t,
-// w4 and dh3 hold T, idx and route i32, every other array f32 (b3
+// w4, dh3 and dx hold T, idx and route i32, every other array f32 (b3
 // unrounded). groups: the partials of dW4 and db4; splits: those of dW3 (the
 // f32 build's split-K ranges, the bf16 build's groups of clouds, which also
 // split db3); grid: the bf16 cloud pass's persistent blocks (f32: unused). In
@@ -653,10 +778,10 @@ extern "C" int catre_dense_relu_dense_max_train_bwd(void* const* ptr, int n, int
       tailbwd::cloud_smem_bytes(cin, chid, cout) > tail::kSmemLimit ||
       tailbwd::dw3_smem_bytes(cin, cout) > tail::kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
-  return cin == 128 ? run_relu_dense_max_bwd_wgmma<8>(ptr, n, p, chid, cout, cout2, groups, splits,
-                                                      grid, stream)
-                    : run_relu_dense_max_bwd_wgmma<4>(ptr, n, p, chid, cout, cout2, groups, splits,
-                                                      grid, stream);
+  return cin == 128 ? run_relu_dense_max_bwd_wgmma<8>(ptr, n, p, chid, cout, groups, splits, grid,
+                                                      stream)
+                    : run_relu_dense_max_bwd_wgmma<4>(ptr, n, p, chid, cout, groups, splits, grid,
+                                                      stream);
 }
 
 // Dynamic shared memory of the bf16 K6 backward's passes in bytes: 0 the

@@ -9,12 +9,13 @@
 // d4[c] W4[c], h3p[r] = x[r] W3^T + b3 in f32, d_h3[r] = round(g[r]) where
 // h3p[r] > 0, else 0; dx[r] = d_h3[r] W3 (zero on every other row); dW3 =
 // d_h3^T x, db3 = sum d_h3; dW4[c] = sum_n d4[n, c] round(relu(h3p[n,
-// idx[n, c]])), db4 = sum_n d4. The f32 build stays in encoder_epilogue_train.cu.
+// idx[n, c]])), db4 = sum_n d4. dx comes out in bf16, each element rounded
+// once from its f32 sum. The f32 build stays in encoder_epilogue_train.cu.
 //
 // What bounds it on the card: operations on the critical rows (h3p, dx, dW3:
 // three products of 2 x rows x cin x chid) and on the argmax rows (dW4: one),
 // about 0.21 TFLOP at N = P = 1024 with about 520 critical rows a cloud, and
-// dx's 0.5 GB. What the old body spent beyond that: a dense (N, P, chid)
+// dx's 0.27 GB in bf16. What the old body spent beyond that: a dense (N, P, chid)
 // scratch of d_h3 (1 GiB, zero-filled, written, read whole by a split-K
 // product), h3 recomputed for every argmax row, and every product on
 // `mma.sync` with the weights streamed from L2 per tile. What bounds this
@@ -38,8 +39,8 @@
 //     a warp, rounded once) while `wgmma` computes h3p = x W3^T with both
 //     operands in shared memory; the gate turns h3p and g into the A
 //     registers of dx += d_h3 W3, which reads W3's panels MN-major (the
-//     transpose-B flag, as K4 reads W1). Rows that no channel points at are
-//     written as zero, so each dx byte is written once;
+//     transpose-B flag, as K4 reads W1), stored as bf16 pairs. Rows that no
+//     channel points at are written as zero, so each dx byte is written once;
 //   - dW3 pass: a block owns (64-column hidden chunk, group of clouds) and
 //     keeps that chunk's 64 rows of W3 and 64 columns of W4 (128 KB at cout =
 //     1024) resident, so its g needs no device-memory traffic. Per tile it
@@ -346,7 +347,7 @@ __device__ __forceinline__ void start_dx(float (&d)[32], uint32_t (&a)[8][4], co
 template <int KX>
 __global__ void __launch_bounds__(kThreads, 1)
 cloud_pass(const bf16* x, const bf16* w3, const float* b3, const bf16* w4, const int* route,
-           float* dx, int N, int P, int chid, int cout) {
+           bf16* dx, int N, int P, int chid, int cout) {
   constexpr int kCin = 16 * KX, kXPanels = KX / 4, kNQ = kCin / 64;   // dx's 64-column quarters
   extern __shared__ unsigned char raw[];
   unsigned char* w3s = align1024(raw);
@@ -374,12 +375,12 @@ cloud_pass(const bf16* x, const bf16* w3, const float* b3, const bf16* w4, const
     clk.mark(kRoute);
     const CloudRoute rt(rs, cout);
     const bf16* xn = x + static_cast<size_t>(n) * P * kCin;
-    float* dxn = dx + static_cast<size_t>(n) * P * kCin;
+    bf16* dxn = dx + static_cast<size_t>(n) * P * kCin;
     // rows that no channel points at: zero, a warp per gap between critical rows
     for (int i = warp; i <= rt.count; i += kThreads / 32) {
       const int lo = i > 0 ? rt.rows[i - 1] + 1 : 0, hi = i < rt.count ? rt.rows[i] : P;
-      float4* dst = reinterpret_cast<float4*>(dxn + static_cast<size_t>(lo) * kCin);
-      for (int e = lane; e < (hi - lo) * (kCin / 4); e += 32) dst[e] = make_float4(0, 0, 0, 0);
+      uint4* dst = reinterpret_cast<uint4*>(dxn + static_cast<size_t>(lo) * kCin);
+      for (int e = lane; e < (hi - lo) * (kCin / 8); e += 32) dst[e] = make_uint4(0, 0, 0, 0);
     }
     clk.mark(kGaps);
 #pragma unroll 1
@@ -426,13 +427,13 @@ cloud_pass(const bf16* x, const bf16* w3, const float* b3, const bf16* w4, const
       for (int h = 0; h < 2; ++h) {
         const int r = t0 + 64 * me.wgi + 16 * me.w + me.g + 8 * h;
         if (r < rt.count) {
-          float* dst = dxn + static_cast<size_t>(rt.rows[r]) * kCin + 2 * me.t;
+          bf16* dst = dxn + static_cast<size_t>(rt.rows[r]) * kCin + 2 * me.t;
 #pragma unroll
           for (int q = 0; q < kNQ; ++q)
 #pragma unroll
-            for (int jj = 0; jj < 8; ++jj)
-              *reinterpret_cast<float2*>(dst + 64 * q + 8 * jj) =
-                  make_float2(dxa[q][4 * jj + 2 * h], dxa[q][4 * jj + 2 * h + 1]);
+            for (int jj = 0; jj < 8; ++jj)     // a bf16 pair, rounded once from the f32 sums
+              *reinterpret_cast<uint32_t*>(dst + 64 * q + 8 * jj) =
+                  wg::pack_a(dxa[q][4 * jj + 2 * h], dxa[q][4 * jj + 2 * h + 1]);
         }
       }
       __syncthreads();   // xs is read before the next tile's gather rewrites it

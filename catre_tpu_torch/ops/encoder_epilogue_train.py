@@ -18,7 +18,11 @@ gradient evenly across tied rows instead. No (N, P, C) activation, ReLU
 mask or max mask reaches device memory.
 
 The Functions take the f32 parameters and cast them inside, so weight and
-bias gradients are f32 (:275-276, :287, :320); dx comes back in x's dtype.
+bias gradients are f32 (:275-276, :287, :320); dx comes back in x's dtype,
+as the backward wrappers return it: the bf16 kernels write it in bf16, each
+element rounded once from its f32 sum, and on the CPU the plain version's
+f32 dx is cast once (the Pallas wrappers cast the kernels' f32 dx, :287,
+:320).
 Rounding points differ between forward and backward, as in the Pallas
 bodies: the forward rounds each product to `cdt` and adds the bias in `cdt`
 (flax `Dense(dtype=cdt)`); the backward's recompute takes the f32 product,
@@ -28,12 +32,14 @@ Beside each kernel its plain PyTorch version, which the wrappers run for a
 CPU tensor; for a CUDA tensor they launch `csrc/encoder_epilogue_train.cu`
 or raise, never fall back. The plain backwards are routed like the kernels
 (gather the argmax rows, scatter-add the row gradients) where the Pallas
-bodies multiply by a dense one-hot matrix: the function is the same. K6's
-backward has a second plain version, `dense_relu_dense_max_bwd_critical_plain`,
-that works in the bf16 kernel's own order (route, g, gate, the three
-products on the critical rows only, `route_rows` mirroring the kernel's
-routing buffer): where the kernel disagrees with both, routing is at fault,
-where with one, rounding. Both plain versions serve tests and checks only.
+bodies multiply by a dense one-hot matrix: the function is the same. Each
+backward has a second plain version in its bf16 kernel's own order, on the
+critical rows only, with `route_rows` mirroring the kernels' routing buffer:
+`dense_relu_dense_max_bwd_critical_plain` (route, g, gate, the three
+products) and `dense_relu_max_bwd_critical_plain` (gate, route the gated d,
+the sums over each row's segment, dx in x's dtype, dW and db). Where a
+kernel disagrees with both, routing is at fault, where with one, rounding.
+The critical-row versions serve tests and checks only.
 
 The bf16 K6 forward is K1's `wgmma` body (`csrc/encoder_tail_wgmma.cuh`
 with kIdx), so its `out` is K1's by construction. It takes K1's weight
@@ -54,7 +60,11 @@ The bf16 K6 backward (`csrc/encoder_tail_bwd_wgmma.cuh`) takes cin 64 or
 128, chid and cout multiples of 128 that fit its shared memory, and x on a
 16-byte boundary, and allocates nothing of N x P x chid: a routing buffer of
 N rows of about 4 cout int32 and per-group partials of the weight gradients
-(`k6_bwd_schedule`).
+(`k6_bwd_schedule`). The bf16 K5 backward (`csrc/encoder_stn_tail_bwd.cuh`)
+takes K2's limits (cin 64 or 128, x on a 16-byte boundary) and a cout whose
+64-column chunk of W fits a block's shared memory, and allocates beside its
+outputs d (N, cout) and one buffer that holds the per-group partials of dW
+and db, then K6's routing rows of the gated d.
 """
 
 from __future__ import annotations
@@ -85,6 +95,7 @@ ARGMAX_ROW_BITS = 16
 ARGMAX_MAX_ROWS = 1 << ARGMAX_ROW_BITS
 _ROW_MASK = ARGMAX_MAX_ROWS - 1
 SPLIT_ROWS = 4096    # K rows per range of the dW3 product, at most 128 ranges
+K5B_COLS = 64        # dx columns a block of the bf16 K5 backward's dx pass owns (stnbwd::kCols)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -207,6 +218,43 @@ def dense_relu_dense_max_bwd_plain(x, w3, b3, w4, b4, idx, d_out, cdt):
     return d_h3 @ w3c, dw3, d_h3.sum(dim=(0, 1)), dw4, d4.sum(dim=0).reshape(b4.shape)
 
 
+def _critical_keys(idx, d):
+    """The live keys of `route_rows(idx, d)` as flat lists over all clouds ->
+    (cloud and point row of each critical row (R,), each live key's critical
+    row in that list, its channel and its d (K,)), keys in routing order."""
+    N, C = idx.shape
+    chan, seg, rows, count = route_rows(idx, d)
+    live, has_row = chan >= 0, rows >= 0
+    cloud = torch.arange(N, device=idx.device)[:, None].expand(N, C)
+    key_pos = torch.arange(C, device=idx.device).expand(N, C)
+    seg_of_key = torch.searchsorted(seg[:, :-1].contiguous(), key_pos.contiguous(), right=True) - 1
+    offset = torch.cumsum(count, 0) - count                           # first critical row of a cloud
+    key_d = d.gather(1, chan.clamp(min=0))[live]
+    return (cloud[has_row], rows[has_row], (offset[:, None] + seg_of_key)[live], chan[live], key_d)
+
+
+def dense_relu_max_bwd_critical_plain(x, w, b, idx, d_out, cdt):
+    """Plain K5 backward in the bf16 kernel's order: the gate per (cloud,
+    channel) on its argmax row, the routing of the gated d (`route_rows`), per
+    critical row the f32 sum over its segment in key order, rounded once to
+    x's dtype, zero on every other row; dW and db from the live keys' critical
+    rows -> (dx in x's dtype, dW (Cout, Cin), db (Cout) f32)."""
+    wc = w.to(cdt).float()
+    N, P, cin = x.shape
+    xc = x.to(cdt)
+    pre = (_rows_at(xc, idx).float() * wc).sum(dim=2) + b.float()    # f32 product, f32 bias
+    d = torch.where(pre > 0, d_out.float(), 0.0).to(cdt).float()
+    crit_cloud, crit_row, key_row, key_chan, key_d = _critical_keys(idx, d)
+    g = torch.zeros(crit_row.numel(), cin, device=x.device)
+    g.index_add_(0, key_row, key_d[:, None] * wc[key_chan])
+    dx = torch.zeros(N, P, cin, device=x.device, dtype=x.dtype)
+    dx[crit_cloud, crit_row] = g.to(x.dtype)
+    xr = xc[crit_cloud, crit_row].float()                             # (R, cin)
+    dw = torch.zeros(w.shape[0], cin, device=x.device).index_add_(0, key_chan,
+                                                                   key_d[:, None] * xr[key_row])
+    return dx, dw, torch.zeros(w.shape[0], device=x.device).index_add_(0, key_chan, key_d)
+
+
 def dense_relu_dense_max_bwd_critical_plain(x, w3, b3, w4, b4, idx, d_out, cdt):
     """Plain K6 backward in the bf16 kernel's order, on the critical rows only:
     route (`route_rows`), g per critical row as a sum over its segment, the
@@ -215,18 +263,7 @@ def dense_relu_dense_max_bwd_critical_plain(x, w3, b3, w4, b4, idx, d_out, cdt):
     N, P, cin = x.shape
     C = idx.shape[1]
     d4 = d_out.to(cdt).float()
-    chan, seg, rows, count = route_rows(idx, d4)
-    live = chan >= 0
-    # the critical rows of all clouds in one list; a live key's critical row in it
-    has_row = rows >= 0
-    cloud = torch.arange(N, device=x.device)[:, None].expand(N, C)
-    crit_cloud, crit_row = cloud[has_row], rows[has_row]
-    key_pos = torch.arange(C, device=x.device).expand(N, C)
-    seg_of_key = torch.searchsorted(seg[:, :-1].contiguous(), key_pos.contiguous(), right=True) - 1
-    offset = torch.cumsum(count, 0) - count                           # first critical row of a cloud
-    key_row = (offset[:, None] + seg_of_key)[live]
-    key_chan = chan[live]
-    key_d = d4.gather(1, chan.clamp(min=0))[live]
+    crit_cloud, crit_row, key_row, key_chan, key_d = _critical_keys(idx, d4)
     g = torch.zeros(crit_row.numel(), w4.shape[1], device=x.device)
     g.index_add_(0, key_row, key_d[:, None] * w4c[key_chan])
     xr = xc[crit_cloud, crit_row]                                     # (R, cin)
@@ -247,16 +284,17 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("encoder_epilogue_train")
     lib.catre_dense_relu_max_train_fwd.argtypes = [_P] * 5 + [_I] * 6 + [_P]
     lib.catre_dense_relu_dense_max_train_fwd.argtypes = [_P] * 7 + [_I] * 6 + [_P]
-    lib.catre_dense_relu_max_train_bwd.argtypes = [_P] * 11 + [_I] * 7 + [_P]
+    lib.catre_dense_relu_max_train_bwd.argtypes = [_P] * 12 + [_I] * 8 + [_P]
     lib.catre_dense_relu_dense_max_train_bwd.argtypes = [_P] + [_I] * 11 + [_P]
     lib.catre_k6_bwd_smem.argtypes = [_I] * 4
+    lib.catre_k5_bwd_smem.argtypes = [_I] * 3
     lib.catre_k6_route_stride.argtypes = [_I]
     lib.catre_tail_smem.argtypes = [_I] * 2
     for fn in (lib.catre_dense_relu_max_train_fwd, lib.catre_dense_relu_dense_max_train_fwd,
                lib.catre_dense_relu_max_train_bwd, lib.catre_dense_relu_dense_max_train_bwd,
                lib.catre_dense_relu_dense_max_train_bwd_slots, lib.catre_k6_bwd_smem,
                lib.catre_k6_route_stride, lib.catre_tail_smem, lib.catre_k5_fwd_chunks,
-               lib.catre_k5_fwd_smem):
+               lib.catre_k5_fwd_smem, lib.catre_k5_bwd_smem):
         fn.restype = _I
     if lib.catre_dense_relu_dense_max_train_bwd_slots() != len(K6_BWD_SLOTS):
         raise _build.KernelBuildError(
@@ -367,12 +405,23 @@ def dense_relu_dense_max_fwd(x, w3, b3, w4, b4, cdt):
     return out, idx
 
 
+def k5_bwd_grid(n, cin, n_sms):
+    """Persistent blocks of the bf16 K5 backward's dx pass on `n_sms` SMs:
+    cin / K5B_COLS column chunks, each walked by the same number of blocks,
+    at most one block per SM and per (cloud, chunk), at least one per chunk."""
+    chunks = cin // K5B_COLS
+    return chunks * max(1, min(n, n_sms // chunks))
+
+
 def dense_relu_max_bwd(x, w, b, idx, d_out, cdt):
     """K5 backward: x (N, P, Cin) in cdt, w (Cout, Cin) and b (Cout) f32, idx
-    (N, Cout) int32 from the forward, d_out (N, Cout) f32 ->
-    (dx (N, P, Cin), dW (Cout, Cin), db (Cout)), f32."""
+    (N, Cout) int32 from the forward, d_out (N, Cout) f32 -> (dx (N, P, Cin)
+    in x's dtype, dW (Cout, Cin), db (Cout) f32). In bf16 on the card: K2's
+    limits (Cin 64 or 128, x on a 16-byte boundary) and W's 64-column chunk
+    with two routing rows in a block's shared memory."""
     if x.device.type == "cpu":
-        return dense_relu_max_bwd_plain(x, w, b, idx, d_out, cdt)
+        dx, dw, db = dense_relu_max_bwd_plain(x, w, b, idx, d_out, cdt)
+        return dx.to(x.dtype), dw, db
     name = "dense_relu_max_train_bwd"
     N, P, cin = x.shape if x.dim() == 3 else (0, 0, 0)
     cout = w.shape[0]
@@ -382,31 +431,59 @@ def dense_relu_max_bwd(x, w, b, idx, d_out, cdt):
         raise ValueError(f"{name}: idx must be int32, got {idx.dtype}")
     _check_widths(name, cin, cout)
     _check_routing(name, P, cout)
+    if cdt == torch.bfloat16:
+        check_k2_bf16(name, x, cin)
+        smem = _lib().catre_k5_bwd_smem(cin, cout, 1)
+        if smem > _build.SMEM_LIMIT:
+            raise ValueError(f"{name}: bf16 width {cout} needs {smem} bytes of shared memory (W's "
+                             f"64-column chunk and two routing rows resident), above a block's "
+                             f"{_build.SMEM_LIMIT}")
+    outs = k5_bwd_launch(_lib(), x, w, b, idx, d_out, cdt)
+    LAUNCHES[name] += 1
+    return outs
+
+
+def k5_bwd_launch(lib, x, w, b, idx, d_out, cdt):
+    """One launch of `lib`'s K5 backward on checked operands: allocates the
+    outputs and the build's scratch, raises on a launch error; -> (dx, dW,
+    db). The wrapper above passes the library it builds; the probe tool a
+    diagnostic build of the same source."""
+    N, P, cin = x.shape
+    cout = w.shape[0]
+    bf16 = cdt == torch.bfloat16
     (wc,), _ = _cast(x, cdt, [w])
     dev = x.device
-
-    def empty(*shape):
-        return torch.empty(*shape, device=dev, dtype=torch.float32)
-
     groups = min(N, CLOUD_GROUPS)
-    d_scratch, part_w, part_b = empty(N, cout), empty(groups, cout, cin), empty(groups, cout)
-    dx, dw, db = empty(N, P, cin), empty(cout, cin), empty(cout)
-    rc = _lib().catre_dense_relu_max_train_bwd(
-        x.data_ptr(), wc.data_ptr(), b.data_ptr(), idx.data_ptr(), d_out.data_ptr(),
-        d_scratch.data_ptr(), part_w.data_ptr(), part_b.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-        db.data_ptr(), N, P, cin, cout, _pow2(cout), groups, int(cdt == torch.bfloat16),
-        _build.stream_handle(dev))
-    _build.check(rc, name)
-    LAUNCHES[name] += 1
+    n_part = groups * cout * (cin + 1)
+    grid, route = 0, None
+    if bf16:    # one buffer: the partials of dW and db, then (once summed) the routing rows
+        stride = lib.catre_k6_route_stride(cout)
+        scratch = torch.empty(max(n_part, N * stride), device=dev, dtype=torch.float32)
+        route = scratch[:N * stride].view(torch.int32)
+        grid = k5_bwd_grid(N, cin, _sm_count(dev.index))
+    else:
+        scratch = torch.empty(n_part, device=dev, dtype=torch.float32)
+    part_w, part_b = scratch[:groups * cout * cin], scratch[groups * cout * cin:n_part]
+    d = torch.empty(N, cout, device=dev, dtype=torch.float32)
+    dx = torch.empty(N, P, cin, device=dev, dtype=x.dtype)
+    dw = torch.empty(cout, cin, device=dev, dtype=torch.float32)
+    db = torch.empty(cout, device=dev, dtype=torch.float32)
+    rc = lib.catre_dense_relu_max_train_bwd(
+        x.data_ptr(), wc.data_ptr(), b.data_ptr(), idx.data_ptr(), d_out.data_ptr(), d.data_ptr(),
+        part_w.data_ptr(), part_b.data_ptr(), None if route is None else route.data_ptr(),
+        dx.data_ptr(), dw.data_ptr(), db.data_ptr(), N, P, cin, cout, _pow2(cout), groups, grid,
+        int(bf16), _build.stream_handle(dev))
+    _build.check(rc, "dense_relu_max_train_bwd")
     return dx, dw, db
 
 
 def dense_relu_dense_max_bwd(x, w3, b3, w4, b4, idx, d_out, cdt):
     """K6 backward: weights and biases f32, idx (N, C4) int32 from the
-    forward, d_out (N, C4) f32 -> (dx (N, P, Cin), dW3 (C3, Cin), db3 (C3),
-    dW4 (C4, C3), db4 (C4)), f32."""
+    forward, d_out (N, C4) f32 -> (dx (N, P, Cin) in x's dtype, dW3 (C3, Cin),
+    db3 (C3), dW4 (C4, C3), db4 (C4) f32)."""
     if x.device.type == "cpu":
-        return dense_relu_dense_max_bwd_plain(x, w3, b3, w4, b4, idx, d_out, cdt)
+        dx, *grads = dense_relu_dense_max_bwd_plain(x, w3, b3, w4, b4, idx, d_out, cdt)
+        return (dx.to(x.dtype), *grads)
     name = "dense_relu_dense_max_train_bwd"
     N, P, cin = x.shape if x.dim() == 3 else (0, 0, 0)
     chid, cout = w3.shape[0], w4.shape[0]
@@ -447,7 +524,7 @@ def k6_bwd_launch(lib, x, w3, b3, w4, idx, d_out, cdt):
         return torch.empty(*shape, device=dev, dtype=dtype)
 
     cin_pad = -(-cin // 128) * 128
-    bufs = dict(x=x, w3=w3c, b3=b3, w4=w4c, idx=idx, dout=d_out, dx=empty(N, P, cin),
+    bufs = dict(x=x, w3=w3c, b3=b3, w4=w4c, idx=idx, dout=d_out, dx=empty(N, P, cin, dtype=x.dtype),
                 dw3=empty(chid, cin), db3=empty(chid), dw4=empty(cout, chid), db4=empty(cout))
     if bf16:
         grid, splits, groups = k6_bwd_schedule(N, chid, cout, _sm_count(dev.index))
@@ -493,7 +570,7 @@ class DenseReluMaxTrain(torch.autograd.Function):
         x, w, b, idx = ctx.saved_tensors
         dx, dw, db = dense_relu_max_bwd(x, w.float(), b.float(), idx,
                                         d_out.float().contiguous(), ctx.cdt)
-        return dx.to(x.dtype), dw, db, None
+        return dx, dw, db, None
 
 
 class DenseReluDenseMaxTrain(torch.autograd.Function):
@@ -512,7 +589,7 @@ class DenseReluDenseMaxTrain(torch.autograd.Function):
         dx, dw3, db3, dw4, db4 = dense_relu_dense_max_bwd(
             x, w3.float(), b3.float(), w4.float(), b4.float(), idx, d_out.float().contiguous(),
             ctx.cdt)
-        return dx.to(x.dtype), dw3, db3, dw4, db4, None
+        return dx, dw3, db3, dw4, db4, None
 
 
 def dense_relu_max_train(h, w, b, cdt):

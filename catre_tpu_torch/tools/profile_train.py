@@ -16,10 +16,11 @@ the library matrix products (`aten::mm`, `addmm`, `bmm`, `baddbmm`) by
 shape, so that one can see which products did not go through a kernel of
 this package: with K5/K6 on, none has a tail's shape (128 -> 1024,
 128 -> 512 or 512 -> 1024 over all N x P point rows). With K5/K6 on it also
-splits the K5 backward's device time in the first profiled step by its
-kernels, read off the timeline: `relu_max_bwd_cloud`, `relu_max_bwd_weight`,
-the two `sum_rows` launches that follow (dW, then db), and the kernel after
-them, the cast of dx from f32 to x's dtype in `DenseReluMaxTrain.backward`.
+splits each training tail's backward in the first profiled step by its
+kernels, read off the timeline (K5: gate pass, two `sum_rows`, routing pass,
+dx pass; K6: routing pass, cloud, dW3 and dW4 passes, four `sum_rows`), and
+counts the copy kernels right after each: none, since both write dx in x's
+dtype.
 `--trace` writes the Chrome trace of the first step.
 """
 
@@ -76,32 +77,40 @@ def print_products(prof, top: int) -> None:
         print(f"{device_us(e) / 1e3:10.3f} {e.count:8d}  {e.key} {e.input_shapes}")
 
 
-def print_k5_backward(prof) -> None:
-    """The K5 backward's launches in the step's timeline: each
-    `relu_max_bwd_weight` is followed by its two `sum_rows` (dW, db) and then
-    the dx cast; -> device ms summed over the step's K5 backwards."""
+# each training tail's backward as its kernels follow each other on the timeline
+# (substrings of the kernel names): K5 bf16 (csrc/encoder_stn_tail_bwd.cuh) and K6
+# bf16 (csrc/encoder_tail_bwd_wgmma.cuh), each with its sum_rows launches
+TAIL_BACKWARDS = {
+    "K5 backward": ("gate_pass", "sum_rows", "sum_rows", "route_clouds", "dx_pass"),
+    "K6 backward": ("route_clouds", "cloud_pass", "dw3_pass", "dw4_pass", "sum_rows", "sum_rows",
+                    "sum_rows", "sum_rows"),
+}
+
+
+def print_tail_backwards(prof) -> None:
+    """Each training tail's backward in the step's timeline: its launches,
+    device ms by kernel summed over the step, and the kernel right after its
+    last one, which must not be a copy (the dx cast the backwards no longer
+    need: both write dx in x's dtype)."""
     timeline = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                       key=lambda e: e.time_range.start)
-    parts = dict.fromkeys(("relu_max_bwd_cloud", "relu_max_bwd_weight", "sum_rows dW",
-                           "sum_rows db", "dx cast"), 0.0)
-    launches = 0
-    for i, e in enumerate(timeline):
-        if "relu_max_bwd_cloud" in e.name:
-            parts["relu_max_bwd_cloud"] += e.time_range.elapsed_us()
-        elif "relu_max_bwd_weight" in e.name:
+    for tail, names in TAIL_BACKWARDS.items():
+        parts = [0.0] * len(names)
+        launches, copies, copy_us = 0, 0, 0.0
+        for i in range(len(timeline) - len(names) + 1):
+            run = timeline[i:i + len(names)]
+            if not all(n in e.name for n, e in zip(names, run)):
+                continue
             launches += 1
-            parts["relu_max_bwd_weight"] += e.time_range.elapsed_us()
-            after = timeline[i + 1:i + 4]
-            if [("sum_rows" in a.name) for a in after[:2]] != [True, True] or len(after) < 3:
-                print(f"K5 backward: unexpected kernels after relu_max_bwd_weight: "
-                      f"{[a.name[:40] for a in after]}")
-                return
-            parts["sum_rows dW"] += after[0].time_range.elapsed_us()
-            parts["sum_rows db"] += after[1].time_range.elapsed_us()
-            if "copy" in after[2].name:
-                parts["dx cast"] += after[2].time_range.elapsed_us()
-    print(f"K5 backward, {launches} launches in the step, device ms: "
-          + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in parts.items()))
+            for j, e in enumerate(run):
+                parts[j] += e.time_range.elapsed_us()
+            after = timeline[i + len(names)] if i + len(names) < len(timeline) else None
+            if after is not None and "copy" in after.name.lower():
+                copies += 1
+                copy_us += after.time_range.elapsed_us()
+        split = ", ".join(f"{n} {v / 1e3:.3f}" for n, v in zip(names, parts))
+        print(f"{tail}, {launches} launches in the step, device ms: {split}; total "
+              f"{sum(parts) / 1e3:.3f}; copy kernels right after it: {copies} ({copy_us / 1e3:.3f} ms)")
 
 
 def main(argv=None) -> int:
@@ -154,7 +163,7 @@ def main(argv=None) -> int:
             print(f"range {e.key}: calls {e.count}, {side} {ms:.3f} ms")
     print_kernels(kernels, args.top)
     if not args.plain_encoder:
-        print_k5_backward(prof)
+        print_tail_backwards(prof)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t.state, _ = t.step(t.state, t.batch, t.generator, t.lr)

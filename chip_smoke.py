@@ -51,7 +51,12 @@ code is non-zero):
                before the ReLU (idx 0); the bf16 K6 backward also vs the plain
                version of its own order (critical rows only), six launches
                bit-equal, P = 1000 in f32 and bf16 vs both plain versions, and
-               its allocation beyond its outputs;
+               its allocation beyond its outputs; the same for the bf16 K5
+               backward (gate pass, routing pass, dx pass writing bf16 rows
+               once), with dx's dtype, every row that no live channel points
+               at exactly zero, ptxas' spills and stack frames, and its time on
+               the inputs of one K5 backward captured from a B = 512 train
+               step beside the random operands' time;
   7. train:    the flagship training step from `catre_tpu_torch.entry.train_entry`
                at the shipped flags (bf16, B = 512, 4 inner iterations,
                FUSED_HEADS_TRAIN and FUSED_ENCODER_TRAIN): one warm-up and 3
@@ -98,6 +103,9 @@ K2_KERNEL = "dense_relu_max_wgmmaILi8E"       # the bf16 K2 at cin = 128, as ptx
 K6B_KERNELS = ("route_clouds", "cloud_passILi8E", "dw3_passILi8E", "dw4_passILi8E")  # bf16, cin 128
 K6B_REPEATS = 5              # further launches of the bf16 K6 backward that must give the first one's bits
 K6B_SCRATCH = 0.1            # its allocation beyond its outputs, at most this share of N P chid 2 bytes
+K5B_KERNELS = ("gate_passILi8E", "route_clouds", "dx_passE")    # the bf16 K5 backward at cin = 128
+K5B_REPEATS = 5              # further launches of the bf16 K5 backward that must give the first one's bits
+K5B_SCRATCH = 0.1            # its allocation beyond its outputs, at most this share of N P cin 2 bytes
 K4_CHECK_B, K4_TIME_B = 64, 512
 K4_REPEATS = 3               # further launches of K4 that must give the first one's bits
 TN_TOL = 1e-5                # K4's transposed products alone, x max|plain|
@@ -482,17 +490,20 @@ def check_train_tails(enc, dev, gen, n_clouds, n_pts):
         if tag == "K5":
             fwd_flops = 2 * n_rows * cin * cout
             w_bytes = 2 * cout * cin
-            # gate, dx and dW: one length-cin product each per (cloud, channel), f32 FMA
-            bwd_bound = bound(2 * crit * cin + 4 * n_rows * cin + 8 * n_clouds * cout
-                              + w_bytes + 4 * cout * (cin + 1), 3 * 2 * n_clouds * cout * cin,
-                              PEAK_F32)
+            # gate, dx and dW: one length-cin product each per (cloud, channel), f32 FMA;
+            # dx written once in x's dtype
+            bwd_bound = bound(2 * crit * cin + x.element_size() * n_rows * cin
+                              + 8 * n_clouds * cout + w_bytes + 4 * cout * (cin + 1),
+                              3 * 2 * n_clouds * cout * cin, PEAK_F32)
         else:
             chid = ws[0].shape[0]
             fwd_flops = 2 * n_rows * (cin * chid + chid * cout)
             w_bytes = 2 * (chid * cin + cout * chid)
-            # h3p, dx and dW3 on the critical rows (tensor cores); g and dW4 per (cloud, channel)
-            bwd_bound = bound(2 * crit * cin + 4 * n_rows * cin + 8 * n_clouds * cout
-                              + w_bytes + 4 * (chid * (cin + 1) + cout * (chid + 1)),
+            # h3p, dx and dW3 on the critical rows (tensor cores); g and dW4 per (cloud,
+            # channel); dx written once in x's dtype
+            bwd_bound = bound(2 * crit * cin + x.element_size() * n_rows * cin
+                              + 8 * n_clouds * cout + w_bytes
+                              + 4 * (chid * (cin + 1) + cout * (chid + 1)),
                               2 * (3 * crit * cin * chid + 2 * n_clouds * cout * chid))
         log("K5K6", f"{tag}: {crit} critical rows of {n_rows} ({crit / n_clouds:.1f} per cloud)")
         fwd_bound = bound(2 * n_rows * cin + w_bytes + 8 * n_clouds * cout, fwd_flops)
@@ -679,6 +690,100 @@ def check_k6_bwd_design(enc, dev, gen, n_clouds, n_pts):
             "spill_loads": sum(r["spill_loads"] for r in passes.values()),
             "shared_memory": max(r.get("shared_memory", 0) for r in passes.values()),
             "passes": passes}
+
+
+def check_k5_bwd_design(enc, dev, gen, n_clouds, n_pts):
+    """What the bf16 K5 backward (`csrc/encoder_stn_tail_bwd.cuh`: gate pass,
+    routing pass, dx pass writing every row once in bf16) has to show beyond
+    agreeing with the dense plain version (`check_train_tails`), on the main
+    path's shape with every fourth gate closed on every row and every sixth
+    cotangent zero: it agrees with the plain version in its own order per
+    output tensor; dx is bf16 and exactly zero on every row that no live
+    channel points at; six launches on the same inputs are bit-equal; at P =
+    TAIL_RAGGED, in f32 and bf16, both plain versions; its allocation beyond
+    its outputs stays under K5B_SCRATCH of N P cin 2 bytes; ptxas reports no
+    spill and no stack frame for its kernels. Then its time on the inputs of
+    one K5 backward captured from a train step at B = TRAIN_B. -> ptxas'
+    reports, the dynamic shared memory of its passes and that time."""
+    from catre_tpu_torch.ops import _build
+    from catre_tpu_torch.ops import encoder_epilogue_train as tt
+    from catre_tpu_torch.tools import probe_k5b
+
+    w, b = enc.stn.conv3.weight.detach(), enc.stn.conv3.bias.detach().clone()
+    b[::4] = -50.0                  # gates closed on every row: idx 0, d 0
+    ws, cin, cout = [w, b], w.shape[1], w.shape[0]
+    names, bf = ("dx", "dW", "db"), torch.bfloat16
+    plains = (("plain", tt.dense_relu_max_bwd_plain),
+              ("critical-row plain", tt.dense_relu_max_bwd_critical_plain))
+    x32 = torch.relu(torch.randn(n_clouds, n_pts, cin, device=dev, generator=gen))
+    d_out = torch.randn(n_clouds, cout, device=dev, generator=gen)
+    d_out[:, ::6] = 0.0
+    with torch.no_grad():
+        x = x32.to(bf)
+        _, idx = tt.dense_relu_max_fwd(x, *ws, bf)
+        tt.dense_relu_max_bwd(x, *ws, idx, d_out, bf)           # warm up the allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        grads = tt.dense_relu_max_bwd(x, *ws, idx, d_out, bf)
+        torch.cuda.synchronize()
+        beyond = (torch.cuda.max_memory_allocated() - base
+                  - sum(g.numel() * g.element_size() for g in grads))
+        limit = K5B_SCRATCH * n_clouds * n_pts * cin * 2
+        log("K5K6", f"K5 bwd bf16 N={n_clouds}: allocation beyond its outputs "
+                    f"{beyond / 2**20:.1f} MiB (limit {limit / 2**20:.1f} MiB)")
+        if not beyond <= limit:
+            raise RuntimeError(f"K5 bwd bf16 allocates {beyond} bytes beyond its outputs")
+        if grads[0].dtype != bf or any(g.dtype != torch.float32 for g in grads[1:]):
+            raise RuntimeError(f"K5 bwd bf16: gradients {[g.dtype for g in grads]}, want dx in bf16")
+        hit = probe_k5b.live_rows(x, ws, idx, d_out)
+        off = grads[0][~hit].abs().max().item()
+        log("K5K6", f"K5 bwd bf16 N={n_clouds}: dx bf16; {int((~hit).sum())} of {hit.numel()} rows "
+                    f"no live channel points at, max |dx| there {off}")
+        if off != 0:
+            raise RuntimeError("K5 bwd bf16: dx not zero on a row that no live channel points at")
+        tensor_errors("K5K6", f"K5 bwd N={n_clouds} vs its critical-row plain version", bf, grads,
+                      tt.dense_relu_max_bwd_critical_plain(x, *ws, idx, d_out, bf), names)
+        for _ in range(K5B_REPEATS):
+            again = tt.dense_relu_max_bwd(x, *ws, idx, d_out, bf)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise RuntimeError("K5 bwd bf16: two launches on the same inputs differ")
+        log("K5K6", f"K5 bwd bf16: {1 + K5B_REPEATS} launches on the same inputs bit-equal, "
+                    "dx, dW and db")
+        del x, grads, again, hit
+        for cdt in TOL:
+            xr = x32[:, :TAIL_RAGGED].to(cdt).contiguous()
+            _, idx_r = tt.dense_relu_max_fwd(xr, *ws, cdt)
+            outs = tt.dense_relu_max_bwd(xr, *ws, idx_r, d_out, cdt)
+            for tag, plain in plains:
+                tensor_errors("K5K6", f"K5 bwd P={TAIL_RAGGED} vs {tag}", cdt, outs,
+                              plain(xr, *ws, idx_r, d_out, cdt), names)
+            del xr, outs
+        del x32
+    step_x, step_w, step_b, step_idx, step_dout = probe_k5b.capture_step_inputs(TRAIN_B)
+    crit, live, _, _ = probe_k5b.bound(step_x, step_idx, step_dout)
+    with torch.no_grad():
+        step_ms = time_ms(lambda: tt.dense_relu_max_bwd(step_x, step_w, step_b, step_idx, step_dout,
+                                                        bf))
+    log("K5K6", f"K5 bwd bf16 on the inputs of a B={TRAIN_B} train step's first K5 backward "
+                f"(N={step_x.shape[0]}): {step_ms:.4f} ms; {crit} critical rows, {live} live "
+                "cotangents")
+    del step_x, step_idx, step_dout
+    lib = tt._lib()
+    passes = {k: _build.ptxas_report("encoder_epilogue_train", k) for k in K5B_KERNELS}
+    passes["gate_passILi8E"]["shared_memory"] = lib.catre_k5_bwd_smem(cin, cout, 0)
+    passes["dx_passE"]["shared_memory"] = lib.catre_k5_bwd_smem(cin, cout, 1)
+    log("K5K6", f"K5 bwd bf16 kernels: {passes}")
+    if not all("registers" in r for r in passes.values()):
+        raise RuntimeError(f"K5 bwd bf16: a kernel is missing from ptxas' report: {passes}")
+    if any(r["spill_stores"] or r["spill_loads"] or r["stack_frame"] for r in passes.values()):
+        raise RuntimeError(f"K5 bwd bf16: a kernel spills or keeps a stack frame: {passes}")
+    return {"registers": max(r["registers"] for r in passes.values()),
+            "stack_frame": max(r["stack_frame"] for r in passes.values()),
+            "spill_stores": sum(r["spill_stores"] for r in passes.values()),
+            "spill_loads": sum(r["spill_loads"] for r in passes.values()),
+            "shared_memory": max(r.get("shared_memory", 0) for r in passes.values()),
+            "ms_step_inputs": step_ms, "passes": passes}
 
 
 def train_phase(dev, per_step, steps=TRAIN_STEPS, **model_overrides):
@@ -1012,6 +1117,7 @@ def main():
     results["K6 fwd"].update(check_k6_fwd_design(enc, dev, 2 * TRAIN_B, cfg.num_pcl))
     results["K5 fwd"].update(check_k5_fwd_design(enc, dev, 2 * TRAIN_B, cfg.num_pcl))
     results["K6 bwd"].update(check_k6_bwd_design(enc, dev, gen, 2 * TRAIN_B, cfg.num_pcl))
+    results["K5 bwd"].update(check_k5_bwd_design(enc, dev, gen, 2 * TRAIN_B, cfg.num_pcl))
 
     # ---- 7. the training main path, through the port's entry point, at the shipped
     # flags; then with the plain encoder under autograd, in the same run
@@ -1072,7 +1178,7 @@ def main():
              source=src + "encoder_stn_tail_wgmma.cuh", replaces=vjp + "67",
              launches=launches["dense_relu_max_train_fwd"], **results["K5 fwd"]),
         dict(name="K5 dense_relu_max_train_bwd", route="cuda",
-             source=src + "encoder_epilogue_train.cu", replaces=vjp + "77",
+             source=src + "encoder_stn_tail_bwd.cuh", replaces=vjp + "77",
              launches=launches["dense_relu_max_train_bwd"], **results["K5 bwd"]),
         dict(name="K6 dense_relu_dense_max_train_fwd", route="cuda",
              source=src + "encoder_tail_wgmma.cuh", replaces=vjp + "107",

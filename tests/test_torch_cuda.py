@@ -2,8 +2,9 @@
 builds of K1 and K2 also vs the plain versions of their own order, relaunched
 bit-equal; the K6 and K5 forwards' idx bit-equal to the plain version's on
 exact-integer operands, with ties at -0 / +0, relaunched bit-equal, and what
-their bf16 builds refuse; the bf16 K6 backward also vs its critical-row plain
-version, with its dx zero off the critical rows, its refused widths and its
+their bf16 builds refuse; the bf16 K6 and K5 backwards also vs their
+critical-row plain versions, with dx in bf16 and zero off the rows a live
+channel points at, relaunched bit-equal, their refused widths and their
 scratch), the inference kernels' refusal of a differentiable call, and a train
 step's launch counts.
 
@@ -460,9 +461,10 @@ def test_train_tail_kernels(dev, kind, cdt, n, p, ties, widths):
                 assert (idx[:, :16] == 0).all()
         again = bwd(x, *ws, idx, d_out, cdt)                  # no float atomics
         assert all(torch.equal(a, b) for a, b in zip(grads, again))
+        assert grads[0].dtype == cdt                          # dx in x's dtype, no cast after
         for g, ref in zip(grads, bwd_plain(x, *ws, idx, d_out, cdt)):
-            assert g.shape == ref.shape and g.dtype == torch.float32
-            _assert_close(g, ref, cdt)
+            assert g.shape == ref.shape and (g is grads[0] or g.dtype == torch.float32)
+            _assert_close(g.float(), ref, cdt)
         if ties:
             assert grads[0][:, p // 2:].abs().max() == 0      # dx only on the lowest rows
 
@@ -504,7 +506,7 @@ def _k6_bwd_case(dev, n, p, seed=0):
 
 
 @pytest.mark.parametrize("n", [1, 3, 8])
-@pytest.mark.parametrize("p", [1024, 1000, 40])
+@pytest.mark.parametrize("p", [1024, 1000, 40, 2500])      # 2500: the routing pass's three row tiles
 def test_k6_bwd_bf16_vs_both_plain_versions(dev, n, p):
     x, ws, idx, d_out = _k6_bwd_case(dev, n, p, seed=n)
     bf = torch.bfloat16
@@ -513,8 +515,8 @@ def test_k6_bwd_bf16_vs_both_plain_versions(dev, n, p):
         for plain in (tail_ops.dense_relu_dense_max_bwd_plain,
                       tail_ops.dense_relu_dense_max_bwd_critical_plain):
             for g, ref in zip(grads, plain(x, *ws, idx, d_out, bf)):
-                assert g.shape == ref.shape and g.dtype == torch.float32
-                _assert_close(g, ref, bf)
+                assert g.shape == ref.shape and g.dtype == (bf if g is grads[0] else torch.float32)
+                _assert_close(g.float(), ref, bf)
 
 
 def test_k6_bwd_bf16_six_launches_are_bit_equal(dev):
@@ -569,8 +571,107 @@ def test_k6_bwd_bf16_allocates_no_scratch_of_n_p_chid(dev):
         base = torch.cuda.memory_allocated()
         outs = tail_ops.dense_relu_dense_max_bwd(x, *ws, idx, d_out, torch.bfloat16)
         torch.cuda.synchronize()
-    beyond = torch.cuda.max_memory_allocated() - base - sum(o.numel() * 4 for o in outs)
+    beyond = torch.cuda.max_memory_allocated() - base - sum(o.numel() * o.element_size() for o in outs)
     assert beyond < 0.1 * n * p * chid * 2, beyond
+
+
+def _k5_bwd_case(dev, n, p, seed=0, widths=(128, 1024)):
+    """The bf16 K5 backward's inputs: x, weights with every fourth channel's
+    bias at -50 (its gate closed on every row, idx 0), idx from the K5
+    forward, d_out with a sixth of the channels zero."""
+    cin, cout = widths
+    x, ws, d_out = _tail_case("K5", torch.Generator().manual_seed(seed), n, p, dev,
+                              torch.bfloat16, False, (cin, 0, cout))
+    ws[1][::4] = -50.0
+    d_out[:, ::6] = 0.0
+    with torch.no_grad():
+        _, idx = tail_ops.dense_relu_max_fwd(x, *ws, torch.bfloat16)
+    return x, ws, idx, d_out
+
+
+def _k5_hit_rows(x, ws, idx, d_out):
+    """(N, P) rows that a live channel points at, counting as live every
+    channel whose gate is within a rounding of flipping (the kernel's f32 dot
+    sums in another order than the plain one)."""
+    n, p, cin = x.shape
+    wc = ws[0].bfloat16().float()
+    rows = torch.gather(x.float(), 1, idx.long()[:, :, None].expand(-1, -1, cin))
+    pre = (rows * wc).sum(dim=2) + ws[1]
+    near = pre.abs() <= 1e-4 * max(1.0, pre.abs().max().item())
+    live = ((pre > 0) | near) & (d_out.bfloat16() != 0)
+    hit = torch.zeros(n, p, dtype=torch.bool, device=x.device)
+    hit[torch.arange(n, device=x.device)[:, None].expand_as(idx)[live], idx.long()[live]] = True
+    return hit
+
+
+@pytest.mark.parametrize("n,p,widths", [(1, 1024, (128, 1024)), (3, 1000, (128, 1024)),
+                                        (8, 40, (128, 1024)), (8, 1024, (128, 1024)),
+                                        (5, 300, (64, 640)), (3, 2500, (128, 1024))])
+def test_k5_bwd_bf16_vs_both_plain_versions(dev, n, p, widths):
+    x, ws, idx, d_out = _k5_bwd_case(dev, n, p, seed=n + p, widths=widths)
+    bf = torch.bfloat16
+    with torch.no_grad():
+        before = tail_ops.LAUNCHES["dense_relu_max_train_bwd"]
+        grads = tail_ops.dense_relu_max_bwd(x, *ws, idx, d_out, bf)
+        assert tail_ops.LAUNCHES["dense_relu_max_train_bwd"] == before + 1
+        assert [g.dtype for g in grads] == [bf, torch.float32, torch.float32]
+        for plain in (tail_ops.dense_relu_max_bwd_plain, tail_ops.dense_relu_max_bwd_critical_plain):
+            for g, ref in zip(grads, plain(x, *ws, idx, d_out, bf)):
+                assert g.shape == ref.shape
+                _assert_close(g.float(), ref.float(), bf)
+
+
+def test_k5_bwd_bf16_six_launches_are_bit_equal(dev):
+    x, ws, idx, d_out = _k5_bwd_case(dev, 40, 1024)
+    with torch.no_grad():
+        first = tail_ops.dense_relu_max_bwd(x, *ws, idx, d_out, torch.bfloat16)
+        for _ in range(5):
+            again = tail_ops.dense_relu_max_bwd(x, *ws, idx, d_out, torch.bfloat16)
+            assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_k5_bwd_bf16_dx_is_zero_on_rows_no_live_channel_points_at(dev):
+    n, p = 8, 1000
+    x, ws, idx, d_out = _k5_bwd_case(dev, n, p)
+    with torch.no_grad():
+        dx = tail_ops.dense_relu_max_bwd(x, *ws, idx, d_out, torch.bfloat16)[0]
+    hit = _k5_hit_rows(x, ws, idx, d_out)
+    assert dx.dtype == torch.bfloat16
+    assert dx[~hit].abs().max() == 0 and dx[hit].abs().max() > 0
+    assert (idx[:, ::4] == 0).all()        # the closed gates point at row 0 and add nothing there
+
+
+def test_k5_bwd_bf16_refuses_what_it_does_not_take(dev):
+    bf = torch.bfloat16
+    x, ws, d_out = _tail_case("K5", torch.Generator().manual_seed(0), 2, 64, dev, bf, False,
+                              (192, 0, 1024))
+    idx = torch.zeros(2, 1024, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="64 or 128"):
+        tail_ops.dense_relu_max_bwd(x, *ws, idx, d_out, bf)
+    x, ws, d_out = _tail_case("K5", torch.Generator().manual_seed(1), 2, 64, dev, bf, False,
+                              (128, 0, 2048))
+    idx = torch.zeros(2, 2048, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        tail_ops.dense_relu_max_bwd(x, *ws, idx, d_out, bf)
+    dx = tail_ops.dense_relu_max_bwd(x.float(), *ws, idx, d_out, torch.float32)[0]   # f32 takes it
+    assert dx.dtype == torch.float32
+    x, ws, idx, d_out = _k5_bwd_case(dev, 2, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        tail_ops.dense_relu_max_bwd(_misaligned(x), *ws, idx, d_out, bf)
+
+
+def test_k5_bwd_bf16_allocates_no_scratch_of_n_p_cin(dev):
+    n, p = 1024, 1024      # the train step's clouds: the dW partials do not grow with N
+    x, ws, idx, d_out = _k5_bwd_case(dev, n, p)
+    with torch.no_grad():
+        tail_ops.dense_relu_max_bwd(x, *ws, idx, d_out, torch.bfloat16)   # build, warm up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        outs = tail_ops.dense_relu_max_bwd(x, *ws, idx, d_out, torch.bfloat16)
+        torch.cuda.synchronize()
+    beyond = torch.cuda.max_memory_allocated() - base - sum(o.numel() * o.element_size() for o in outs)
+    assert beyond < 0.1 * n * p * x.shape[2] * 2, beyond
 
 
 def _k6_int_case(seed, n, p, dev, cdt, widths=(128, 512, 1024), twice=False):

@@ -9,6 +9,14 @@ custom-VJP Pallas kernels in interpret mode (f32), same numpy inputs:
     gradient to the lowest row only, where `amax` under autograd splits it;
   - `PointNetFeat(..., ENCODER_TAIL_TRAIN)` vs `pointnet_encode_fused_train`:
     outputs 1e-5, gradients to every parameter and to x 5e-4;
+  - K5's backward in the bf16 kernel's own order
+    (`dense_relu_max_bwd_critical_plain`: gate, route the gated d, the sums
+    over each critical row's segment, dx in x's dtype) vs JAX's VJP (f32,
+    2e-4) and vs the dense plain version (f32 1e-6, bf16 3 bf16 spacings, x
+    max(1, max|dense|); its bf16 dx equal to the dense f32 dx rounded once),
+    and its routing on tie-rich data with channels whose gate is closed on
+    every row;
+  - both Functions and both backward wrappers return dx in x's dtype;
   - K6's backward in the bf16 kernel's own order
     (`dense_relu_dense_max_bwd_critical_plain`: route, g, gate, products on
     the critical rows) vs the dense plain version and vs JAX's VJP, 2e-4, also
@@ -302,3 +310,105 @@ def test_k6_backward_schedule_fills_the_sms_once():
         assert 1 <= grid <= min(n, sms) and 1 <= g3 <= n and 1 <= g4 <= n
         assert g3 * chid // 64 <= max(sms, chid // 64)
         assert g4 * (chid // 128) * (cout // 128) <= max(sms, (chid // 128) * (cout // 128))
+
+
+BF16_SPACING = 2.0 ** -7         # bf16's spacing at 1.0: 8 significant bits
+
+
+def _k5_tied_case(seed, n, p, cin=128, cout=256):
+    """K5 operands rich in ties: every point twice, the first 16 channels
+    negative on every row (their gate is closed at idx 0), every sixth
+    cotangent zero."""
+    rng = np.random.default_rng(seed)
+    x = np.maximum(rng.normal(size=(n, p, cin)), 0).astype(np.float32)
+    x[:, p // 2:2 * (p // 2)] = x[:, :p // 2]
+    w = (rng.normal(size=(cout, cin)) * 0.1).astype(np.float32)
+    b = (rng.normal(size=(cout,)) * 0.1).astype(np.float32)
+    w[:16], b[:16] = -np.abs(w[:16]), -50.0
+    co = rng.normal(size=(n, cout)).astype(np.float32)
+    co[:, ::6] = 0.0
+    return x, w, b, co
+
+
+@pytest.mark.parametrize("n,p", [(4, 64), (3, 100)])
+def test_k5_backward_on_critical_rows_matches_jax(n, p):
+    x, w, b, co = _k5_case(60 + n, n, p)
+    _, idx, ref = _jax_k5(x, w, b, co)
+    got = train_ops.dense_relu_max_bwd_critical_plain(_t(x), _t(w.T), _t(b), _t(idx), _t(co), F32)
+    got = [got[0].numpy(), got[1].numpy().T, got[2].numpy()]
+    for i, (a, r) in enumerate(zip(got, ref)):
+        assert a.shape == r.shape and a.dtype == np.float32
+        np.testing.assert_allclose(a, r, atol=2e-4, rtol=0, err_msg=f"gradient {i}")
+
+
+@pytest.mark.parametrize("cdt", [F32, torch.bfloat16])
+@pytest.mark.parametrize("n,p,cin,cout", [(4, 64, 128, 256), (3, 100, 64, 384), (2, 1000, 128, 1024)])
+def test_k5_backward_on_critical_rows_matches_the_dense_plain_version(cdt, n, p, cin, cout):
+    x, w, b, co = map(torch.from_numpy, _k5_tied_case(70 + p, n, p, cin, cout))
+    xc = x.to(cdt)
+    _, idx = train_ops.dense_relu_max_fwd(xc, w, b, cdt)
+    crit = train_ops.dense_relu_max_bwd_critical_plain(xc, w, b, idx, co, cdt)
+    dense_plain = train_ops.dense_relu_max_bwd_plain(xc, w, b, idx, co, cdt)
+    assert crit[0].dtype == cdt and crit[1].dtype == crit[2].dtype == F32
+    tol = 1e-6 if cdt == F32 else 3 * BF16_SPACING
+    for i, (a, r) in enumerate(zip(crit, dense_plain)):
+        assert a.shape == r.shape
+        torch.testing.assert_close(a.float(), r, atol=tol * max(1.0, r.abs().max().item()), rtol=0,
+                                   msg=f"gradient {i}")
+    assert torch.equal(crit[0], dense_plain[0].to(cdt))     # dx: the f32 sum rounded once
+    assert crit[0].abs().max() > 0
+
+
+@pytest.mark.parametrize("n,p", [(3, 41), (2, 200)])
+def test_k5_backward_routes_only_live_channels(n, p):
+    """On tie-rich data with a ragged P: the keys that `route_rows` keeps are
+    the live channels (gate open, cotangent not zero), each once; the dead
+    ones point at row 0 or at a lower tied row and add nothing; dx is zero on
+    every row that no live channel points at, and on every upper tied row."""
+    x, w, b, co = map(torch.from_numpy, _k5_tied_case(80 + p, n, p))
+    cdt = torch.bfloat16
+    xc = x.to(cdt)
+    _, idx = train_ops.dense_relu_max_fwd(xc, w, b, cdt)
+    upper = slice(p // 2, 2 * (p // 2))             # the upper copy of each tied pair
+    assert (idx[:, :16] == 0).all() and not ((idx >= upper.start) & (idx < upper.stop)).any()
+    wc = w.to(cdt).float()
+    pre = (torch.gather(xc.float(), 1, idx.long()[:, :, None].expand(-1, -1, 128)) * wc).sum(2) + b
+    d = torch.where(pre > 0, co, 0.0).to(cdt).float()
+    live = d != 0
+    assert not live[:, :16].any() and not live[:, ::6].any() and live.any()
+    chan, seg, rows, count = train_ops.route_rows(idx, d)
+    dx = train_ops.dense_relu_max_bwd_critical_plain(xc, w, b, idx, co, cdt)[0]
+    for k in range(n):
+        kept = chan[k][chan[k] >= 0]
+        assert sorted(kept.tolist()) == torch.nonzero(live[k]).flatten().tolist()
+        hit = torch.zeros(p, dtype=torch.bool)
+        hit[idx[k][live[k]].long()] = True
+        assert rows[k, :count[k]].tolist() == torch.nonzero(hit).flatten().tolist()
+        assert dx[k][~hit].abs().max() == 0 and dx[k][hit].abs().amax(dim=1).min() > 0
+    assert dx[:, upper].abs().max() == 0
+
+
+@pytest.mark.parametrize("cdt", [F32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["K5", "K6"])
+def test_train_tails_return_dx_in_x_dtype(kind, cdt):
+    """Both Functions hand autograd dx in x's dtype, and both backward
+    wrappers return it so (no cast after them); weight gradients f32."""
+    if kind == "K5":
+        x, w, b, co = _k5_case(90, 2, 40)
+        ws = [_t(w.T, True), _t(b, True)]
+        train, fwd, bwd = train_ops.dense_relu_max_train, train_ops.dense_relu_max_fwd, \
+            train_ops.dense_relu_max_bwd
+    else:
+        x, w3, b3, w4, b4, co = _k6_case(90, 2, 40)
+        ws = [_t(w3.T, True), _t(b3, True), _t(w4.T, True), _t(b4, True)]
+        train, fwd, bwd = train_ops.dense_relu_dense_max_train, \
+            train_ops.dense_relu_dense_max_fwd, train_ops.dense_relu_dense_max_bwd
+    xt = _t(x).to(cdt).requires_grad_(True)
+    (train(xt, *ws, cdt) * _t(co)).sum().backward()
+    assert xt.grad.dtype == cdt and all(wt.grad.dtype == F32 for wt in ws)
+    with torch.no_grad():
+        xd = xt.detach()
+        _, idx = fwd(xd, *ws, cdt)
+        grads = bwd(xd, *[wt.detach() for wt in ws], idx, _t(co), cdt)
+    assert grads[0].dtype == cdt and all(g.dtype == F32 for g in grads[1:])
+    assert torch.equal(grads[0], xt.grad)
