@@ -1,6 +1,6 @@
 // Widths and per-object GroupNorm helpers shared by the rotation-head
-// kernels: K3 (rot_head.cu, forward), K7/K8 (rot_head_multi.cu, forward with
-// several objects per block) and K4 (rot_head_bwd.cu, backward).
+// kernels: K3, K7 and K8 (rot_head.cu, forward; K7/K8 with several objects per
+// block) and K4 (rot_head_bwd.cu, backward).
 // Both heads run joint as C = 512 channels ([0:256] head x, [256:512]
 // head y) with 64 GroupNorm groups of 8 channels over all P points.
 #pragma once

@@ -1,10 +1,11 @@
-// What the two `wgmma` builds of the rotation heads share: K3 forward
-// (rot_head.cu) and K4 backward (rot_head_bwd.cu), both bf16, both one block
-// per (object, head) with the head's weights resident in shared memory, a
-// producer warpgroup that feeds 64-point tiles through a ring, and two consumer
-// warpgroups on alternate tiles. Here: the block's geometry, a consumer
-// thread's coordinates, the polynomial GELU and its derivative of the
-// epilogues, and the register bookkeeping of per-group sums.
+// What the two `wgmma` builds of the rotation heads share: K3 forward (with
+// K7/K8, its instantiations with several objects per block; rot_head.cu) and
+// K4 backward (rot_head_bwd.cu), both bf16, both blocks of one head with the
+// head's weights resident in shared memory, a producer warpgroup that feeds
+// 64-point tiles through a ring, and two consumer warpgroups on alternate tiles.
+// Here: the block's geometry, a consumer thread's coordinates, the polynomial
+// GELU and its derivative of the epilogues, and the register bookkeeping of
+// per-group sums.
 #pragma once
 
 #include "rot_head.cuh"

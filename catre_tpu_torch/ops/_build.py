@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SMEM_LIMIT = 232448     # bytes of dynamic shared memory one block may ask for on sm_90
 KERNEL_SOURCES = ("encoder_epilogue", "rot_head", "rot_head_bwd", "encoder_epilogue_train",
-                  "rot_head_multi", "encoder_chain")
+                  "encoder_chain")
 
 
 class KernelBuildError(RuntimeError):

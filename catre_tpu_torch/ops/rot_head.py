@@ -10,7 +10,8 @@ CPU tensor and launches `csrc/rot_head.cu` for a CUDA tensor, never falling
 back. With `group > 1` (K7), and in the blocked form
 `fused_conv_per_rot_head_blocked` (K8, counterpart of
 `pallas_heads_blocked.py:112`), several objects share a block: those run
-`ops/rot_head_multi.py` over `csrc/rot_head_multi.cu`.
+`ops/rot_head_multi.py` over the same CUDA kernel, instantiated with G
+objects per block and a rounded point reduction.
 
 The kernel hard-codes the flagship widths: 64-d point features, 1024-d
 globals, two layers of 256 per head, 32 GroupNorm groups per head and a

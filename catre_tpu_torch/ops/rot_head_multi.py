@@ -8,9 +8,12 @@ Counterpart of two Pallas kernels of the JAX package:
 On the TPU the two differ in how G objects share one grid step (stacked
 GroupNorm statistics and block-diagonal point weights in K7, per-head static
 slices in K8) and K8 takes one gterm per head; both compute one function. On
-this card they are one CUDA kernel (`csrc/rot_head_multi.cu`, templated on
-the objects per block, 2, 4 or 8) behind two wrappers with a launch counter
-each, on the packed parameters of `ops/rot_head.py::pack_rot_head`.
+this card they are one CUDA kernel behind two wrappers with a launch counter
+each, on the packed parameters of `ops/rot_head.py::pack_rot_head`: K3's
+(`csrc/rot_head.cu`, entry `catre_rot_head_multi`), instantiated with G = 2,
+4 or 8 objects per block and the rounded point reduction. A block owns (G
+objects, one head) and stages the head's weights once; in bf16 the three G
+give the same bits, and any P that K3 takes runs.
 
 The function is K3's but for the point reduction: both Pallas bodies round
 y = GELU(GN1(x1)) and the point weights pw to the compute dtype before
@@ -50,11 +53,9 @@ def rot_head_multi_twin(pf, gterm, p: RotHeadPack, n_pcl: int):
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("rot_head_multi")
-    lib.catre_rot_head_multi.argtypes = [_P] * 9 + [_I] * 5 + [_P]
+    lib = _build.load("rot_head")
+    lib.catre_rot_head_multi.argtypes = [_P] * 14 + [_I] * 5 + [_P]
     lib.catre_rot_head_multi.restype = _I
-    lib.catre_rot_head_multi_smem.argtypes = [_I, _I]
-    lib.catre_rot_head_multi_smem.restype = _I
     return lib
 
 
@@ -68,16 +69,13 @@ def _rot_head_multi(name: str, pf, gterm, p: RotHeadPack, n_pcl: int, group: int
     if pf.device.type == "cpu":
         return rot_head_multi_twin(pf, gterm, p, n_pcl)
     kernel_operands(name, pf, gterm, p, n_pcl)
-    bf16 = int(p.cdt == torch.bfloat16)
-    if _lib().catre_rot_head_multi_smem(P, bf16) > _build.SMEM_LIMIT:
-        raise ValueError(f"{name}: the point weights of {P} points do not fit a block's shared "
-                         "memory; the per-object kernel (group=1) takes any P")
-    chan = torch.stack([p.b0, p.gn0s, p.gn0b, p.b1, p.gn1s, p.gn1b])
-    args = [pf, gterm, p.w_pt, chan, p.w1, p.pw, p.neck, p.bias6]
+    args = [pf, gterm, p.w_pt, p.b0, p.gn0s, p.gn0b, p.w1, p.b1, p.gn1s, p.gn1b,
+            p.pw, p.neck, p.bias6]
     _build.cuda_inputs(name, *args)
     out = torch.empty(B, 6, device=pf.device, dtype=torch.float32)
     rc = _lib().catre_rot_head_multi(*[t.data_ptr() for t in args], out.data_ptr(), B, P, n_pcl,
-                                     group, bf16, _build.stream_handle(pf.device))
+                                     group, int(p.cdt == torch.bfloat16),
+                                     _build.stream_handle(pf.device))
     _build.check(rc, name)
     LAUNCHES[name] += 1
     return out

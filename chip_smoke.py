@@ -15,10 +15,14 @@ code is non-zero):
                bare accumulator), their launches bit-equal, and a point count
                their 128-point tile does not divide; K3's chained
                tensor-core products alone, its launches bit-equal, and a point
-               count its tile does not divide; K7 and K8 (2,
-               4 and 8 objects per block) vs their plain version, and vs K3 in
-               f32, at the same shapes; K9 vs its plain version for the three
-               encoder columns at 512 clouds x 1024 points;
+               count its tile does not divide; K7 and K8 (K3's kernel with 2,
+               4 and 8 objects per block and a rounded point reduction) vs
+               their plain version, and vs K3 in f32, at the same shapes, in
+               bf16 bit-equal across the objects per block and over six
+               launches, at P = 900 (45 tiles an object) in f32 and bf16, with
+               ptxas' registers, spills and stack frame; K9 vs its plain
+               version for the three encoder columns at 512 clouds x 1024
+               points;
   4. identity: canned identity-delta heads with init = gt: 4 refine
                iterations must return the init;
   5. refine:   the flagship refine from `catre_tpu_torch.entry.entry` (shipped
@@ -91,6 +95,9 @@ REFINE_BATCHES = (256, 2048)
 REFINE_CALLS = 3             # timed refine calls per batch size, after one warm-up
 K3_REPEATS = 5               # further launches of K3 that must give the first one's bits
 K3_RAGGED = (1999, 1000)     # points and cloud points that K3's 64-point tile does not divide
+MULTI_REPEATS = 5            # further launches of K7 / K8 that must give the first one's bits
+MULTI_RAGGED = (900, 450)    # K7 / K8: 15 tiles an object, 45 in a block's sequence per object
+MULTI_KERNEL = "rot_head_wgmma_kernelILi{}ELb1E"   # the bf16 K7/K8 at G objects a block
 CHAIN_TOL, CHAIN_TOL_ROUNDED = 1e-5, 1e-3    # K3's two chained products, x max|plain|
 TAIL_REPEATS = 5             # further launches of K1 / K2 that must give the first one's bits
 TAIL_RAGGED = 1000           # points that K1's and K2's 128-point tile does not divide
@@ -184,7 +191,12 @@ def nearer_its_own_version(tag, out, own, other, what):
 def check_rot_head_multi(rot_args):
     """K7 and K8 at every objects-per-block count vs their plain version, f32
     and bf16, and vs K3 in f32 (where the rounded point reduction vanishes);
-    times in bf16 per count. -> {"K7": ..., "K8": ...} at PATH_GROUP."""
+    in bf16 the same bits at every count and over MULTI_REPEATS more launches
+    (an object's sums have one order whatever its block); P = 900, where the
+    ring's stage, phase and warpgroup turn over at object boundaries; times in
+    bf16 per count. -> {"K7": ..., "K8": ...} at PATH_GROUP, with ptxas'
+    figures of that instantiation."""
+    from catre_tpu_torch.ops import _build
     from catre_tpu_torch.ops import rot_head as rot_ops
     from catre_tpu_torch.ops import rot_head_multi as multi_ops
 
@@ -194,9 +206,13 @@ def check_rot_head_multi(rot_args):
         args = rot_args(cdt)
         ref, k3_plain = multi_ops.rot_head_multi_twin(*args), rot_ops.rot_head_twin(*args)
         k3 = rot_ops.rot_head(*args)
+        first = multi_ops.rot_head_blocked(*args, PATH_GROUP)
         for tag, fn in wrappers.items():
             for group in GROUPS:
                 out = fn(*args, group)
+                if cdt == torch.bfloat16 and not torch.equal(out, first):
+                    raise RuntimeError(f"{tag} {group} objects per block bf16: not the bits of "
+                                       f"K8 at {PATH_GROUP}")
                 errs[tag, cdt] = max(errs[tag, cdt], tensor_errors(
                     "kernels", f"{tag} {group} objects per block", cdt, [out], [ref], ["out"]))
                 if cdt == torch.float32:
@@ -211,6 +227,25 @@ def check_rot_head_multi(rot_args):
         k3_gap = (k3 - ref).abs().max().item()
         log("kernels", f"K3 vs the K7/K8 plain version {str(cdt)[6:]}: {k3_gap:.3e} "
                        "(the rounded point reduction)")
+        if cdt == torch.bfloat16:
+            log("kernels", f"K7, K8 bf16: {len(GROUPS)} objects-per-block counts bit-equal")
+            for _ in range(MULTI_REPEATS):
+                if not torch.equal(first, multi_ops.rot_head_blocked(*args, PATH_GROUP)):
+                    raise RuntimeError("K8 bf16: two launches on the same inputs differ")
+            log("kernels", f"K8 bf16: {1 + MULTI_REPEATS} launches on the same inputs bit-equal")
+        p_ragged, n_pcl = MULTI_RAGGED
+        pf, gterm, pack, _ = args
+        pf = pf[:, :p_ragged].contiguous()
+        pack = dataclasses.replace(pack, pw=pack.pw[:, :p_ragged].contiguous())
+        plain = multi_ops.rot_head_multi_twin(pf, gterm, pack, n_pcl)
+        for tag, fn in wrappers.items():
+            outs = [fn(pf, gterm, pack, n_pcl, group) for group in GROUPS]
+            tensor_errors("kernels", f"{tag} P={p_ragged} n_pcl={n_pcl}", cdt, outs,
+                          [plain] * len(GROUPS), [f"{group} objects per block" for group in GROUPS])
+            if cdt == torch.bfloat16 and not all(torch.equal(o, outs[0]) for o in outs):
+                raise RuntimeError(f"{tag} P={p_ragged} bf16: objects-per-block counts differ")
+    report = _build.ptxas_report("rot_head", MULTI_KERNEL.format(PATH_GROUP))
+    log("kernels", f"K7/K8 bf16 kernel {MULTI_KERNEL.format(PATH_GROUP)}: {report}")
     plain_ms = time_ms(lambda: multi_ops.rot_head_multi_twin(*args))
     k3_ms = time_ms(lambda: rot_ops.rot_head(*args))
     results = {}
@@ -222,7 +257,7 @@ def check_rot_head_multi(rot_args):
         results[tag] = {"max_abs_err": errs[tag, torch.bfloat16],
                         "max_abs_err_f32": errs[tag, torch.float32],
                         "ms": by_group[PATH_GROUP], "plain_ms": plain_ms,
-                        "ms_by_objects_per_block": by_group}
+                        "ms_by_objects_per_block": by_group, "k3_ms": k3_ms, **report}
     return results
 
 
@@ -1186,10 +1221,10 @@ def main():
         dict(name="K6 dense_relu_dense_max_train_bwd", route="cuda",
              source=src + "encoder_tail_bwd_wgmma.cuh", replaces=vjp + "121",
              launches=launches["dense_relu_dense_max_train_bwd"], **results["K6 bwd"]),
-        dict(name="K7 rot_head_grouped", route="cuda", source=src + "rot_head_multi.cu",
+        dict(name="K7 rot_head_grouped", route="cuda", source=src + "rot_head.cu",
              replaces="catre_tpu/ops/pallas_heads.py:358",
              launches=launches["rot_head_grouped"], **results["K7"]),
-        dict(name="K8 rot_head_blocked", route="cuda", source=src + "rot_head_multi.cu",
+        dict(name="K8 rot_head_blocked", route="cuda", source=src + "rot_head.cu",
              replaces="catre_tpu/ops/pallas_heads_blocked.py:141",
              launches=launches["rot_head_blocked"], **results["K8"]),
     ] + [

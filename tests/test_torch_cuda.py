@@ -935,8 +935,11 @@ def test_train_step_launches_k3_and_k4(dev, fused_encoder_train):
     assert all(torch.isfinite(p).all() for p in state.params.values())
 
 
+# P = 900: 15 tiles of 64 points an object, 45 in a block's sequence per object,
+# so ring stage, mbarrier phase and warpgroup turn over at object boundaries
 @pytest.mark.parametrize("cdt", DTYPES)
-@pytest.mark.parametrize("b,p,k,group", [(8, 1024, 1024, 2), (8, 1024, 1024, 8), (12, 96, 40, 4)])
+@pytest.mark.parametrize("b,p,k,group", [(8, 1024, 1024, 2), (8, 1024, 1024, 8), (12, 96, 40, 4),
+                                         (8, 450, 450, 4)])
 def test_rot_head_multi_kernel(dev, cdt, b, p, k, group):
     gen = torch.Generator().manual_seed(20 + b)
     head = _scaled_head(gen, p + k, dev)
@@ -950,6 +953,10 @@ def test_rot_head_multi_kernel(dev, cdt, b, p, k, group):
         blocked = multi_ops.rot_head_blocked(pf, gterm, pack, p, group)
         assert multi_ops.LAUNCHES == {k_: v + 1 for k_, v in before.items()}
         assert torch.equal(grouped, blocked)
+        assert torch.equal(grouped, multi_ops.rot_head_grouped(pf, gterm, pack, p, group))
+        for other in multi_ops.OBJECTS_PER_BLOCK:     # an object's sums, whatever its block
+            if b % other == 0:
+                assert torch.equal(grouped, multi_ops.rot_head_blocked(pf, gterm, pack, p, other))
         _assert_close(grouped, multi_ops.rot_head_multi_twin(pf, gterm, pack, p), cdt)
         if cdt == torch.float32:       # without rounding K7/K8 compute K3's function
             _assert_close(grouped, rot_ops.rot_head(pf, gterm, pack, p), cdt)
@@ -1022,11 +1029,21 @@ def test_variant_wrappers_raise_on_bad_input(dev):
         pack = rot_ops.pack_rot_head(head, torch.float32)
         with pytest.raises(ValueError):
             multi_ops.rot_head_blocked(pf.bfloat16(), gterm, pack, 64, 2)   # pf not in cdt
-        big = _scaled_head(gen, 4096, dev)
-        with pytest.raises(ValueError, match="shared memory"):              # 4096 point weights
-            multi_ops.rot_head_grouped(torch.zeros(2, 4096, 64, device=dev, dtype=torch.bfloat16),
-                                       torch.zeros(2, 2, 512, device=dev),
-                                       rot_ops.pack_rot_head(big, torch.bfloat16), 2048, 2)
+
+
+@pytest.mark.parametrize("cdt", DTYPES)
+def test_rot_head_multi_takes_any_point_count(dev, cdt):
+    """No point weights in shared memory: K7/K8 take a P that K3 takes, here
+    4096 (the old kernel refused it)."""
+    gen = torch.Generator().manual_seed(8)
+    head = _scaled_head(gen, 4096, dev)
+    pf = (torch.randn(2, 4096, 64, generator=gen) * 0.5).to(dev, cdt)
+    g2 = (torch.randn(2, 2, 1024, generator=gen) * 0.5).to(dev)
+    with torch.no_grad():
+        pack = rot_ops.pack_rot_head(head, cdt)
+        gterm = (g2 @ pack.w_g.T).contiguous()
+        _assert_close(multi_ops.rot_head_grouped(pf, gterm, pack, 2048, 2),
+                      multi_ops.rot_head_multi_twin(pf, gterm, pack, 2048), cdt)
 
 
 @pytest.mark.parametrize("overrides,want", [

@@ -1,7 +1,15 @@
 """The port's two remaining inference variants on the CPU (their plain
 versions) vs the JAX package's Pallas kernels in interpret mode:
   - the K7/K8 plain version vs `fused_conv_per_rot_head(group=G)`: 1e-5, and
-    vs `fused_conv_per_rot_head_blocked(block_size=G)`, weights x50: 3e-4;
+    vs `fused_conv_per_rot_head_blocked(block_size=G)`, weights x50: 3e-4, at
+    G = 2, 4 and 8; in bf16 vs both Pallas bodies run in bf16 (the JAX
+    wrappers compute in f32 in interpret mode, so the test forces interpret
+    mode under the TPU path's compute dtype, compiled without excess
+    precision): within 1/8 of a bf16 spacing of max|out|, and far nearer
+    them than K3's plain version;
+  - the K7/K8 plain version on the whole batch is, bit for bit, its results
+    on G-object chunks concatenated (each object on its own, as the kernel's
+    sums are whatever the block);
   - the `B % G != 0` fallback equals the per-object op and counts as K3;
   - in bf16 the rounded point reduction moves the result (so it cannot be
     dropped unnoticed) by less than the card's 3e-2 gate;
@@ -21,6 +29,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
 
 from catre_tpu.engine.refiner import make_refine_fn as jax_make_refine_fn
 from catre_tpu.models import CATREConfig as JaxConfig
@@ -69,7 +78,7 @@ def _rot_head_case(seed, b, p, k, scale):
     return pf, g_pcl, g_kps, params, head
 
 
-@pytest.mark.parametrize("group", [2, 4])
+@pytest.mark.parametrize("group", [2, 4, 8])
 def test_grouped_rot_head_matches_pallas(group):
     """K7 at the size of `tests/test_pallas_heads.py::
     test_grouped_kernel_matches_per_object` and to its tolerance."""
@@ -85,7 +94,7 @@ def test_grouped_rot_head_matches_pallas(group):
     assert not any(ops.launch_counts().values())      # the CPU runs the plain version
 
 
-@pytest.mark.parametrize("block_size", [2, 4])
+@pytest.mark.parametrize("block_size", [2, 4, 8])
 def test_blocked_rot_head_matches_pallas(block_size):
     """K8 with weights x50, to the tolerance of `tests/test_pallas_blocked.py`."""
     pf, g_pcl, g_kps, params, head = _rot_head_case(61, 8, 64, 64, 50.0)
@@ -98,6 +107,68 @@ def test_blocked_rot_head_matches_pallas(block_size):
                                                   group=block_size)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=3e-4, rtol=0)
     assert torch.equal(out, grouped)                  # one function behind both wrappers
+
+
+@pytest.mark.parametrize("cdt", [F32, BF16])
+def test_multi_twin_is_the_same_on_any_chunking(cdt):
+    """Each object of the K7/K8 plain version is computed on its own: the
+    whole batch gives the G-object chunks' results concatenated, bit for bit.
+    The kernel relies on the same property: an object's sums have one order,
+    whatever block it lands in, so that G = 2, 4 and 8 give the same bits."""
+    pf, g_pcl, g_kps, _, head = _rot_head_case(7, 8, 64, 64, 50.0)
+    with torch.no_grad():
+        pack = rot_ops.pack_rot_head(head, cdt)
+        gterm = torch.stack([_t(g_pcl), _t(g_kps)], dim=1) @ pack.w_g.T
+        x = _t(pf).to(cdt)
+        whole = multi_ops.rot_head_multi_twin(x, gterm, pack, 64)
+        for g in multi_ops.OBJECTS_PER_BLOCK:
+            chunks = [multi_ops.rot_head_multi_twin(x[i:i + g], gterm[i:i + g], pack, 64)
+                      for i in range(0, 8, g)]
+            assert torch.equal(whole, torch.cat(chunks)), g
+
+
+def _pallas_bf16(fn, pf, g_pcl, g_kps, params, **kw):
+    """A JAX rot-head wrapper's Pallas body computed in bf16 on the CPU. The
+    wrappers switch to f32 in interpret mode (`cdt = jnp.float32 if interpret
+    else compute_dtype`), so they are called on their TPU path with every
+    `pallas_call` forced into interpret mode, and compiled without excess
+    precision: XLA on the CPU may otherwise keep an f32 value where the body
+    rounds to bf16."""
+    def fwd(a, b, c):
+        return fn(a, b, c, params, n_pcl=64, interpret=False, compute_dtype=jnp.bfloat16, **kw)
+
+    args = list(map(jnp.asarray, (pf, g_pcl, g_kps)))
+    compiled = jax.jit(fwd).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+    return np.asarray(compiled(*args))
+
+
+@pytest.mark.parametrize("form", ["grouped", "blocked"])
+def test_multi_twin_matches_the_pallas_bodies_in_bf16(form, monkeypatch):
+    """The K7/K8 plain version in bf16 vs the Pallas grouped / blocked body in
+    bf16 (4 objects a grid step), weights x50: within 1/8 of a bf16 spacing of
+    max|out| (2^(floor(log2 max|out|) - 7)), and on average under a quarter of
+    the distance of K3's plain version (f32 point reduction) to the same
+    body."""
+    call = pl.pallas_call
+    monkeypatch.setattr(pl, "pallas_call", lambda *a, **k: call(*a, **{**k, "interpret": True}))
+    pf, g_pcl, g_kps, params, head = _rot_head_case(11, 8, 64, 64, 50.0)
+    with torch.no_grad():
+        if form == "grouped":
+            ref = _pallas_bf16(jax_rot_head, pf, g_pcl, g_kps, params, group=4)
+            out = rot_ops.fused_conv_per_rot_head(_t(pf), _t(g_pcl), _t(g_kps), head, 64, BF16,
+                                                  group=4)
+        else:
+            ref = _pallas_bf16(jax_blocked, pf, g_pcl, g_kps, params, block_size=4)
+            out = rot_ops.fused_conv_per_rot_head_blocked(_t(pf), _t(g_pcl), _t(g_kps), head, 64,
+                                                          BF16, 4)
+        pack = rot_ops.pack_rot_head(head, BF16)
+        gterm = torch.stack([_t(g_pcl), _t(g_kps)], dim=1) @ pack.w_g.T
+        k3 = rot_ops.rot_head_twin(_t(pf).to(BF16), gterm, pack, 64).numpy()
+    out = out.numpy()
+    spacing = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+    assert np.abs(out - ref).max() <= spacing / 8
+    assert np.abs(out - ref).mean() <= 0.25 * np.abs(k3 - ref).mean()
 
 
 def test_ragged_batch_falls_back_to_the_per_object_op():
