@@ -11,25 +11,28 @@
 // Rounding follows _chain_kernel (:35-42), not flax Dense as K1/K2 do: x and
 // the weights in T, products accumulated in f32, the f32 bias added in f32,
 // one rounding to T after each of the first two ReLUs, the last layer left in
-// f32. T is bf16 (production) or f32 (checks).
+// f32. T is bf16 (production, encoder_chain_wgmma.cuh) or f32 (checks, below).
 //
 // What bounds it on the card: arithmetic. Per point the main column does
 // 2 * (64*128 + 128*512 + 512*1024) = 1.2 MFLOP on 128 input bytes (bf16).
 // Unfused, three (points x channels) activations would be written and read.
 //
-// Design: one block per cloud walks the cloud in tiles of TM points (128 in
-// bf16, 64 in f32). The tile's h1 (TM x c1) and h2 (TM x c2) stay in shared
-// memory (34 KB and 133 KB for the main column in bf16); the third product
-// runs over output chunks of 128 channels, each folded from its register
-// accumulators into a running max per output channel, which starts at -inf.
-// Bias and ReLU of the last layer commute with the max and are applied once
-// per cloud. The products are `gemm_tile` (common.cuh), which wants 128 output
-// columns and a depth in multiples of 64: the x tile is zero-padded to
+// The bf16 build, the production one, is encoder_chain_wgmma.cuh: `wgmma`,
+// the hidden layers chained through registers, the main column on K1's
+// kernel and the STN columns on K2's. The f32 build below serves checks: one
+// block per cloud walks the cloud in tiles of 64 points with `gemm_tile`
+// (common.cuh, plain FMA in f32). The tile's h1 (64 x c1) and h2 (64 x c2)
+// stay in shared memory; the third product runs over output chunks of 128
+// channels, each folded from its register accumulators into a running max
+// per output channel, which starts at -inf. Bias and ReLU of the last layer
+// commute with the max and are applied once per cloud. `gemm_tile` wants 128
+// output columns and a depth in multiples of 64: the x tile is zero-padded to
 // cin_p = ceil64(cin) columns in shared memory (for cin = 3, read with scalar
 // loads: no padded copy of x exists in device memory), and the caller pads W1
 // to (ceil128(c1), cin_p) with zeros; of layer 1's 128 columns only the first
 // c1 are kept.
 #include "common.cuh"
+#include "encoder_chain_wgmma.cuh"
 
 using namespace catre;
 
@@ -137,21 +140,29 @@ Widths widths(int cin, int c1, int c2, int c3) {
 
 }  // namespace
 
-// Shared memory one block needs at these widths, so that the wrapper can
-// refuse widths that do not fit before it launches.
+// Shared memory one block needs at these widths (bf16: of the `wgmma` design
+// that takes them, 0 if none does), so that the wrapper can refuse widths
+// that do not fit before it launches.
 extern "C" int catre_chain3_max_smem(int cin, int c1, int c2, int c3, int bf16) {
-  const Widths w = widths(cin, c1, c2, c3);
-  return static_cast<int>(bf16 ? smem_bytes<catre::bf16>(w) : smem_bytes<float>(w));
+  return static_cast<int>(bf16 ? chain::smem_bytes(cin, c1, c2, c3)
+                               : smem_bytes<float>(widths(cin, c1, c2, c3)));
 }
 
-// x (n, p, cin), w1p (ceil128(c1), ceil64(cin)) zero-padded, w2 (c2, c1) and
-// w3 (c3, c2) in T = bf16 if `bf16` else f32; b1 (c1), b2 (c2), b3 (c3) f32;
-// out (n, c3) f32. c1 % 64 == 0, c2 % 128 == 0, c3 % 128 == 0.
-extern "C" int catre_chain3_max(const void* x, const void* w1p, const void* b1, const void* w2,
+// 128-channel chunks of W3 that a block of the bf16 STN design keeps (the
+// wrapper's grid needs them).
+extern "C" int catre_chain3_max_chunks() { return chain::kChunks; }
+
+// x (n, p, cin) and the weights in T = bf16 if `bf16` else f32; b1 (c1), b2
+// (c2), b3 (c3) f32; out (n, c3) f32. f32: w1 comes as w1p (ceil128(c1),
+// ceil64(cin)) zero-padded, w2 (c2, c1), w3 (c3, c2); c1 % 64 == 0, c2 % 128
+// == 0, c3 % 128 == 0; `grid` unused. bf16: the widths and layouts of
+// encoder_chain_wgmma.cuh::run, `grid` the STN design's persistent blocks.
+extern "C" int catre_chain3_max(const void* x, const void* w1, const void* b1, const void* w2,
                                 const void* b2, const void* w3, const void* b3, void* out, int n,
                                 int p, int cin, int c1, int c2, int c3, int relu_last, int bf16,
-                                void* stream) {
-  const Widths w = widths(cin, c1, c2, c3);
-  return bf16 ? run<catre::bf16>(x, w1p, b1, w2, b2, w3, b3, out, n, p, w, relu_last, stream)
-              : run<float>(x, w1p, b1, w2, b2, w3, b3, out, n, p, w, relu_last, stream);
+                                int grid, void* stream) {
+  if (bf16)
+    return chain::run(x, w1, b1, w2, b2, w3, b3, out, n, p, cin, c1, c2, c3, relu_last, grid, stream);
+  return run<float>(x, w1, b1, w2, b2, w3, b3, out, n, p, widths(cin, c1, c2, c3), relu_last,
+                    stream);
 }

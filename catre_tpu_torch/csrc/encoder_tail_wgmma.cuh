@@ -145,13 +145,15 @@ __device__ __forceinline__ void product_h(float (&acc)[64], const unsigned char*
   sm.ring.release(n - 1);
 }
 
-// h = relu(round(round(acc) + b3)) of GEMM1 chunk j into the warpgroup's rows
-// of the h tile: per pair of n-tiles one stmatrix of four 8 x 8 matrices
-// (rows g / g + 8 of n-tile jj, then of jj + 1). Lane l addresses row (l % 8)
-// + 8 ((l / 8) % 2) of n-tile jj + l / 16; panel and 16-byte chunk of that
-// n-tile's 8 columns under the 128-byte swizzle (row % 8 = l % 8).
-__device__ __forceinline__ void store_h(const float (&acc)[64], unsigned char* h, int j,
-                                        const float* b3, const Who& me) {
+// Chunk j of an accumulator into the warpgroup's rows of the h tile, each
+// element v of column c as the bf16 value of epi(v, b[128 j + c]): per pair of
+// n-tiles one stmatrix of four 8 x 8 matrices (rows g / g + 8 of n-tile jj,
+// then of jj + 1). Lane l addresses row (l % 8) + 8 ((l / 8) % 2) of n-tile
+// jj + l / 16; panel and 16-byte chunk of that n-tile's 8 columns under the
+// 128-byte swizzle (row % 8 = l % 8). K9's main column stores its h2 with it.
+template <typename Epi>
+__device__ __forceinline__ void store_tile(const float (&acc)[64], unsigned char* h, int j,
+                                           const float* b, const Who& me, Epi epi) {
   const int row = kHalfTile * me.wgi + 16 * me.w + (me.lane & 7) + 8 * ((me.lane >> 3) & 1);
   const uint32_t row_addr = wg::smem_addr(h) + row * wg::kRowBytes;
 #pragma unroll
@@ -160,16 +162,22 @@ __device__ __forceinline__ void store_h(const float (&acc)[64], unsigned char* h
 #pragma unroll
     for (int d = 0; d < 2; ++d) {
       const int k = 4 * (jj + d);
-      const float2 b = __ldg(reinterpret_cast<const float2*>(b3 + 128 * j + 8 * (jj + d) + 2 * me.t));
-      r[2 * d] = wg::pack_a(fmaxf(round_to<bf16>(round_to<bf16>(acc[k]) + b.x), 0.0f),
-                            fmaxf(round_to<bf16>(round_to<bf16>(acc[k + 1]) + b.y), 0.0f));
-      r[2 * d + 1] = wg::pack_a(fmaxf(round_to<bf16>(round_to<bf16>(acc[k + 2]) + b.x), 0.0f),
-                                fmaxf(round_to<bf16>(round_to<bf16>(acc[k + 3]) + b.y), 0.0f));
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(b + 128 * j + 8 * (jj + d) + 2 * me.t));
+      r[2 * d] = wg::pack_a(epi(acc[k], bb.x), epi(acc[k + 1], bb.y));
+      r[2 * d + 1] = wg::pack_a(epi(acc[k + 2], bb.x), epi(acc[k + 3], bb.y));
     }
     const int col8 = 16 * j + jj + (me.lane >> 4);     // the n-tile's 8-column group in h
     const uint32_t addr = row_addr + (col8 >> 3) * kPanelBytes + (((col8 & 7) ^ (me.lane & 7)) << 4);
     wg::stmatrix_x4(addr, r[0], r[1], r[2], r[3]);
   }
+}
+
+// h = relu(round(round(acc) + b3)) of GEMM1 chunk j into the warpgroup's rows of the h tile.
+__device__ __forceinline__ void store_h(const float (&acc)[64], unsigned char* h, int j,
+                                        const float* b3, const Who& me) {
+  store_tile(acc, h, j, b3, me, [](float v, float b) {
+    return fmaxf(round_to<bf16>(round_to<bf16>(v) + b), 0.0f);
+  });
 }
 
 #ifdef CATRE_K6F_BARE_FOLD

@@ -24,7 +24,8 @@ so the kernel and its plain version `rot_head_multi_twin` both round.
 
 Each wrapper runs the plain version for a CPU tensor and launches the kernel
 for a CUDA tensor, never falling back; both raise unless the objects per
-block divide B. The fallback of the grouped form to K3 is in
+block divide B. As in JAX, any G that divides B runs on the CPU; on the card
+a G outside `OBJECTS_PER_BLOCK` raises. The fallback of the grouped form to K3 is in
 `ops/rot_head.py::fused_conv_per_rot_head`, the blocked form's in the model.
 """
 
@@ -61,13 +62,13 @@ def _lib() -> ctypes.CDLL:
 
 def _rot_head_multi(name: str, pf, gterm, p: RotHeadPack, n_pcl: int, group: int):
     B, P, _ = pf.shape
+    if group < 1 or B % group:
+        raise ValueError(f"{name}: {group} objects per block do not divide B = {B}")
+    if pf.device.type == "cpu":                  # the plain version does not depend on G
+        return rot_head_multi_twin(pf, gterm, p, n_pcl)
     if group not in OBJECTS_PER_BLOCK:
         raise ValueError(f"{name}: {group} objects per block; the kernel is built for "
-                         f"{OBJECTS_PER_BLOCK}")
-    if B % group:
-        raise ValueError(f"{name}: {group} objects per block do not divide B = {B}")
-    if pf.device.type == "cpu":
-        return rot_head_multi_twin(pf, gterm, p, n_pcl)
+                         f"{OBJECTS_PER_BLOCK} (ROADMAP queue 3, \"objects per block\")")
     kernel_operands(name, pf, gterm, p, n_pcl)
     args = [pf, gterm, p.w_pt, p.b0, p.gn0s, p.gn0b, p.w1, p.b1, p.gn1s, p.gn1b,
             p.pw, p.neck, p.bias6]

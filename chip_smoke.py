@@ -22,7 +22,10 @@ code is non-zero):
                launches, at P = 900 (45 tiles an object) in f32 and bf16, with
                ptxas' registers, spills and stack frame; K9 vs its plain
                version for the three encoder columns at 512 clouds x 1024
-               points;
+               points, in bf16 nearer its own plain version than the same
+               layers rounded as flax Dense, six launches bit-equal, at P =
+               900 and 136 in f32 and bf16, with ptxas' figures of each
+               column's bf16 kernel and its shared memory;
   4. identity: canned identity-delta heads with init = gt: 4 refine
                iterations must return the init;
   5. refine:   the flagship refine from `catre_tpu_torch.entry.entry` (shipped
@@ -113,6 +116,10 @@ K6B_SCRATCH = 0.1            # its allocation beyond its outputs, at most this s
 K5B_KERNELS = ("gate_passILi8E", "route_clouds", "dx_passE")    # the bf16 K5 backward at cin = 128
 K5B_REPEATS = 5              # further launches of the bf16 K5 backward that must give the first one's bits
 K5B_SCRATCH = 0.1            # its allocation beyond its outputs, at most this share of N P cin 2 bytes
+K9_REPEATS = 5               # further launches of each bf16 K9 column that must give the first one's bits
+K9_RAGGED = (900, 136)       # points that K9's 128-point tile does not divide
+K9_KERNELS = {"K9 stn3d": "chain3_stn_wgmmaILi3E", "K9 stnkd": "chain3_stn_wgmmaILi64E",
+              "K9 main": "chain3_main_wgmmaILi4E"}     # the bf16 kernel of each column
 K4_CHECK_B, K4_TIME_B = 64, 512
 K4_REPEATS = 3               # further launches of K4 that must give the first one's bits
 TN_TOL = 1e-5                # K4's transposed products alone, x max|plain|
@@ -338,6 +345,38 @@ def check_tail_design(tag, kernel, plain_fn, folded_fn, x_full, ws, ptxas_name):
                       ["vs plain", "vs folded plain"])
     report = _build.ptxas_report("encoder_epilogue", ptxas_name)
     log("kernels", f"{tag} bf16 kernel {ptxas_name}: {report}")
+    return report
+
+
+def check_k9_design(tag, xc, params, relu_last):
+    """What each bf16 K9 column (`csrc/encoder_chain_wgmma.cuh`) has to show
+    beyond agreeing with its plain version at the main path's shape: launches
+    on the same inputs bit-equal, several times over (the main design folds
+    its maxima by atomics in any order; a ring stage given back too early
+    shows only sometimes); point counts that the 128-point tile does not
+    divide, in f32 and bf16. -> ptxas' registers, stack frame and spill bytes
+    of the column's bf16 kernel and its shared memory."""
+    from catre_tpu_torch.ops import _build
+    from catre_tpu_torch.ops import encoder_chain as chain_ops
+
+    bf = torch.bfloat16
+    x = xc.to(bf)
+    first = chain_ops.chain3_max(x, *params, bf, relu_last=relu_last)
+    for _ in range(K9_REPEATS):
+        if not torch.equal(first, chain_ops.chain3_max(x, *params, bf, relu_last=relu_last)):
+            raise RuntimeError(f"{tag} bf16: two launches on the same inputs differ")
+    log("kernels", f"{tag} bf16: {1 + K9_REPEATS} launches on the same inputs bit-equal")
+    del x, first
+    for p_ragged in K9_RAGGED:
+        for cdt in TOL:
+            x = xc[:, :p_ragged].to(cdt).contiguous()
+            tensor_errors("kernels", f"{tag} P={p_ragged}", cdt,
+                          [chain_ops.chain3_max(x, *params, cdt, relu_last=relu_last)],
+                          [chain_ops.chain3_max_twin(x, *params, cdt, relu_last=relu_last)], ["out"])
+    report = _build.ptxas_report("encoder_chain", K9_KERNELS[tag])
+    widths = [xc.shape[2]] + [w.shape[0] for w in params[0::2]]
+    report["shared_memory"] = chain_ops._lib().catre_chain3_max_smem(*widths, 1)
+    log("kernels", f"{tag} bf16 kernel {K9_KERNELS[tag]}: {report}")
     return report
 
 
@@ -1066,6 +1105,7 @@ def main():
                 dense(h, *params[4:6], torch.bfloat16, act=relu_last).amax(dim=1).float(),
                 "the same layers rounded as flax Dense (K1/K2's rounding)")
             del x16, h
+            results[tag].update(check_k9_design(tag, xc, params, relu_last))
             rows = n_clouds * n_pts
             macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
             results[tag].update(bound(2 * rows * widths[0] + 2 * macs + 4 * sum(widths[1:])
@@ -1229,7 +1269,7 @@ def main():
              launches=launches["rot_head_blocked"], **results["K8"]),
     ] + [
         # one entry per column shape; the three share the launch counter (3 per encoder call)
-        dict(name=f"{tag} chain3_max", route="cuda", source=src + "encoder_chain.cu",
+        dict(name=f"{tag} chain3_max", route="cuda", source=src + "encoder_chain_wgmma.cuh",
              replaces="catre_tpu/ops/pallas_encoder.py:78",
              launches=launches["chain3_max"] // 3, **results[tag])
         for tag in ("K9 stn3d", "K9 stnkd", "K9 main")

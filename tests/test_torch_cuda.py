@@ -5,7 +5,9 @@ exact-integer operands, with ties at -0 / +0, relaunched bit-equal, and what
 their bf16 builds refuse; the bf16 K6 and K5 backwards also vs their
 critical-row plain versions, with dx in bf16 and zero off the rows a live
 channel points at, relaunched bit-equal, their refused widths and their
-scratch), the inference kernels' refusal of a differentiable call, and a train
+scratch; the bf16 K9 for its three columns at point counts its tile does not
+divide, relaunched bit-equal, and the x and widths it refuses), the inference
+kernels' refusal of a differentiable call, and a train
 step's launch counts.
 
 Every test here is marked `cuda` and skips without a card. The file imports
@@ -986,7 +988,8 @@ def test_rot_head_group_falls_back_to_k3_on_a_ragged_batch(dev):
 
 
 # the STN3d, STNkd and main columns at flagship widths, and one set of other
-# widths (cin neither 3 nor a multiple of 64, c1 a multiple of 64 only)
+# widths (cin neither 3 nor a multiple of 64, c1 a multiple of 64 only), which
+# the f32 build takes and the bf16 build refuses
 @pytest.mark.parametrize("cdt", DTYPES)
 @pytest.mark.parametrize("n,p", [(16, 1024), (5, 100)])
 @pytest.mark.parametrize("widths,relu_last", [
@@ -996,6 +999,10 @@ def test_chain3_max_kernel(dev, cdt, n, p, widths, relu_last):
     gen = torch.Generator().manual_seed(n + widths[0])
     x = torch.randn(n, p, widths[0], generator=gen).to(dev, cdt)
     params = [t for cin, cout in zip(widths[:-1], widths[1:]) for t in _dense(gen, cin, cout, dev)]
+    if cdt == torch.bfloat16 and widths[0] == 20:     # the bf16 designs take the columns' widths
+        with pytest.raises(ValueError, match="neither the main column's"):
+            chain_ops.chain3_max(x, *params, cdt, relu_last=relu_last)
+        return
     before = chain_ops.LAUNCHES["chain3_max"]
     out = chain_ops.chain3_max(x, *params, cdt, relu_last=relu_last)
     assert chain_ops.LAUNCHES["chain3_max"] == before + 1
@@ -1005,6 +1012,50 @@ def test_chain3_max_kernel(dev, cdt, n, p, widths, relu_last):
     if cdt == torch.bfloat16:              # not flax Dense's rounding points (K1/K2's)
         h = dense(dense(x, *params[0:2], cdt, act=True), *params[2:4], cdt, act=True)
         _assert_nearer(out, ref, dense(h, *params[4:6], cdt, act=relu_last).amax(dim=1).float())
+
+
+K9_COLUMNS = {"stn3d": ((3, 64, 128, 1024), True), "stnkd": ((64, 64, 128, 1024), True),
+              "main": ((64, 128, 512, 1024), False)}
+
+
+def _k9_case(column, n, p, dev, seed=0):
+    widths, relu_last = K9_COLUMNS[column]
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, p, widths[0], generator=gen)
+    x = (x * 0.2 if widths[0] == 3 else torch.relu(x)).to(dev, torch.bfloat16)
+    params = [t for cin, cout in zip(widths[:-1], widths[1:]) for t in _dense(gen, cin, cout, dev)]
+    return x, params, relu_last
+
+
+@pytest.mark.parametrize("column", list(K9_COLUMNS))
+@pytest.mark.parametrize("p", [900, 136])
+def test_chain3_max_bf16_at_point_counts_its_tile_does_not_divide(dev, column, p):
+    x, params, relu_last = _k9_case(column, 6, p, dev)
+    out = chain_ops.chain3_max(x, *params, torch.bfloat16, relu_last=relu_last)
+    ref = chain_ops.chain3_max_twin(x, *params, torch.bfloat16, relu_last=relu_last)
+    _assert_close(out, ref, torch.bfloat16)
+    h = dense(dense(x, *params[0:2], torch.bfloat16, act=True), *params[2:4], torch.bfloat16,
+              act=True)
+    _assert_nearer(out, ref, dense(h, *params[4:6], torch.bfloat16, act=relu_last).amax(dim=1).float())
+
+
+@pytest.mark.parametrize("column", list(K9_COLUMNS))
+def test_chain3_max_bf16_six_launches_are_bit_equal(dev, column):
+    x, params, relu_last = _k9_case(column, 40, 1000, dev)
+    first = chain_ops.chain3_max(x, *params, torch.bfloat16, relu_last=relu_last)
+    for _ in range(5):
+        assert torch.equal(first, chain_ops.chain3_max(x, *params, torch.bfloat16,
+                                                       relu_last=relu_last))
+
+
+def test_chain3_max_bf16_refuses_a_misaligned_x(dev):
+    for column in ("stnkd", "main"):
+        x, params, relu_last = _k9_case(column, 2, 128, dev)
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            chain_ops.chain3_max(_misaligned(x), *params, torch.bfloat16, relu_last=relu_last)
+    x, params, relu_last = _k9_case("stn3d", 2, 128, dev)      # 6-byte rows, read as scalars
+    out = chain_ops.chain3_max(_misaligned(x), *params, torch.bfloat16, relu_last=relu_last)
+    assert torch.equal(out, chain_ops.chain3_max(x, *params, torch.bfloat16, relu_last=relu_last))
 
 
 def test_variant_wrappers_raise_on_bad_input(dev):

@@ -10,10 +10,14 @@ versions) vs the JAX package's Pallas kernels in interpret mode:
   - the K7/K8 plain version on the whole batch is, bit for bit, its results
     on G-object chunks concatenated (each object on its own, as the kernel's
     sums are whatever the block);
-  - the `B % G != 0` fallback equals the per-object op and counts as K3;
+  - the `B % G != 0` fallback equals the per-object op and counts as K3; a G
+    that divides B but that the kernel is not built for (3) runs on the CPU
+    and matches JAX `group=3`, 2e-4, as does the model at fused_block_size=3;
   - in bf16 the rounded point reduction moves the result (so it cannot be
     dropped unnoticed) by less than the card's 3e-2 gate;
-  - the K9 plain version vs `chain3_max`: 1e-5;
+  - the K9 plain version vs `chain3_max`: 1e-5; in bf16 vs `_chain_kernel` run
+    in bf16 (forced interpret mode, as for the rot heads) at the three
+    columns' widths: within 1/8 of a bf16 spacing of max|out|;
   - `STN.forward_fused` / `PointNetFeat.forward_fused` vs `stn_forward_fused`
     (1e-5) / `pointnet_forward_fused` (1e-4);
   - the slice: the 2-iteration refine under `fused_encoder` and under
@@ -46,6 +50,7 @@ from catre_tpu_torch import ops
 from catre_tpu_torch.engine.refiner import make_refine_fn
 from catre_tpu_torch.models.catre import CATREConfig, init_model
 from catre_tpu_torch.models.heads import ConvOutPerRotHead
+from catre_tpu_torch.models.layers import dense
 from catre_tpu_torch.models.pointnet import STN, PointNetFeat
 from catre_tpu_torch.ops import encoder_chain as chain_ops
 from catre_tpu_torch.ops import rot_head as rot_ops
@@ -172,19 +177,25 @@ def test_multi_twin_matches_the_pallas_bodies_in_bf16(form, monkeypatch):
 
 
 def test_ragged_batch_falls_back_to_the_per_object_op():
+    """G = 4 does not divide B = 6: the grouped op is the per-object op and the
+    blocked op raises. G = 3 divides it and runs on the CPU, as in JAX (any G
+    that divides B), where the kernel is built for 2, 4 and 8 only."""
     pf, g_pcl, g_kps, params, head = _rot_head_case(3, 6, 64, 64, 50.0)
     args = (_t(pf), _t(g_pcl), _t(g_kps), head, 64, F32)
-    ref = jax_rot_head(*map(jnp.asarray, (pf, g_pcl, g_kps)), params, n_pcl=64, interpret=True,
-                       group=4)
+    ref = jax_rot_head(*map(jnp.asarray, (pf, g_pcl, g_kps)), params, n_pcl=64, interpret=True, group=4)
+    ref3 = jax_rot_head(*map(jnp.asarray, (pf, g_pcl, g_kps)), params, n_pcl=64, interpret=True,
+                        group=3)
     with torch.no_grad():
         out = rot_ops.fused_conv_per_rot_head(*args, group=4)
         assert torch.equal(out, rot_ops.fused_conv_per_rot_head(*args))
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-4, rtol=0)
         with pytest.raises(ValueError, match="do not divide"):
             rot_ops.fused_conv_per_rot_head_blocked(*args, 4)
-        with pytest.raises(ValueError, match="objects per block"):
-            rot_ops.fused_conv_per_rot_head(*args, group=3)
-    # the model takes K3's op when fused_block_size does not divide B
+        out3 = rot_ops.fused_conv_per_rot_head(*args, group=3)
+        np.testing.assert_allclose(out3.numpy(), np.asarray(ref3), atol=2e-4, rtol=0)
+        assert torch.equal(out3, rot_ops.fused_conv_per_rot_head_blocked(*args, 3))
+    # the model takes K3's op when fused_block_size does not divide B, and the
+    # blocked op at fused_block_size = 3, which divides B = 6
     model = init_model(CATREConfig(num_pcl=64, num_kps=64, fused_heads=True), seed=2)
     xs = [torch.randn(6, 64, 3, generator=torch.Generator().manual_seed(1)) * 0.2,
           torch.randn(6, 64, 3, generator=torch.Generator().manual_seed(2)) * 0.2,
@@ -193,7 +204,11 @@ def test_ragged_batch_falls_back_to_the_per_object_op():
         per_object = model(*xs)
         model.cfg = dataclasses.replace(model.cfg, fused_block_size=4)
         ragged = model(*xs)
+        model.cfg = dataclasses.replace(model.cfg, fused_block_size=3)
+        blocked3 = model(*xs)
     assert all(torch.equal(a, b) for a, b in zip(per_object, ragged))
+    for a, b in zip(per_object, blocked3):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=0)
 
 
 def test_rounded_point_reduction_shows_in_bf16():
@@ -253,6 +268,41 @@ def test_chain3_max_rounds_after_the_relu_only():
     assert out.dtype == F32
     torch.testing.assert_close(out, want, atol=1e-6, rtol=0)
     assert not torch.equal(out, bf(out))              # the result is not bf16-quantised
+
+
+@pytest.mark.parametrize("widths,relu_last", [((3, 64, 128, 1024), True),
+                                               ((64, 64, 128, 1024), True),
+                                               ((64, 128, 512, 1024), False)])
+def test_chain3_max_twin_matches_the_pallas_body_in_bf16(widths, relu_last, monkeypatch):
+    """K9's plain version in bf16 vs `_chain_kernel` in bf16 at the three
+    columns' widths: the JAX wrapper on its TPU path with `pallas_call` forced
+    into interpret mode, compiled without excess precision (`_pallas_bf16`).
+    Within 1/8 of a bf16 spacing of max|out| (2^(floor(log2 max|out|) - 7)):
+    the two differ only in the order of the f32 sums, which may flip a hidden
+    value's rounding; on average under 1/100 of the distance of the same
+    layers rounded as flax Dense (K1/K2's rounding) to the same body."""
+    call = pl.pallas_call
+    monkeypatch.setattr(pl, "pallas_call", lambda *a, **k: call(*a, **{**k, "interpret": True}))
+    x, layers = _chain_case(43, 2, 64, widths)
+    if widths[0] != 3:
+        x = np.maximum(x, 0.0)                        # the columns' inputs after a ReLU
+
+    def fwd(*args):
+        return jax_chain3_max(*args, relu_last=relu_last, interpret=False,
+                              compute_dtype=jnp.bfloat16)
+
+    args = list(map(jnp.asarray, (x, *layers)))
+    ref = np.asarray(jax.jit(fwd).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*args))
+    port_layers = [_t(a.T) if a.ndim == 2 else _t(a) for a in layers]
+    with torch.no_grad():
+        out = chain_ops.chain3_max(_t(x), *port_layers, BF16, relu_last=relu_last).numpy()
+        h = dense(dense(_t(x).to(BF16), *port_layers[0:2], BF16, act=True), *port_layers[2:4],
+                  BF16, act=True)
+        flax = dense(h, *port_layers[4:6], BF16, act=relu_last).amax(dim=1).float().numpy()
+    spacing = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+    assert np.abs(out - ref).max() <= spacing / 8
+    assert np.abs(out - ref).mean() <= 0.01 * np.abs(flax - ref).mean()
 
 
 @pytest.mark.parametrize("k", [3, 64])
