@@ -1,8 +1,9 @@
 """From the UPPERCASE config tree to the port's typed configs.
 
 Counterpart of `catre_tpu/config/build.py`: `model_config_from` (:93) with
-`_fused_ok` (:61) and `_enc_train_ok` (:73), `loss_config_from` (:143) and
-`noise_config_from` (:167).
+`_fused_ok` (:61) and `_enc_train_ok` (:73), `loss_config_from` (:143),
+`noise_config_from` (:167) and, for the sampler's fields, `loader_config_from`
+(:203).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from pathlib import Path
 
 import torch
 
+from ..data.loader import LoaderConfig
 from ..engine.train import InputNoiseConfig
 from ..geom.rotations import get_rot_dim
 from ..losses import LossConfig
@@ -133,4 +135,34 @@ def noise_config_from(cfg) -> InputNoiseConfig:
         rt_aug_prob=float(inp.get("RT_AUG_PROB", 0.0)),
         init_pose_types=_t(inp.get("INIT_POSE_TYPE_TRAIN", ["gt_noise"])),
         init_scale_types=_t(inp.get("INIT_SCALE_TYPE_TRAIN", ["gt_noise"])),
+    )
+
+
+_LOADER_LATER = "ROADMAP.md item 8"
+
+
+def loader_config_from(cfg, phase: str = "train") -> LoaderConfig:
+    """The sampler's LoaderConfig, with the JAX defaults. A config that asks
+    for a loader feature the port lacks raises and names its item."""
+    inp = cfg.INPUT
+    for key, feature in (("PCL_WITH_COLOR", "aligned RGB per point"),
+                         ("OCCLUDE_MASK_TEST", "the test-time occlusion ablation"),
+                         ("WITH_NOCS", "aligned NOCS coordinates per point")):
+        if inp.get(key, False):
+            raise NotImplementedError(f"INPUT.{key} is set: the port's loader has no "
+                                      f"{feature} yet; it is {_LOADER_LATER}")
+    if str(inp.get("KPS_TYPE", "mean_shape")).lower() == "fps":
+        raise NotImplementedError("INPUT.KPS_TYPE = 'fps': the port's loader ships no "
+                                  f"per-instance FPS keypoints yet; they are {_LOADER_LATER}")
+    return LoaderConfig(
+        num_pcl=int(inp.NUM_PCL),
+        depth_sample_ball_ratio=float(inp.get("DEPTH_SAMPLE_BALL_RATIO", 0.5)),
+        fps_sample=bool(inp.get("FPS_SAMPLE", False)),
+        sample_window=int(inp.get("SAMPLE_WINDOW", 0)),
+        aug_depth=bool(inp.get("AUG_DEPTH", False)) and phase == "train",
+        drop_depth_prob=float(inp.get("DROP_DEPTH_PROB", 0.5)),
+        drop_depth_ratio=float(inp.get("DROP_DEPTH_RATIO", 0.2)),
+        add_noise_depth_prob=float(inp.get("ADD_NOISE_DEPTH_PROB", 0.9)),
+        add_noise_depth_level=float(inp.get("ADD_NOISE_DEPTH_LEVEL", 0.01)),
+        max_objs_per_image=int(cfg.DATALOADER.get("MAX_OBJS_PER_IMAGE", 8)),
     )

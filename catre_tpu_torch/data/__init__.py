@@ -1,1 +1,2 @@
-"""Train-time data augmentation (the loader itself is not ported yet)."""
+"""Data: train-time augmentation and the loader's device half (the group
+samplers); the host half (decode, caches, `CATRELoader`) is not ported yet."""

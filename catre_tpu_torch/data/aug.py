@@ -1,12 +1,14 @@
 """Train-time pose, scale and point-cloud augmentation.
 
 Counterpart of `catre_tpu/data/aug.py`: `aug_poses_normal` (:27),
-`aug_scale_normal` (:63), `aug_3d_bbox` (:77), `aug_rt` (:103) and
-`maybe_apply` (:134). The JAX package draws from a PRNG key; here every draw
-comes from an explicit CPU `torch.Generator` and moves to the data's device.
-The two give different numbers, so each function keeps the JAX override
-arguments, through which a test drives both packages with the same draw.
-Depth augmentation (:146-180) belongs to the loader and is not here.
+`aug_scale_normal` (:63), `aug_3d_bbox` (:77), `aug_rt` (:103),
+`maybe_apply` (:134), `add_noise_depth` (:146) and `aug_depth` (:155). The
+JAX package draws from a PRNG key; here the pose, scale and cloud draws come
+from an explicit CPU `torch.Generator` and move to the data's device, and the
+depth draws come from a generator on the depth's device (the group sampler
+runs them on the card). The two packages give different numbers, so each
+function keeps the JAX override arguments, through which a test drives both
+packages with the same draw.
 """
 
 from __future__ import annotations
@@ -116,3 +118,50 @@ def maybe_apply(generator, prob: float, fn, old_values: tuple, *fn_args):
         return fn(generator, *fn_args)
     return old_values
 
+
+def _field(draw, generator, shape, like: torch.Tensor, normal: bool) -> torch.Tensor:
+    """A given draw on `like`'s device, else one drawn there from `generator`."""
+    if draw is not None:
+        return _given(draw, like)
+    if generator is None:
+        raise ValueError("pass the depth draws or an explicit torch.Generator on the "
+                         "depth's device")
+    fn = torch.randn if normal else torch.rand
+    return fn(shape, generator=generator, device=like.device, dtype=like.dtype)
+
+
+def add_noise_depth(depth: torch.Tensor, level: float = 0.005, generator=None,
+                    level_draw=None, noise_draw=None) -> torch.Tensor:
+    """N(0, lvl) on the pixels > 0 of depth (..., H, W), lvl ~ U(0, level)
+    per image: `level_draw` (...,) is lvl itself, `noise_draw` (..., H, W)
+    the standard normal field."""
+    lvl = (_given(level_draw, depth) if level_draw is not None
+           else _field(None, generator, depth.shape[:-2], depth, False) * level)
+    noise = _field(noise_draw, generator, depth.shape, depth, True) * lvl[..., None, None]
+    return torch.where(depth > 0, depth + noise, depth)
+
+
+def aug_depth(depth: torch.Tensor, generator=None, drop_depth_prob: float = 0.5,
+              drop_depth_ratio: float = 0.2, add_noise_depth_prob: float = 0.9,
+              add_noise_depth_level: float = 0.005, fill_draw=None, drop_coin_draw=None,
+              keep_draw=None, noise_coin_draw=None, noise_level_draw=None,
+              noise_draw=None) -> torch.Tensor:
+    """Train-phase depth augmentation of depth (..., H, W) in metres, one
+    set of coins per image, in order: zero pixels filled with N(0, 0.1);
+    with prob drop_depth_prob a drop_depth_ratio share of all pixels zeroed
+    (kept where U(0, 1) > ratio); with prob add_noise_depth_prob
+    `add_noise_depth`. The draws of the JAX function's five keys, each
+    overridable: `fill_draw` (..., H, W) normal, `drop_coin_draw` (...,)
+    uniform, `keep_draw` (..., H, W) uniform, `noise_coin_draw` (...,)
+    uniform, and the noise key's two, `noise_level_draw` (...,) in [0, level)
+    and `noise_draw` (..., H, W) normal."""
+    images = depth.shape[:-2]
+    fill = _field(fill_draw, generator, depth.shape, depth, True)
+    depth = torch.where(depth == 0, 0.1 * fill, depth)
+    do_drop = _field(drop_coin_draw, generator, images, depth, False) < drop_depth_prob
+    keep = _field(keep_draw, generator, depth.shape, depth, False) > drop_depth_ratio
+    depth = torch.where(do_drop[..., None, None] & ~keep, 0.0, depth)
+    do_noise = _field(noise_coin_draw, generator, images, depth, False) < add_noise_depth_prob
+    noisy = add_noise_depth(depth, add_noise_depth_level, generator, noise_level_draw,
+                            noise_draw)
+    return torch.where(do_noise[..., None, None], noisy, depth)

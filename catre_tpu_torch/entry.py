@@ -6,6 +6,8 @@ Counterpart of `__graft_entry__.py` (`entry` :83, `_flagship` :6,
 comes from `catre_tpu/configs/nocs_real/..._120e_tpu.py` (bf16, fused rot
 head, fused encoder tails, FUSED_HEADS_TRAIN, FUSED_ENCODER_TRAIN) read
 through the port's own loader; the weights are random, from a seed.
+`example_frames` makes depth frames for the sampler (`data.loader`), whose
+clouds the refine takes in place of `example_batch`'s.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from .config.build import (FLAGSHIP_CONFIG, loss_config_from, model_config_from,
                            noise_config_from)
 from .config.loader import load_config
+from .data.loader import mask_bbox_rows, pack_masks
 from .engine.refiner import make_refine_fn
 from .engine.train import TrainState, TrainStep, init_train_state, make_train_step
 from .geom.rotations import euler_to_mat
@@ -27,6 +30,8 @@ from .models.catre import CATREConfig, CATREDisRShared, init_model
 from .solver.build import build_optimizer, refuse_unported_training_keys
 
 N_ITER = 4
+# NOCS-REAL intrinsics of a 640 x 480 frame
+REAL_K = ((591.0125, 0.0, 322.525), (0.0, 590.16775, 244.11084), (0.0, 0.0, 1.0))
 
 
 def flagship_config(**overrides) -> CATREConfig:
@@ -52,6 +57,65 @@ def example_batch(b: int, num_pcl: int, num_kps: int, device="cpu", seed: int = 
         "K": K,
     }
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def example_frames(g: int, h: int = 480, w: int = 640, m: int = 8, seed: int = 0,
+                   objs=(2, 8), size_px=(40, 200), hole_share: float = 0.05) -> dict:
+    """Synthetic depth frames for the sampler (numpy, from `seed`): per image
+    a tilted background at 1.2-1.6 m, `objs` ellipsoidal depth bumps of
+    `size_px` axes at 0.6-1.1 m (nearer ones occlude), `hole_share` of the
+    pixels at zero depth, NOCS-REAL intrinsics scaled to the frame. Each real
+    instance has its mask, its bbox and an init pose near its backprojected
+    centre; the other slots of `m` are padded as the loader pads them (empty
+    mask, bbox (H, -1, W, -1), identity pose at 1 m, scale 0.1).
+
+    Returns depth (G, H, W) uint16 millimetres, masks (G, m, H, W) bool,
+    packed (G, H, W) words (`pack_masks`), mask_bbox (G, m, 4) int32, K (G, 3,
+    3), poses (G, m, 3, 4), scales (G, m, 3), n_objs (G,), and `records`,
+    dataset dicts with each instance's `bbox_est` (x1, y1, x2, y2)."""
+    rng = np.random.default_rng(seed)
+    K = np.array(REAL_K, np.float32)
+    K[0] *= w / 640.0
+    K[1, 1:] *= h / 480.0
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    rows, cols = np.mgrid[0:h, 0:w]
+    out = {"depth": np.zeros((g, h, w), np.uint16), "masks": np.zeros((g, m, h, w), bool),
+           "poses": np.tile(np.eye(3, 4, dtype=np.float32), (g, m, 1, 1)),
+           "scales": np.full((g, m, 3), 0.1, np.float32), "n_objs": np.zeros(g, np.int64),
+           "K": np.tile(K, (g, 1, 1)), "records": []}
+    out["poses"][..., 2, 3] = 1.0
+    for i in range(g):
+        z = rng.uniform(1.2, 1.6) + rng.uniform(-0.1, 0.1) * (rows / h - 0.5) \
+            + rng.uniform(-0.1, 0.1) * (cols / w - 0.5)
+        owner = np.full((h, w), -1)
+        n = int(rng.integers(objs[0], objs[1] + 1))
+        annos = []
+        for j in range(n):
+            ay, ax = rng.uniform(*size_px, size=2) / 2.0
+            oy, ox = rng.uniform(0, h), rng.uniform(0, w)
+            zc = rng.uniform(0.6, 1.1)
+            q = ((rows - oy) / ay) ** 2 + ((cols - ox) / ax) ** 2
+            bump = zc - ax * zc / fx * np.sqrt(np.clip(1.0 - q, 0.0, 1.0))
+            front = (q < 1.0) & (bump < z)
+            z = np.where(front, bump, z)
+            owner[front] = j
+            t = np.array([(ox - cx) / fx * zc, (oy - cy) / fy * zc, zc]) + rng.normal(0, 0.01, 3)
+            ex = np.array([2 * ax * zc / fx, 2 * ay * zc / fy, 2 * ax * zc / fx])
+            a, b, c = rng.uniform(-np.pi, np.pi, 3)
+            R = euler_to_mat(torch.tensor([a, b, c], dtype=torch.float32)).numpy()
+            out["poses"][i, j] = np.concatenate([R, t[:, None]], axis=1)
+            out["scales"][i, j] = ex * rng.uniform(0.9, 1.1, 3)
+            annos.append({"bbox_est": [max(ox - ax, 0.0), max(oy - ay, 0.0),
+                                       min(ox + ax, w - 1.0), min(oy + ay, h - 1.0)]})
+        depth = np.round(z * 1000.0)
+        depth[rng.random((h, w)) < hole_share] = 0
+        out["depth"][i] = depth.astype(np.uint16)
+        out["masks"][i, :n] = owner[None] == np.arange(n)[:, None, None]
+        out["n_objs"][i] = n
+        out["records"].append({"annotations": annos})
+    out["packed"] = np.stack([pack_masks(mk) for mk in out["masks"]])
+    out["mask_bbox"] = np.stack([mask_bbox_rows(mk) for mk in out["masks"]])
+    return out
 
 
 def near_identity_model(model: CATREDisRShared) -> CATREDisRShared:

@@ -1,16 +1,25 @@
 """Batched rotation representations on torch tensors.
 
-Counterpart of `catre_tpu/geom/rotations.py`: `rot6d_to_mat`,
-`quat_to_mat`, `euler_to_mat` (:105), `axangle_to_mat`, `allo_to_ego_mat` (:159), `qexp`,
-`lie_vec_to_mat`, `get_rot_dim` and `rot_rep_to_mat` (:262) for all eight
-ROT_TYPEs. Same formulas and branch guards, so the two agree to float
-rounding on the same inputs.
+Counterpart of `catre_tpu/geom/rotations.py`: `normalize` (:16),
+`rot6d_to_mat`, `mat_to_rot6d` (:42), `quat_to_mat`, `mat_to_quat` (:75),
+`euler_to_mat` (:105), `axangle_to_mat`, `allo_to_ego_mat` (:159), `qexp`,
+`lie_vec_to_mat`, `mat_to_lie_vec` (:234), `get_rot_dim`, `rot_rep_to_mat`
+(:262) for all eight ROT_TYPEs and `rot_from_axangle_chain` (:282). Same
+formulas and branch guards, so the two agree to float rounding on the same
+inputs.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+
+
+def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """L2-normalize along `dim`: v / max(||v||, eps)."""
+    return v / torch.clamp(torch.linalg.norm(v, dim=dim, keepdim=True), min=eps)
 
 
 def rot6d_to_mat(d6: torch.Tensor) -> torch.Tensor:
@@ -20,6 +29,11 @@ def rot6d_to_mat(d6: torch.Tensor) -> torch.Tensor:
     z = F.normalize(torch.linalg.cross(x, d6[..., 3:6], dim=-1), dim=-1, eps=1e-12)
     y = torch.linalg.cross(z, x, dim=-1)
     return torch.stack([x, y, z], dim=-1)
+
+
+def mat_to_rot6d(rots: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 6): the first two columns."""
+    return torch.cat([rots[..., :, 0], rots[..., :, 1]], dim=-1)
 
 
 def quat_to_mat(quat: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
@@ -38,6 +52,26 @@ def quat_to_mat(quat: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
         xZ - wY, yZ + wX, 1.0 - (xX + yY),
     ], dim=-1)
     return m.reshape(quat.shape[:-1] + (3, 3))
+
+
+def mat_to_quat(mat: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> wxyz quaternion (..., 4), Shepperd's branch picked by the
+    largest of (trace, m00, m11, m22) (the first on ties), w >= 0."""
+    m = mat
+    t = m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2]
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    cases = torch.stack([
+        torch.stack([1.0 + t, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+        torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1),
+        torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1),
+    ], dim=-2)                                                   # (..., 4 cases, 4)
+    idx = torch.argmax(torch.stack([t, m00, m11, m22], dim=-1), dim=-1)
+    q = torch.gather(cases, -2, idx[..., None, None].expand(*idx.shape, 1, 4))[..., 0, :]
+    q = normalize(q)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
 def euler_to_mat(angles: torch.Tensor) -> torch.Tensor:
@@ -119,6 +153,16 @@ def lie_vec_to_mat(vec: torch.Tensor) -> torch.Tensor:
     return torch.where(safe[..., None, None], r_exact, r_taylor)
 
 
+def mat_to_lie_vec(mat: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> so(3) vector (..., 3), through the quaternion."""
+    q = mat_to_quat(mat)
+    w, v = q[..., 0], q[..., 1:]
+    sin_half = torch.linalg.norm(v, dim=-1)
+    half = torch.arctan2(sin_half, w)
+    k = torch.where(sin_half > 1e-8, 2.0 * half / torch.clamp(sin_half, min=1e-12), 2.0)
+    return v * k[..., None]
+
+
 ROT_DIMS = {
     "allo_quat": 4, "ego_quat": 4,
     "allo_log_quat": 3, "ego_log_quat": 3,
@@ -147,3 +191,14 @@ def rot_rep_to_mat(rot: torch.Tensor, rot_type: str) -> torch.Tensor:
     if rot_type in ("ego_rot6d", "allo_rot6d"):
         return rot6d_to_mat(rot)
     raise ValueError(f"Wrong pred_rot type: {rot_type}")
+
+
+def rot_from_axangle_chain(ax_angles) -> torch.Tensor:
+    """Rotation composed from a chain of (ax, ay, az, angle / pi), in list
+    order (the `canonical` init-pose mode): (3, 3) float32."""
+    R = torch.eye(3)
+    for ax_angle in ax_angles:
+        axis = torch.tensor(ax_angle[:3], dtype=torch.float32)
+        angle = torch.tensor(ax_angle[3] * math.pi, dtype=torch.float32)
+        R = R @ axangle_to_mat(axis[None], angle[None])[0]
+    return R

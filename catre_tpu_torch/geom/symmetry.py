@@ -1,12 +1,14 @@
 """Symmetry rotation bank and batched closest-rotation selection.
 
 Counterpart of `catre_tpu/geom/symmetry.py`: `axis_symmetry_rotation_bank`
-(:23, numpy, copied) and `closest_rot_batch` (:57): one (K, 3, 3) bank shared
-by every sample and a per-sample `sym_flag`; the closest gt rotation is a
-batched trace-argmax.
+(:23, numpy, copied), `closest_rot_batch` (:57) and `y_rotation_bank_20`
+(:83, numpy, copied): one (K, 3, 3) bank shared by every sample and a
+per-sample `sym_flag`; the closest gt rotation is a batched trace-argmax.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -42,3 +44,19 @@ def closest_rot_batch(pred_rots: torch.Tensor, gt_rots: torch.Tensor,
     tr = torch.einsum("bij,bkij->bk", pred_rots, cand)
     k_best = torch.where(sym_flags, torch.argmax(tr, dim=1), 0)
     return cand[torch.arange(cand.shape[0], device=cand.device), k_best]
+
+
+def y_rotation_bank_20() -> np.ndarray:
+    """The 20 y-axis rotations of the fixed-IoU eval for symmetric classes,
+    as (20, 4, 4) float64 matrices."""
+    n = 20
+    thetas = 2.0 * math.pi * np.arange(n) / n
+    c, s = np.cos(thetas), np.sin(thetas)
+    out = np.zeros((n, 4, 4), dtype=np.float64)
+    out[:, 0, 0] = c
+    out[:, 0, 2] = s
+    out[:, 1, 1] = 1
+    out[:, 2, 0] = -s
+    out[:, 2, 2] = c
+    out[:, 3, 3] = 1
+    return out

@@ -1,7 +1,9 @@
-"""Hand-written CUDA kernels for Hopper, each with a plain PyTorch twin.
+"""Hand-written CUDA kernels for Hopper, each with a plain PyTorch twin, and
+the ball-crop sampler (`sampling`, plain PyTorch on either device).
 
-On a CPU tensor every wrapper runs its twin; on a CUDA tensor it launches
-its kernel or raises. `launch_counts()` reports how often each kernel ran.
+On a CPU tensor every kernel wrapper runs its twin; on a CUDA tensor it
+launches its kernel or raises. `launch_counts()` reports how often each
+kernel ran.
 """
 
 from . import (encoder_chain, encoder_epilogue, encoder_epilogue_train, rot_head,

@@ -39,6 +39,22 @@ code is non-zero):
                K7 through fused_conv_per_rot_head(group=4) at B = 256;
                plus B = 8 f32 runs of the three kernel paths against the plain
                path;
+  5c. sample:  the second main path, frames -> ball-crop sampler -> shipped
+               refine: 32 seeded 480 x 640 u16 depth frames (the shipped
+               TEST.IMS_PER_BATCH) with 2-8 ellipsoidal objects of 40-200 px
+               each, 8 instance slots, NUM_PCL = 1024, ratio 0.6, through
+               the loader's group sampler (`catre_tpu_torch.data.loader`):
+               card against the port on the CPU with one priority field
+               drawn on the CPU (equal indices and n_inside, bit-equal
+               points) at the auto window, at window 128 and, on 8 images,
+               at the full frame; the fused from-depth form, the
+               materialized windowed form and candidates + select equal on
+               the card; the card generator's own draws inside, without
+               repeats where 1024 or more points are inside, cycling the
+               scarce rows; the (256, 1024, 3) clouds through the shipped
+               refine at B = 256 (finite poses, K1 = 4, K2 = 8, K3 = 4); ms
+               per 32-image group for each form and window, the candidates
+               and the select alone, and sample + refine obj/s;
   6. K4:       the rotation-head backward kernel vs its plain version
                (autograd of the K3 twin), B = 64 and the main path's B = 512
                objects x 2048 points, f32 (tight) and bf16 (loose), per
@@ -136,6 +152,9 @@ TRAIN_GRAD_RTOL = 1e-2
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}   # x max(1, max|twin|)
 PATH_TOL = 5e-4              # kernel path vs plain path, f32 (the CPU slice tolerance)
 IDENTITY_TOL = 1e-5
+SAMPLE_FIXED_WINDOW = 128    # the sampler's fixed-window cell beside the auto window
+SAMPLE_FULL_FRAME_IMS = 8    # images of the full-frame card-vs-CPU check
+SAMPLE_CALLS = 3             # timed sample + refine calls, after one warm-up
 
 
 def log(phase, msg):
@@ -936,6 +955,161 @@ def refine_phase(dev, B, calls, per_call, **overrides):
     return counts
 
 
+def same_outputs(tag, card, ref):
+    """Sampler outputs (pcls, idx, n_inside, ...) equal: indices and counts
+    exactly, points bit for bit."""
+    for i, (a, b) in enumerate(zip(card, ref)):
+        a, b = a.cpu(), b.cpu()
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise RuntimeError(f"sample {tag}: output {i} is {tuple(a.shape)} {a.dtype}, "
+                               f"want {tuple(b.shape)} {b.dtype}")
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        diff = int((a != b).sum())
+        if diff:
+            raise RuntimeError(f"sample {tag}: output {i} differs in {diff} of {a.numel()} "
+                               "elements")
+
+
+def check_draws(tag, cfg, d, gen):
+    """The card generator's own draws through the fused form: every index
+    inside, no repeat where num_pcl or more points are inside, the scarce
+    rows cycling through all their inside points; -> (rows full, scarce,
+    empty)."""
+    from catre_tpu_torch.data.loader import sample_group_from_depth
+    from catre_tpu_torch.ops.sampling import batch_ball_crop_candidates
+
+    ws = cfg.sample_window
+    _, idx, n_in = sample_group_from_depth(cfg, *d, generator=gen)
+    _, inside, n_ref, origin = batch_ball_crop_candidates(d[0], d[1], d[2], d[5], d[3], d[4],
+                                                          cfg.depth_sample_ball_ratio, ws)
+    w = d[0].shape[-1]
+    idx_w = (idx // w - origin[..., :1]) * ws + idx % w - origin[..., 1:]
+    if not torch.equal(n_in, n_ref) or not torch.gather(inside, -1, idx_w)[n_in > 0].all():
+        raise RuntimeError(f"sample {tag}: the generator's draws left the inside candidates")
+    uniq = torch.sort(idx, dim=-1).values.diff(dim=-1).ne(0).sum(-1) + 1
+    full, scarce = n_in >= cfg.num_pcl, (n_in > 0) & (n_in < cfg.num_pcl)
+    if not (torch.equal(uniq[full], torch.full_like(uniq[full], cfg.num_pcl))
+            and torch.equal(uniq[scarce], n_in[scarce].long())
+            and bool(idx[n_in == 0].eq(idx[n_in == 0][:, :1]).all())):
+        raise RuntimeError(f"sample {tag}: repeats in a full row, or a scarce row that does "
+                           "not cycle through its inside points")
+    return int(full.sum()), int(scarce.sum()), int((n_in == 0).sum())
+
+
+def sample_phase(dev, card, model_seed=0):
+    """Frames -> the loader's group sampler -> the shipped refine at B = IMS
+    x slots (see 5c in the module docstring); returns the refine's launch
+    counts."""
+    from catre_tpu_torch import ops
+    from catre_tpu_torch.config.build import FLAGSHIP_CONFIG, loader_config_from
+    from catre_tpu_torch.config.loader import load_config
+    from catre_tpu_torch.data import loader as dl
+    from catre_tpu_torch.entry import N_ITER, entry, example_frames
+    from catre_tpu_torch.ops.sampling import (batch_ball_crop_candidates,
+                                              batch_select_from_candidates)
+
+    shipped = load_config(str(FLAGSHIP_CONFIG))
+    lcfg = loader_config_from(shipped, "test")
+    ims, m = int(shipped.TEST.IMS_PER_BATCH), lcfg.max_objs_per_image
+    f = example_frames(ims, 480, 640, m=m, seed=0)
+    h, w = f["depth"].shape[1:]
+    host = [f[k] for k in ("depth", "K", "packed", "poses", "scales", "mask_bbox")]
+    d = [dl.to_device(a, dev) for a in host]
+    auto = dl.auto_sample_window(f["records"], "test")
+    cpu_gen = torch.Generator().manual_seed(0)
+    log("sample", f"{ims} frames {h}x{w}, {int(f['n_objs'].sum())} objects in {ims * m} slots, "
+                  f"NUM_PCL {lcfg.num_pcl}, ratio {lcfg.depth_sample_ball_ratio}, auto window "
+                  f"{auto} (SAMPLE_WINDOW {lcfg.sample_window})")
+    times = {}
+    for tag, ws in (("auto", auto), (str(SAMPLE_FIXED_WINDOW), SAMPLE_FIXED_WINDOW)):
+        cfg = dataclasses.replace(lcfg, sample_window=ws)
+        pri = torch.rand(ims, m, ws * ws, generator=cpu_gen)
+        cpu = dl.make_group_sampler(cfg, False, device="cpu")(*host, priorities=pri)
+        pri = pri.to(dev)
+        card_out = dl.make_group_sampler(cfg, False, device=dev)(*host, priorities=pri)
+        same_outputs(f"window {tag}: card vs CPU", card_out, cpu)
+        fused = dl.sample_group_from_depth(cfg, *d, priorities=pri)
+        same_outputs(f"window {tag}: fused vs group sampler", fused, card_out)
+        same_outputs(f"window {tag}: materialized vs fused",
+                     dl.sample_group_from_cloud(cfg, False, *d[:5], priorities=pri), fused)
+        cand_args = (d[0], d[1], d[2], d[5], d[3], d[4], cfg.depth_sample_ball_ratio, ws)
+        cand = batch_ball_crop_candidates(*cand_args)
+        same_outputs(f"window {tag}: candidates + select vs fused",
+                     batch_select_from_candidates(*cand, cfg.num_pcl, w, ws, priorities=pri),
+                     fused)
+        rows = check_draws(f"window {tag}", cfg, d, torch.Generator(device=dev).manual_seed(1))
+        log("sample", f"window {tag} ({ws}): card = CPU (indices, n_inside, points bit-equal), "
+                      f"fused = materialized = candidates + select; own draws: {rows[0]} rows "
+                      f"with >= {cfg.num_pcl} inside (no repeats), {rows[1]} scarce (cycling), "
+                      f"{rows[2]} empty (index 0 repeated)")
+        if rows[1] == 0:
+            raise RuntimeError(f"sample window {tag}: no scarce row to check the cycling on")
+        times[f"fused {tag}"] = time_ms(lambda: dl.sample_group_from_depth(cfg, *d,
+                                                                           priorities=pri))
+        times[f"materialized {tag}"] = time_ms(
+            lambda: dl.sample_group_from_cloud(cfg, False, *d[:5], priorities=pri))
+        times[f"candidates {tag}"] = time_ms(lambda: batch_ball_crop_candidates(*cand_args))
+        times[f"select {tag}"] = time_ms(
+            lambda: batch_select_from_candidates(*cand, cfg.num_pcl, w, ws, priorities=pri))
+        del cpu, card_out, fused, cand, pri
+
+    cfg0 = dataclasses.replace(lcfg, sample_window=0)
+    k = SAMPLE_FULL_FRAME_IMS
+    pri = torch.rand(k, m, h * w, generator=cpu_gen)
+    same_outputs("full frame: card vs CPU",
+                 dl.make_group_sampler(cfg0, False, device=dev)(*[a[:k] for a in host],
+                                                                priorities=pri.to(dev)),
+                 dl.make_group_sampler(cfg0, False, device="cpu")(*[a[:k] for a in host],
+                                                                  priorities=pri))
+    log("sample", f"full frame, {k} images: card = CPU (indices, n_inside, points bit-equal)")
+    del pri
+    gen = torch.Generator(device=dev).manual_seed(2)
+    times["materialized full frame"] = time_ms(
+        lambda: dl.sample_group_from_cloud(cfg0, False, *d[:5], generator=gen), iters=3, warmup=1)
+
+    # the path a user runs: host frames -> group sampler (own draws) -> shipped refine
+    cfg = dataclasses.replace(lcfg, sample_window=auto)
+    sampler = dl.make_group_sampler(cfg, False, device=dev)
+    b = ims * m
+    refine, args = entry(dev, batch_size=b, seed=model_seed)
+    kps, mean_scales = args[1], args[5]
+    K = torch.from_numpy(f["K"]).to(dev).repeat_interleave(m, dim=0)
+    poses = d[3].reshape(b, 3, 4)
+    scales = d[4].reshape(b, 3)
+
+    def sample_and_refine():
+        pcl, _, _ = sampler(*host, generator=gen)
+        return refine(pcl.reshape(b, lcfg.num_pcl, 3), kps, poses, scales, K, mean_scales)
+
+    sample_and_refine()                                  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(SAMPLE_CALLS):
+        out_poses, out_scales = sample_and_refine()
+    end.record()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {**dict.fromkeys(counts, 0), "dense_relu_dense_max": N_ITER * SAMPLE_CALLS,
+            "dense_relu_max": 2 * N_ITER * SAMPLE_CALLS, "rot_head": N_ITER * SAMPLE_CALLS}
+    if counts != want:
+        raise RuntimeError(f"sample + refine: launches {counts}, want {want}")
+    if out_poses.shape != (N_ITER + 1, b, 3, 4) or not (torch.isfinite(out_poses).all()
+                                                       and torch.isfinite(out_scales).all()):
+        raise RuntimeError("sample + refine: poses or scales not finite, or of a wrong shape")
+    ms = start.elapsed_time(end) / SAMPLE_CALLS
+    for name, t in times.items():
+        log("sample", f"{name}: {t:.4f} ms per {ims}-image group | {card}")
+    log("sample", f"sample (window {auto}, own draws, from host frames) + shipped refine, "
+                  f"B={b}: {ms:.3f} ms/call, {b / ms * 1e3:.1f} obj/s, launches per call "
+                  f"{ {k: v // SAMPLE_CALLS for k, v in counts.items() if v} } | {card}")
+    del d, out_poses, out_scales
+    torch.cuda.empty_cache()
+    return counts
+
+
 def first_grads(model, optimizer):
     """Record the gradients the first optimizer step of `model` is given
     (the first inner iteration's backward): -> (name -> gradient, hook)."""
@@ -1183,6 +1357,11 @@ def main():
     launches["rot_head_grouped"] += counts["rot_head_grouped"]
     log("refine", f"fused_conv_per_rot_head(group={PATH_GROUP}) B={KERNEL_B} bf16: launches "
                   f"{ {k: v for k, v in counts.items() if v} }, equal to the blocked op")
+
+    # ---- 5c. the sample path: frames -> group sampler -> shipped refine
+    counts = sample_phase(dev, card)
+    for k in launches:
+        launches[k] += counts[k]
 
     # ---- 6. K4 vs its plain version, per gradient tensor
     results["K4"] = check_k4(head, dev, gen)

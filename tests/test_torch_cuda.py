@@ -7,8 +7,10 @@ critical-row plain versions, with dx in bf16 and zero off the rows a live
 channel points at, relaunched bit-equal, their refused widths and their
 scratch; the bf16 K9 for its three columns at point counts its tile does not
 divide, relaunched bit-equal, and the x and widths it refuses), the inference
-kernels' refusal of a differentiable call, and a train
-step's launch counts.
+kernels' refusal of a differentiable call, a train step's launch counts,
+and the ball-crop sampler and the loader's group samplers on the card
+against the same functions on the CPU (equal indices and n_inside,
+bit-equal points, one priority field drawn on the CPU for both).
 
 Every test here is marked `cuda` and skips without a card. The file imports
 no JAX, so it runs on a machine without it; `tests/conftest.py` sets up JAX,
@@ -1115,3 +1117,81 @@ def test_refine_variants_launch_their_kernels(dev, overrides, want):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {**dict.fromkeys(ops.launch_counts(), 0), **want}
     assert torch.isfinite(poses).all() and torch.isfinite(scales).all()
+
+
+# ---- the sampler on the card against the port on the CPU
+
+
+def _sampler_frames():
+    from catre_tpu_torch.entry import example_frames
+
+    return example_frames(4, 120, 160, m=8, seed=3, objs=(2, 8), size_px=(16, 70))
+
+
+def _same(card, cpu):
+    for a, b in zip(card, cpu):
+        a = a.cpu()
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if a.is_floating_point():
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("train_aug", [False, True])
+def test_group_sampler_card_equals_cpu(dev, window, train_aug):
+    """The group sampler (fused windowed form, full frame, depth
+    augmentation) on the card against the CPU, with one set of draws."""
+    from catre_tpu_torch.data.loader import LoaderConfig, make_group_sampler
+
+    f = _sampler_frames()
+    cfg = LoaderConfig(num_pcl=64, sample_window=window, max_objs_per_image=8)
+    gen = torch.Generator().manual_seed(0)
+    n = 64 * 64 if window else 120 * 160
+    pri = torch.rand(4, 8, n, generator=gen)
+    aug = None
+    if train_aug:
+        aug = {"fill_draw": torch.randn(4, 120, 160, generator=gen),
+               "drop_coin_draw": torch.tensor([0.1, 0.9, 0.1, 0.9]),
+               "keep_draw": torch.rand(4, 120, 160, generator=gen),
+               "noise_coin_draw": torch.tensor([0.1, 0.1, 0.95, 0.95]),
+               "noise_level_draw": torch.rand(4, generator=gen) * 0.01,
+               "noise_draw": torch.randn(4, 120, 160, generator=gen)}
+    args = (f["depth"], f["K"], f["packed"], f["poses"], f["scales"], f["mask_bbox"])
+    cpu = make_group_sampler(cfg, train_aug, device="cpu")(*args, priorities=pri, aug_draws=aug)
+    card = make_group_sampler(cfg, train_aug, device=dev)(
+        *args, priorities=pri.to(dev),
+        aug_draws=None if aug is None else {k: v.to(dev) for k, v in aug.items()})
+    _same(card, cpu)
+
+
+def test_window_forms_agree_on_the_card(dev):
+    """Fused from-depth, materialized windowed and candidates + select give
+    the same outputs on the card; the generator's own draws stay inside,
+    repeat nothing while enough points are inside and cycle scarce rows."""
+    from catre_tpu_torch.data.loader import (LoaderConfig, make_candidates_builder,
+                                             make_presampled_group_sampler,
+                                             sample_group_from_cloud, sample_group_from_depth,
+                                             to_device)
+    from catre_tpu_torch.ops.sampling import batch_ball_crop_candidates
+
+    f = _sampler_frames()
+    cfg = LoaderConfig(num_pcl=128, sample_window=64, max_objs_per_image=8)
+    d = [to_device(f[k], dev) for k in ("depth", "K", "packed", "poses", "scales", "mask_bbox")]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pri = torch.rand(4, 8, 64 * 64, device=dev, generator=gen)
+    fused = sample_group_from_depth(cfg, *d, priorities=pri)
+    _same(sample_group_from_cloud(cfg, False, *d[:5], priorities=pri), [o.cpu() for o in fused])
+    table = [to_device(f[k], dev) for k in ("depth", "packed", "K", "poses", "scales",
+                                            "mask_bbox")]
+    rows = torch.arange(4, device=dev)
+    cand = make_candidates_builder(cfg, device=dev)(*table, rows)
+    pre = make_presampled_group_sampler(cfg, 160, 64, device=dev)(*cand, rows, priorities=pri)
+    _same(pre, [o.cpu() for o in fused])
+    pts, idx, n_in = sample_group_from_depth(cfg, *d, generator=gen)
+    _, inside, _, _ = batch_ball_crop_candidates(d[0], d[1], d[2], d[5], d[3], d[4], 0.6, 64)
+    idx_w = ((idx // 160 - cand[3][..., :1]) * 64 + idx % 160 - cand[3][..., 1:])
+    assert torch.gather(inside, -1, idx_w)[n_in > 0].all()
+    for row, n in zip(idx.flatten(0, 1).tolist(), n_in.flatten().tolist()):
+        assert len(set(row)) == min(n, 128) or n == 0

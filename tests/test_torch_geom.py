@@ -102,3 +102,103 @@ def test_pose_scale_from_delta_init(space, z_style, k_aware, scale_type, allo):
     ref = j_compose(**{k: jnp.asarray(v) for k, v in arrays.items()}, **kw)
     for p, r in zip(port, ref):
         _close(p, r)
+
+
+# ---- geometry the sampler and the evaluator need (ROADMAP item 1)
+
+from catre_tpu.geom import errors as jerr  # noqa: E402
+from catre_tpu.geom import symmetry as jsym  # noqa: E402
+from catre_tpu_torch.geom import errors as terr  # noqa: E402
+from catre_tpu_torch.geom import symmetry as tsym  # noqa: E402
+
+
+def _rotations(rng, b=16):
+    return np.array(jrot.rot6d_to_mat(jnp.asarray(rng.normal(size=(b, 6)).astype(np.float32))))
+
+
+def test_backproject_and_project_pts():
+    rng = np.random.default_rng(5)
+    depth = rng.uniform(0.0, 2.0, size=(2, 24, 32)).astype(np.float32)
+    depth[:, :4] = 0.0
+    K = np.array([[[591.0, 0, 15.5], [0, 590.2, 11.5], [0, 0, 1]],
+                  [[500.0, 0, 16.1], [0, 510.0, 12.2], [0, 0, 1]]], np.float32)
+    port = ttf.backproject(torch.from_numpy(depth), torch.from_numpy(K))
+    for i in range(2):       # one image at a time in JAX; the port also takes a stack
+        ref = jtf.backproject(jnp.asarray(depth[i]), jnp.asarray(K[i]))
+        np.testing.assert_array_equal(port[i].numpy(), np.asarray(ref))
+        np.testing.assert_array_equal(
+            ttf.backproject(torch.from_numpy(depth[i]), torch.from_numpy(K[i])).numpy(),
+            np.asarray(ref))
+    pts = rng.normal(size=(40, 3)).astype(np.float32) * 0.1
+    R = _rotations(rng, 1)[0]
+    t = np.array([0.05, -0.02, 1.0], np.float32)
+    # pixels of a few hundred: 1e-5 relative, the f32 spacing there
+    np.testing.assert_allclose(
+        ttf.project_pts(*map(torch.from_numpy, (pts, K[0], R, t))).numpy(),
+        np.asarray(jtf.project_pts(*map(jnp.asarray, (pts, K[0], R, t)))), rtol=1e-5, atol=TOL)
+
+
+def test_pose_3x4_to_4x4():
+    pose = np.random.default_rng(6).normal(size=(2, 5, 3, 4)).astype(np.float32)
+    np.testing.assert_array_equal(ttf.pose_3x4_to_4x4_np(pose), jtf.pose_3x4_to_4x4_np(pose))
+    np.testing.assert_array_equal(ttf.pose_3x4_to_4x4(torch.from_numpy(pose)).numpy(),
+                                  np.asarray(jtf.pose_3x4_to_4x4(jnp.asarray(pose))))
+
+
+def test_normalize_and_mat_to_rot6d():
+    rng = np.random.default_rng(7)
+    v = rng.normal(size=(16, 3)).astype(np.float32)
+    v[0] = 0.0                                   # the eps branch
+    _close(trot.normalize(torch.from_numpy(v)), jrot.normalize(jnp.asarray(v)))
+    R = _rotations(rng)
+    _close(trot.mat_to_rot6d(torch.from_numpy(R)), jrot.mat_to_rot6d(jnp.asarray(R)))
+
+
+def _branch_rotations(branch, rng, b=8):
+    """Rotations whose largest of (trace, m00, m11, m22) is `branch`: small
+    angles for the trace, near-pi turns about x, y or z for the others."""
+    axes = rng.normal(size=(b, 3)) * 0.1
+    if branch == 0:
+        angles = rng.uniform(0.0, 1.0, b)
+    else:
+        axes[:, branch - 1] = 1.0
+        angles = rng.uniform(2.9, np.pi, b)
+    return np.array(jrot.axangle_to_mat(jnp.asarray(axes, jnp.float32),
+                                        jnp.asarray(angles, jnp.float32)))
+
+
+@pytest.mark.parametrize("branch", [0, 1, 2, 3])
+def test_mat_to_quat_and_lie_vec_every_branch(branch):
+    R = _branch_rotations(branch, np.random.default_rng(8 + branch))
+    diag = np.stack([np.trace(R, axis1=1, axis2=2), R[:, 0, 0], R[:, 1, 1], R[:, 2, 2]], 1)
+    assert (diag.argmax(1) == branch).all()
+    _close(trot.mat_to_quat(torch.from_numpy(R)), jrot.mat_to_quat(jnp.asarray(R)))
+    _close(trot.mat_to_lie_vec(torch.from_numpy(R)), jrot.mat_to_lie_vec(jnp.asarray(R)))
+
+
+def test_rot_from_axangle_chain():
+    chain = [(1, 0, 0, 0.5), (0, 1, 0, -0.25), (0.3, 0.2, 1.0, 1.0)]
+    _close(trot.rot_from_axangle_chain(chain), jrot.rot_from_axangle_chain(chain))
+    np.testing.assert_array_equal(trot.rot_from_axangle_chain([]).numpy(), np.eye(3))
+
+
+def test_y_rotation_bank_20_exact():
+    port, ref = tsym.y_rotation_bank_20(), jsym.y_rotation_bank_20()
+    assert port.dtype == ref.dtype == np.float64
+    np.testing.assert_array_equal(port, ref)
+
+
+def test_rotation_error_sym_y_and_mean_re_te():
+    rng = np.random.default_rng(9)
+    R_gt, R_est = _rotations(rng), _rotations(rng)
+    R_est[:4] = R_gt[:4] @ np.array(jrot.axangle_to_mat(jnp.asarray([[0.0, 1.0, 0.0]] * 4),
+                                                        jnp.asarray([0.1, 0.5, 1.0, 3.0])))
+    sym = np.arange(16) % 2 == 0
+    t_gt = rng.normal(size=(16, 3)).astype(np.float32)
+    t_est = t_gt + rng.normal(size=(16, 3)).astype(np.float32) * 0.01
+    _close(terr.rotation_error_deg_sym_y(*map(torch.from_numpy, (R_est, R_gt, sym))),
+           jerr.rotation_error_deg_sym_y(*map(jnp.asarray, (R_est, R_gt, sym))))
+    port = terr.mean_re_te(*map(torch.from_numpy, (t_est, R_est, t_gt, R_gt)))
+    ref = jerr.mean_re_te(*map(jnp.asarray, (t_est, R_est, t_gt, R_gt)))
+    _close(port[0], ref[0])
+    _close(port[1], ref[1])

@@ -81,6 +81,33 @@ def test_port_trains_with_jax_blocked():
     assert "train ok" in proc.stdout
 
 
+def test_sampler_and_loader_run_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "from catre_tpu_torch.ops import sampling\n"
+        "from catre_tpu_torch.data import aug, loader\n"
+        "from catre_tpu_torch.entry import example_frames\n"
+        "f = example_frames(2, 96, 128, m=4, objs=(1, 4), size_px=(16, 60))\n"
+        "args = [f[k] for k in ('depth', 'K', 'packed', 'poses', 'scales', 'mask_bbox')]\n"
+        "gen = torch.Generator().manual_seed(0)\n"
+        "for window, train in ((48, False), (0, True)):\n"
+        "    cfg = loader.LoaderConfig(num_pcl=32, sample_window=window, max_objs_per_image=4)\n"
+        "    sample = loader.make_group_sampler(cfg, train, device='cpu')\n"
+        "    pcl, idx, n = sample(*args, generator=gen)\n"
+        "    assert pcl.shape == (2, 4, 32, 3) and torch.isfinite(pcl).all()\n"
+        "    assert idx.shape == (2, 4, 32) and n.shape == (2, 4)\n"
+        "d = aug.aug_depth(sampling.depth_metres(torch.from_numpy(f['depth'])), gen)\n"
+        "assert d.shape == (2, 96, 128)\n"
+        "assert not any(m == 'catre_tpu' or m.startswith('catre_tpu.') for m in sys.modules)\n"
+        "print('sampler ok')\n"
+    )
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "sampler ok" in proc.stdout
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
