@@ -2,8 +2,8 @@
 
 Counterpart of `catre_tpu/config/build.py`: `model_config_from` (:93) with
 `_fused_ok` (:61) and `_enc_train_ok` (:73), `loss_config_from` (:143),
-`noise_config_from` (:167) and, for the sampler's fields, `loader_config_from`
-(:203).
+`noise_config_from` (:167) and `loader_config_from` (:203) with
+`_mean_table_matches` (:189), for the fields the test-phase loader reads.
 """
 
 from __future__ import annotations
@@ -138,22 +138,43 @@ def noise_config_from(cfg) -> InputNoiseConfig:
     )
 
 
-_LOADER_LATER = "ROADMAP.md item 8"
+_LOADER_LATER = "ROADMAP.md items 11 + 12a"
+
+
+def _mean_table_matches(num_kps: int) -> bool:
+    """True when the mean-shape asset exists with `num_kps` points: only
+    then may a test loader leave the per-batch mean points out (its consumer
+    gathers them on the device from the table)."""
+    from ..data.assets import mean_shape_array
+
+    try:
+        return mean_shape_array().shape[1] == num_kps
+    except FileNotFoundError:
+        return False
 
 
 def loader_config_from(cfg, phase: str = "train") -> LoaderConfig:
-    """The sampler's LoaderConfig, with the JAX defaults. A config that asks
+    """The loader's LoaderConfig, with the JAX defaults. A config that asks
     for a loader feature the port lacks raises and names its item."""
     inp = cfg.INPUT
     for key, feature in (("PCL_WITH_COLOR", "aligned RGB per point"),
-                         ("OCCLUDE_MASK_TEST", "the test-time occlusion ablation"),
                          ("WITH_NOCS", "aligned NOCS coordinates per point")):
         if inp.get(key, False):
             raise NotImplementedError(f"INPUT.{key} is set: the port's loader has no "
-                                      f"{feature} yet; it is {_LOADER_LATER}")
-    if str(inp.get("KPS_TYPE", "mean_shape")).lower() == "fps":
-        raise NotImplementedError("INPUT.KPS_TYPE = 'fps': the port's loader ships no "
-                                  f"per-instance FPS keypoints yet; they are {_LOADER_LATER}")
+                                      f"{feature} yet (colour or coordinate images and per-point "
+                                      f"pixel indices); it is {_LOADER_LATER}")
+    if "last_frame" in tuple(inp.get("INIT_POSE_TYPE_TRAIN", ())) \
+            and inp.get("INIT_POSE_TRAIN_PATH", ""):
+        raise NotImplementedError("INPUT.INIT_POSE_TRAIN_PATH with the last_frame init: the "
+                                  f"port's loader ships no previous-frame poses; {_LOADER_LATER}")
+    kps_type = str(inp.get("KPS_TYPE", "mean_shape"))
+    num_kps = int(inp.get("NUM_KPS", 1024))
+    use_cmra_model = bool(inp.get("USE_CMRA_MODEL", True))
+    # USE_CMRA_MODEL on a cmra split ships per-instance priors, which a
+    # category table cannot stand in for
+    names = (tuple(cfg.DATASETS.get("TEST", ())) if phase == "test" else
+             tuple(cfg.DATASETS.get("TRAIN", ())) + tuple(cfg.DATASETS.get("TRAIN2", ())))
+    cmra_prior = use_cmra_model and any("cmra" in str(n) for n in names)
     return LoaderConfig(
         num_pcl=int(inp.NUM_PCL),
         depth_sample_ball_ratio=float(inp.get("DEPTH_SAMPLE_BALL_RATIO", 0.5)),
@@ -165,4 +186,14 @@ def loader_config_from(cfg, phase: str = "train") -> LoaderConfig:
         add_noise_depth_prob=float(inp.get("ADD_NOISE_DEPTH_PROB", 0.9)),
         add_noise_depth_level=float(inp.get("ADD_NOISE_DEPTH_LEVEL", 0.01)),
         max_objs_per_image=int(cfg.DATALOADER.get("MAX_OBJS_PER_IMAGE", 8)),
+        occlude_mask_test=bool(inp.get("OCCLUDE_MASK_TEST", False)),
+        kps_type=kps_type,
+        num_kps=num_kps,
+        use_cmra_model=use_cmra_model,
+        cache_decoded=str(cfg.DATALOADER.get("CACHE_DECODED", "")),
+        # fps keypoints never read mean points; cmra per-instance priors must ship
+        ship_mean_points=(
+            False if kps_type.lower() == "fps" else
+            not (phase == "test" and kps_type.lower() == "mean_shape" and not cmra_prior
+                 and _mean_table_matches(num_kps))),
     )

@@ -1,2 +1,3 @@
-"""Data: train-time augmentation and the loader's device half (the group
-samplers); the host half (decode, caches, `CATRELoader`) is not ported yet."""
+"""Data: dataset metadata and assets, PNG and RLE decoding, train-time depth
+augmentation, and the test-phase loader (host decode, decoded caches, group
+samplers, `CATRELoader`)."""

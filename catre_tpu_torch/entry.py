@@ -7,21 +7,28 @@ comes from `catre_tpu/configs/nocs_real/..._120e_tpu.py` (bf16, fused rot
 head, fused encoder tails, FUSED_HEADS_TRAIN, FUSED_ENCODER_TRAIN) read
 through the port's own loader; the weights are random, from a seed.
 `example_frames` makes depth frames for the sampler (`data.loader`), whose
-clouds the refine takes in place of `example_batch`'s.
+clouds the refine takes in place of `example_batch`'s; `write_example_split`
+writes such frames to disk as a split (the counterpart of
+`bench.py::_write_synthetic_frames`), and `shipped_test_loader` reads a split
+through the shipped config's test loader.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from .config.build import (FLAGSHIP_CONFIG, loss_config_from, model_config_from,
-                           noise_config_from)
+from .config.build import (FLAGSHIP_CONFIG, loader_config_from, loss_config_from,
+                           model_config_from, noise_config_from)
 from .config.loader import load_config
-from .data.loader import mask_bbox_rows, pack_masks
+from .data import png
+from .data.loader import CATRELoader, LoaderConfig, mask_bbox_rows, pack_masks
+from .data.rle import binary_mask_to_rle
 from .engine.refiner import make_refine_fn
 from .engine.train import TrainState, TrainStep, init_train_state, make_train_step
 from .geom.rotations import euler_to_mat
@@ -116,6 +123,71 @@ def example_frames(g: int, h: int = 480, w: int = 640, m: int = 8, seed: int = 0
     out["packed"] = np.stack([pack_masks(mk) for mk in out["masks"]])
     out["mask_bbox"] = np.stack([mask_bbox_rows(mk) for mk in out["masks"]])
     return out
+
+
+def _write_example_frame(root: str, f: int, h: int, w: int, m: int, seed: int) -> dict:
+    """Frame f of `write_example_split`, from its own seed."""
+    frame_seed = int(np.random.SeedSequence((seed, f)).generate_state(1)[0])
+    fr = example_frames(1, h, w, m=m, seed=frame_seed, objs=(min(2, m), m),
+                        size_px=(40 * h / 480, 200 * h / 480))
+    path = os.path.join(root, f"{f:04d}_depth.png")
+    png.write_png(path, fr["depth"][0], level=1)
+    annos = []
+    for j, anno in enumerate(fr["records"][0]["annotations"]):
+        pose, scale = fr["poses"][0, j], fr["scales"][0, j]
+        annos.append({"category_id": j % 6, "pose": pose, "scale": scale,
+                      "pose_est": pose.copy(), "scale_est": scale.copy(),
+                      "bbox": list(anno["bbox_est"]), "bbox_est": list(anno["bbox_est"]),
+                      "segmentation": binary_mask_to_rle(fr["masks"][0, j]),
+                      "score": 1.0, "mug_handle": 1})
+    return {"scene_im_id": f"example/{f:04d}", "depth_file": path, "height": h, "width": w,
+            "cam": fr["K"][0], "annotations": annos, "gt_annotations": annos}
+
+
+def write_example_split(root: str, n_frames: int, h: int = 480, w: int = 640, m: int = 8,
+                        seed: int = 0) -> list:
+    """Write `n_frames` of `example_frames` under `root` as a test split:
+    16-bit depth PNGs through `data.png`, each instance's mask as an RLE
+    `segmentation`, its pose, scale, init estimate (the same), bbox, score
+    and a category (slot % 6), as `bench.py::_write_synthetic_frames` writes
+    its records. Frames hold 2 to m objects of 40-200 px at 480 rows, scaled
+    with h. Frame f depends on (seed, f) only, so a shorter split is a prefix
+    of a longer one. Returns the records."""
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        return list(pool.map(lambda f: _write_example_frame(root, f, h, w, m, seed),
+                             range(n_frames)))
+
+
+def shipped_test_loader(records: list, device="cuda", **kw) -> CATRELoader:
+    """The shipped config's test loader over `records`, as a single-process
+    `do_test` builds it: TEST.IMS_PER_BATCH, DATALOADER.NUM_WORKERS and
+    CACHE_DECODED, the auto window, device batches. Keywords that name a
+    `LoaderConfig` field replace it; the rest go to `CATRELoader`
+    (`mean_points`, `draws`, `ims_per_batch`, ...)."""
+    cfg = load_config(str(FLAGSHIP_CONFIG))
+    fields = {f.name for f in dataclasses.fields(LoaderConfig)}
+    lcfg = dataclasses.replace(loader_config_from(cfg, "test"),
+                               **{k: kw.pop(k) for k in list(kw) if k in fields})
+    args = {"ims_per_batch": int(cfg.TEST.IMS_PER_BATCH),
+            "num_workers": int(cfg.DATALOADER.get("NUM_WORKERS", 0)), "device_batches": True}
+    args.update(kw)
+    return CATRELoader(records, lcfg, phase="test", device=device, **args)
+
+
+def loader_refine_args(batch: dict, mean_table: torch.Tensor) -> tuple:
+    """A test loader batch -> the refine's arguments on the table's device:
+    the clouds, the mean-shape keypoints gathered there by class from the
+    (6, K, 3) table, the init estimate, K and the mean scales. The host
+    fields travel as one (B, 28) array, as JAX `run_inference` packs them."""
+    b = batch["pcl"].shape[0]
+    host = np.concatenate([batch["obj_pose_est"].reshape(b, 12), batch["obj_scale_est"],
+                           batch["K"].reshape(b, 9), batch["obj_mean_scales"],
+                           batch["obj_cls"].reshape(b, 1)], axis=1, dtype=np.float32)
+    packed = torch.from_numpy(host).to(mean_table.device)
+    pcl = torch.as_tensor(batch["pcl"]).to(mean_table.device)
+    return (pcl, mean_table[packed[:, 27].long()], packed[:, :12].reshape(b, 3, 4),
+            packed[:, 12:15].contiguous(), packed[:, 15:24].reshape(b, 3, 3),
+            packed[:, 24:27].contiguous())
 
 
 def near_identity_model(model: CATREDisRShared) -> CATREDisRShared:

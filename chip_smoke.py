@@ -55,6 +55,22 @@ code is non-zero):
                refine at B = 256 (finite poses, K1 = 4, K2 = 8, K3 = 4); ms
                per 32-image group for each form and window, the candidates
                and the select alone, and sample + refine obj/s;
+  5d. loader:  split from disk -> test loader -> shipped refine: 256 frames of
+               480 x 640 with 8 slots (`entry.write_example_split`: 16-bit
+               depth PNGs, RLE masks) in a temporary directory, read by the
+               shipped config's test loader (`entry.shipped_test_loader`:
+               device cache, frozen plan, presampled candidates, auto
+               window, 32 images a group, 4 decode threads; a seeded
+               mean-shape table, gathered on the card by class): a cold pass
+               (decode, device cache, candidates) and two warm passes into
+               the shipped refine at B = 256 (finite poses, K1 = 4, K2 = 8,
+               K3 = 4 a call); one uncached pass (4 threads, pinned buffers,
+               side stream); pipelined batches bit-equal to batches
+               dispatched one group at a time over 4 groups; the card's
+               first 2 groups bit-equal to the CPU loader's under the
+               loader's own draws; host decode ms a frame (`data/png.py`),
+               cold s, warm and uncached obj/s, device cache and candidate
+               GB;
   6. K4:       the rotation-head backward kernel vs its plain version
                (autograd of the K3 twin), B = 64 and the main path's B = 512
                objects x 2048 points, f32 (tight) and bf16 (loose), per
@@ -102,6 +118,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -155,6 +172,12 @@ IDENTITY_TOL = 1e-5
 SAMPLE_FIXED_WINDOW = 128    # the sampler's fixed-window cell beside the auto window
 SAMPLE_FULL_FRAME_IMS = 8    # images of the full-frame card-vs-CPU check
 SAMPLE_CALLS = 3             # timed sample + refine calls, after one warm-up
+LOADER_FRAMES = 256          # frames of the split that phase 5d writes and reads
+LOADER_WARM_PASSES = 2       # timed passes of the shipped test loader after the cold one
+LOADER_WORKERS = 4           # decode threads of the uncached pass
+LOADER_DECODE_FRAMES = 32    # frames decoded one by one for the host decode time
+LOADER_CPU_GROUPS = 2        # groups held card against CPU
+LOADER_SERIAL_GROUPS = 4     # groups of the pipelined-vs-serial check (the pinned slots reused)
 
 
 def log(phase, msg):
@@ -1110,6 +1133,129 @@ def sample_phase(dev, card, model_seed=0):
     return counts
 
 
+def same_batches(tag, card, ref):
+    """Loader batches equal: the same images, host fields and clouds bit for
+    bit (the clouds on any device)."""
+    if len(card) != len(ref):
+        raise RuntimeError(f"loader {tag}: {len(card)} batches, want {len(ref)}")
+    for i, (a, b) in enumerate(zip(card, ref)):
+        if a["scene_im_ids"] != b["scene_im_ids"] or set(a) != set(b):
+            raise RuntimeError(f"loader {tag}: batch {i} holds other images or fields")
+        for k in set(a) - {"pcl", "scene_im_ids", "file_names"}:
+            if a[k].dtype != b[k].dtype or not (a[k] == b[k]).all():
+                raise RuntimeError(f"loader {tag}: batch {i} field {k} differs")
+        same_outputs(f"{tag} batch {i}", [a["pcl"]], [b["pcl"]])
+
+
+def loader_phase(dev, card, model_seed=0):
+    """A split on disk -> the shipped test loader -> the shipped refine (see
+    5d in the module docstring); returns the refine's launch counts over the
+    warm passes."""
+    import numpy as np
+
+    from catre_tpu_torch import ops
+    from catre_tpu_torch.data import loader as dl
+    from catre_tpu_torch.entry import (N_ITER, entry, loader_refine_args, shipped_test_loader,
+                                       write_example_split)
+
+    table = np.random.default_rng(model_seed).normal(size=(6, 1024, 3)).astype(np.float32) * 0.1
+    table_dev = torch.from_numpy(table).to(dev)
+    with tempfile.TemporaryDirectory(prefix="catre_split_") as root:
+        t0 = time.perf_counter()
+        records = write_example_split(root, LOADER_FRAMES)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for r in records[:LOADER_DECODE_FRAMES]:
+            dl.load_depth(r["depth_file"])
+        decode_ms = (time.perf_counter() - t0) / LOADER_DECODE_FRAMES * 1e3
+        n_objs = sum(len(r["annotations"]) for r in records)
+        log("loader", f"wrote {LOADER_FRAMES} frames 480x640 ({n_objs} objects) in {write_s:.1f} s; "
+                      f"png.py decode {decode_ms:.3f} ms a depth frame (one thread)")
+
+        # the shipped path: device cache, frozen plan, presampled candidates
+        kw = dict(mean_points=table, ship_mean_points=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loader = shipped_test_loader(records, dev, **kw)
+        build_s = time.perf_counter() - t0
+        ims, m = loader.ims_per_batch, loader.cfg.max_objs_per_image
+        b = ims * m
+        refine, _ = entry(dev, batch_size=b, seed=model_seed)
+
+        def run_pass(ld, keep=0):
+            """Every batch through the refine; -> (s, batches, the first `keep` batches)."""
+            kept, n = [], 0
+            start = time.perf_counter()
+            for batch in ld:
+                poses, scales = refine(*loader_refine_args(batch, table_dev))
+                if poses.shape != (N_ITER + 1, b, 3, 4) or not (torch.isfinite(poses).all()
+                                                               and torch.isfinite(scales).all()):
+                    raise RuntimeError("loader + refine: poses or scales not finite, or of a "
+                                       "wrong shape")
+                if len(kept) < keep:
+                    kept.append(dict(batch, pcl=batch["pcl"].clone()))
+                n += 1
+            torch.cuda.synchronize()
+            return time.perf_counter() - start, n, kept
+
+        cold_s, n_batches, _ = run_pass(loader)
+        if ims not in loader._plan_store or not loader._cand_store:
+            raise RuntimeError("loader: the shipped path did not take the frozen plan and the "
+                               "presampled candidates")
+        want_batches = -(-LOADER_FRAMES // ims)
+        if n_batches != want_batches:
+            raise RuntimeError(f"loader: {n_batches} batches, want {want_batches}")
+        log("loader", f"cold: device cache {build_s:.3f} s (decode in {loader.num_workers} "
+                      f"threads, {loader.device_cache_gb():.3f} GB), first pass (plan, "
+                      f"candidates {loader.candidates_gb():.3f} GB, {n_batches} batches of "
+                      f"B={b}) {cold_s:.3f} s; window {loader.cfg.sample_window}")
+        ops.reset_launch_counts()
+        warm = []
+        for _ in range(LOADER_WARM_PASSES):
+            loader.reset_stream()
+            s, _, kept = run_pass(loader, keep=LOADER_CPU_GROUPS)
+            warm.append(s)
+        counts = ops.launch_counts()
+        calls = LOADER_WARM_PASSES * n_batches
+        want = {**dict.fromkeys(counts, 0), "dense_relu_dense_max": N_ITER * calls,
+                "dense_relu_max": 2 * N_ITER * calls, "rot_head": N_ITER * calls}
+        if counts != want:
+            raise RuntimeError(f"loader + refine: launches {counts}, want {want}")
+        for i, s in enumerate(warm):
+            log("loader", f"warm pass {i + 1} (frozen, presampled, own draws) + shipped refine: "
+                          f"{s:.4f} s, {LOADER_FRAMES * m / s:.1f} obj/s ({n_objs / s:.1f} "
+                          f"real objects/s) | {card}")
+
+        # the card against the CPU loader on the first groups, the loader's own draws
+        cpu = shipped_test_loader(records[:LOADER_CPU_GROUPS * ims], "cpu", cache_decoded="",
+                                  sample_window=loader.cfg.sample_window, **kw)
+        same_batches("card vs CPU", kept, list(cpu))
+        log("loader", f"card = CPU on the first {LOADER_CPU_GROUPS} groups (host fields, "
+                      "indices, clouds bit for bit)")
+
+        # uncached: decode threads, pinned buffers on a side stream, two groups in flight
+        unc = shipped_test_loader(records, dev, cache_decoded="", num_workers=LOADER_WORKERS,
+                                  sample_window=loader.cfg.sample_window, **kw)
+        run_pass(unc)                                       # warm the uploader's buffers
+        unc.reset_stream()
+        unc_s, _, _ = run_pass(unc)
+        log("loader", f"uncached pass ({LOADER_WORKERS} threads, pinned, side stream) + shipped "
+                      f"refine: {unc_s:.4f} s, {LOADER_FRAMES * m / unc_s:.1f} obj/s | {card}")
+        sub = records[:LOADER_SERIAL_GROUPS * ims]
+        piped = shipped_test_loader(sub, dev, cache_decoded="", num_workers=LOADER_WORKERS,
+                                    sample_window=loader.cfg.sample_window, **kw)
+        piped_batches = [dict(x, pcl=x["pcl"].clone()) for x in piped]
+        piped.reset_stream()
+        same_batches("pipelined vs serial", piped_batches, list(piped.iter_serial()))
+        log("loader", f"pipelined = serial over {LOADER_SERIAL_GROUPS} groups (pinned slots "
+                      "reused from the third)")
+    # the registry holds the device cache and the candidates (1.5 GB): later phases measure peaks
+    del loader, unc, piped, table_dev
+    dl.clear_decoded_caches()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def first_grads(model, optimizer):
     """Record the gradients the first optimizer step of `model` is given
     (the first inner iteration's backward): -> (name -> gradient, hook)."""
@@ -1360,6 +1506,11 @@ def main():
 
     # ---- 5c. the sample path: frames -> group sampler -> shipped refine
     counts = sample_phase(dev, card)
+    for k in launches:
+        launches[k] += counts[k]
+
+    # ---- 5d. split from disk -> test loader -> shipped refine
+    counts = loader_phase(dev, card)
     for k in launches:
         launches[k] += counts[k]
 

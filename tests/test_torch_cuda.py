@@ -1195,3 +1195,76 @@ def test_window_forms_agree_on_the_card(dev):
     assert torch.gather(inside, -1, idx_w)[n_in > 0].all()
     for row, n in zip(idx.flatten(0, 1).tolist(), n_in.flatten().tolist()):
         assert len(set(row)) == min(n, 128) or n == 0
+
+
+# ---- the test loader on the card against the same loader on the CPU
+
+def _loader_split(tmp_path, n=8):
+    from catre_tpu_torch.entry import write_example_split
+
+    return write_example_split(str(tmp_path), n, h=120, w=160, m=4, seed=3)
+
+
+def _loader(records, device, **kw):
+    import numpy as np
+
+    from catre_tpu_torch.data.loader import CATRELoader, LoaderConfig
+
+    fields = {k: kw.pop(k) for k in list(kw) if k in LoaderConfig.__dataclass_fields__}
+    cfg = LoaderConfig(num_pcl=64, sample_window=-1, aug_depth=False, max_objs_per_image=4,
+                       **fields)
+    table = np.random.default_rng(0).normal(size=(6, 1024, 3)).astype(np.float32)
+    return CATRELoader(records, cfg, phase="test", ims_per_batch=2, device=device,
+                       mean_points=table, **kw)
+
+
+def _same_batches(card, cpu):
+    import numpy as np
+
+    assert len(card) == len(cpu) >= 4
+    for a, b in zip(card, cpu):
+        assert a["scene_im_ids"] == b["scene_im_ids"] and set(a) == set(b)
+        for k in set(a) - {"pcl", "scene_im_ids", "file_names"}:
+            np.testing.assert_array_equal(a[k], b[k])
+        x, y = torch.as_tensor(a["pcl"]).cpu(), torch.as_tensor(b["pcl"]).cpu()
+        assert x.dtype == y.dtype and torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.parametrize("cache,device_batches", [("", True), ("", False), ("ram", True),
+                                                  ("device", True), ("device", False)])
+def test_test_loader_card_equals_cpu(dev, tmp_path, cache, device_batches):
+    """The loader's own draws are integer hashes: the card's batches are the
+    CPU's bit for bit, through the pinned uploader, the device cache and the
+    frozen presampled path."""
+    from catre_tpu_torch.data.loader import clear_decoded_caches
+
+    records = _loader_split(tmp_path)
+    kw = dict(cache_decoded=cache, device_batches=device_batches, num_workers=2)
+    card = [dict(b, pcl=b["pcl"].clone() if torch.is_tensor(b["pcl"]) else b["pcl"])
+            for b in _loader(records, dev, **kw)]
+    if device_batches:
+        assert card[0]["pcl"].device.type == "cuda"
+    _same_batches(card, list(_loader(records, "cpu", **kw)))
+    clear_decoded_caches()
+
+
+def test_pipelined_batches_equal_serial_on_the_card(dev, tmp_path):
+    """Two groups in flight through the two pinned slots: the same batches
+    as one group at a time, from the third group on too."""
+    records = _loader_split(tmp_path, n=10)
+    loader = _loader(records, dev, num_workers=3, device_batches=True)
+    piped = [dict(b, pcl=b["pcl"].clone()) for b in loader]
+    loader.reset_stream()
+    _same_batches(piped, list(loader.iter_serial()))
+
+
+def test_counter_draws_are_the_cpus_bits_on_the_card(dev):
+    import numpy as np
+
+    from catre_tpu_torch.data.loader import counter_draws, image_key
+
+    keys = np.stack([image_key(5, g) for g in range(6)])
+    card = counter_draws(keys, (6, 8, 224 * 224), dev)
+    assert card.device.type == "cuda"
+    assert torch.equal(card.cpu().view(torch.int32),
+                       counter_draws(keys, (6, 8, 224 * 224), "cpu").view(torch.int32))

@@ -84,7 +84,8 @@ def test_port_trains_with_jax_blocked():
 def test_sampler_and_loader_run_with_jax_blocked():
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
+        "for blocked in ('jax', 'flax', 'cv2', 'PIL'):\n"
+        "    sys.modules[blocked] = None\n"
         "import torch\n"
         "from catre_tpu_torch.ops import sampling\n"
         "from catre_tpu_torch.data import aug, loader\n"
@@ -100,7 +101,21 @@ def test_sampler_and_loader_run_with_jax_blocked():
         "    assert idx.shape == (2, 4, 32) and n.shape == (2, 4)\n"
         "d = aug.aug_depth(sampling.depth_metres(torch.from_numpy(f['depth'])), gen)\n"
         "assert d.shape == (2, 96, 128)\n"
+        "# the whole test loader, on frames written to disk and read back\n"
+        "import tempfile\n"
+        "import numpy as np\n"
+        "from catre_tpu_torch.entry import shipped_test_loader, write_example_split\n"
+        "table = np.random.default_rng(0).normal(size=(6, 1024, 3)).astype(np.float32)\n"
+        "with tempfile.TemporaryDirectory() as root:\n"
+        "    recs = write_example_split(root, 5, 96, 128, m=4)\n"
+        "    for cache in ('device', '', 'ram'):\n"
+        "        ld = shipped_test_loader(recs, device='cpu', mean_points=table, num_pcl=32,\n"
+        "                                 ims_per_batch=2, num_workers=2, cache_decoded=cache)\n"
+        "        batches = list(ld)\n"
+        "        assert [len(b['scene_im_ids']) for b in batches] == [2, 2, 2]\n"
+        "        assert all(torch.isfinite(b['pcl']).all() for b in batches)\n"
         "assert not any(m == 'catre_tpu' or m.startswith('catre_tpu.') for m in sys.modules)\n"
+        "assert not any(sys.modules.get(m) for m in ('jax', 'flax', 'cv2', 'PIL'))\n"
         "print('sampler ok')\n"
     )
     proc = _run(["-c", code])

@@ -263,7 +263,22 @@ def test_loader_config_from_the_shipped_config(phase):
 @pytest.mark.parametrize("key,value", [("PCL_WITH_COLOR", True), ("OCCLUDE_MASK_TEST", True),
                                        ("WITH_NOCS", True), ("KPS_TYPE", "fps")])
 def test_loader_config_refuses_features_the_port_lacks(key, value):
+    """The aligned RGB and NOCS paths raise and name their item; the test
+    occlusion and the FPS keypoints, which the test loader now has, are
+    carried as the JAX bridge carries them."""
     cfg = load_config(str(FLAGSHIP_CONFIG))
     cfg.INPUT[key] = value
-    with pytest.raises(NotImplementedError, match="item 8"):
-        loader_config_from(cfg, "test")
+    if key in ("PCL_WITH_COLOR", "WITH_NOCS"):
+        with pytest.raises(NotImplementedError, match="items 11 \\+ 12a"):
+            loader_config_from(cfg, "test")
+        return
+    from catre_tpu.config.loader import load_config as j_load_config
+
+    jcfg = j_load_config(str(FLAGSHIP_CONFIG))
+    jcfg.INPUT[key] = value
+    port, ref = loader_config_from(cfg, "test"), j_loader_config_from(jcfg, "test")
+    for field in dataclasses.fields(port):
+        assert getattr(port, field.name) == getattr(ref, field.name), field.name
+    assert port.occlude_mask_test == (key == "OCCLUDE_MASK_TEST")
+    assert (port.kps_type == "fps") == (key == "KPS_TYPE")
+    assert key != "KPS_TYPE" or not port.ship_mean_points      # FPS keypoints read no mean points
