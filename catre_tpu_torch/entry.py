@@ -9,8 +9,9 @@ through the port's own loader; the weights are random, from a seed.
 `example_frames` makes depth frames for the sampler (`data.loader`), whose
 clouds the refine takes in place of `example_batch`'s; `write_example_split`
 writes such frames to disk as a split (the counterpart of
-`bench.py::_write_synthetic_frames`), and `shipped_test_loader` reads a split
-through the shipped config's test loader.
+`bench.py::_write_synthetic_frames`), `shipped_test_loader` reads a split
+through the shipped config's test loader, and `evaluate_split` refines and
+scores it with the fixed-IoU NOCS protocol.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -31,6 +33,7 @@ from .data.loader import CATRELoader, LoaderConfig, mask_bbox_rows, pack_masks
 from .data.rle import binary_mask_to_rle
 from .engine.refiner import make_refine_fn
 from .engine.train import TrainState, TrainStep, init_train_state, make_train_step
+from .eval.evaluator import CATREEvaluator, pack_host, run_inference, unpack_refine_args
 from .geom.rotations import euler_to_mat
 from .geom.symmetry import axis_symmetry_rotation_bank
 from .models.catre import CATREConfig, CATREDisRShared, init_model
@@ -178,16 +181,41 @@ def loader_refine_args(batch: dict, mean_table: torch.Tensor) -> tuple:
     """A test loader batch -> the refine's arguments on the table's device:
     the clouds, the mean-shape keypoints gathered there by class from the
     (6, K, 3) table, the init estimate, K and the mean scales. The host
-    fields travel as one (B, 28) array, as JAX `run_inference` packs them."""
-    b = batch["pcl"].shape[0]
-    host = np.concatenate([batch["obj_pose_est"].reshape(b, 12), batch["obj_scale_est"],
-                           batch["K"].reshape(b, 9), batch["obj_mean_scales"],
-                           batch["obj_cls"].reshape(b, 1)], axis=1, dtype=np.float32)
-    packed = torch.from_numpy(host).to(mean_table.device)
-    pcl = torch.as_tensor(batch["pcl"]).to(mean_table.device)
-    return (pcl, mean_table[packed[:, 27].long()], packed[:, :12].reshape(b, 3, 4),
-            packed[:, 12:15].contiguous(), packed[:, 15:24].reshape(b, 3, 3),
-            packed[:, 24:27].contiguous())
+    fields travel as one (B, 28) row an object (`eval.evaluator.pack_host`),
+    as `run_inference` sends them."""
+    dev = mean_table.device
+    packed = pack_host(batch, pin=dev.type == "cuda").to(dev, non_blocking=True)
+    return unpack_refine_args(torch.as_tensor(batch["pcl"]).to(dev), mean_table, packed)
+
+
+def evaluate_split(records: list, device="cuda", mean_table=None, seed: int = 0,
+                   n_iters: int = N_ITER, *, output_dir: str | None = None, warmup: int = 1,
+                   compute_probe_every: int = 8, **loader_kw) -> tuple:
+    """Score a split: the shipped test loader over `records`
+    (`shipped_test_loader`; `loader_kw` go to it), the shipped refine of
+    `n_iters` iterations with seeded weights on `device` (its point counts
+    follow the loader's), a `CATREEvaluator` over `records`, then
+    `eval.run_inference` (packed inputs, prefetch 2) and `evaluate()`. The
+    inner loop of JAX `do_test` (`catre_tpu/engine/runner.py:480-600`) for one
+    dataset; `do_test` itself, the init modes `gt_noise` and `canonical` and
+    the CLI are ROADMAP item 13a. `mean_table` is the (6, K, 3) mean-shape
+    table (None: the asset file), gathered on the device by class, so the
+    loader ships no per-object mean points unless `ship_mean_points=True`.
+    -> (stats, results): `run_inference`'s statistics plus `score_s`, the
+    seconds of `evaluate()`, and its per-iteration tables."""
+    if mean_table is not None:
+        loader_kw.setdefault("mean_points", np.asarray(mean_table, np.float32))
+    loader_kw.setdefault("ship_mean_points", False)
+    loader = shipped_test_loader(records, device, **loader_kw)
+    cfg = flagship_config(num_pcl=loader.cfg.num_pcl, num_kps=loader.cfg.num_kps)
+    refine = make_refine_fn(init_model(cfg, seed=seed, device=device), n_iter=n_iters)
+    evaluator = CATREEvaluator(records, n_iters=n_iters, output_dir=output_dir)
+    stats = run_inference(refine, loader, evaluator, n_iters, warmup=warmup,
+                          kps_type=loader.cfg.kps_type, num_kps=loader.cfg.num_kps,
+                          compute_probe_every=compute_probe_every, mean_table=mean_table)
+    t0 = time.perf_counter()
+    results = evaluator.evaluate()
+    return dict(stats, score_s=time.perf_counter() - t0), results
 
 
 def near_identity_model(model: CATREDisRShared) -> CATREDisRShared:

@@ -16,6 +16,14 @@ summed device time of its kernels, the idle share (1 - device / wall, and
 against the wall of the last unprofiled pass, which bears no profiler cost) and
 the operators ranked by the device time of their kernels; and one uncached pass
 (the shipped config's 4 decode threads, pinned buffers, a side stream).
+
+`--evaluate` also runs the device-cache loader's passes through
+`eval.run_inference` into a `CATREEvaluator` (the shipped refine, the packed
+inputs, prefetch 2): a warm pass, a timed pass without probes (images/s, slot
+and real obj/s, `overlap_fetch_s_per_img`, `process_s_per_img`, then the
+seconds of `evaluate()` over the 5 iterations), a pass with the default probe
+(`compute_s_per_img`) and a timed pass under `torch.profiler` (wall, device
+time and idle share, as for the loader's pass).
 """
 
 from __future__ import annotations
@@ -30,7 +38,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..data import loader as dl
-from ..entry import entry, loader_refine_args, shipped_test_loader, write_example_split
+from ..entry import N_ITER, entry, loader_refine_args, shipped_test_loader, write_example_split
+from ..eval.evaluator import CATREEvaluator, run_inference
 from .profile_train import card_line, device_kernels, device_us
 
 
@@ -44,10 +53,46 @@ def run_pass(loader, refine, table) -> float:
     return time.perf_counter() - start
 
 
+def evaluate_passes(loader, refine, table, records, n_objs, m) -> None:
+    """The loader's passes through `run_inference` and the evaluator (see
+    `--evaluate` in the module docstring)."""
+    def run(**kw):
+        loader.reset_stream()
+        ev = CATREEvaluator(records, n_iters=N_ITER)
+        return run_inference(refine, loader, ev, N_ITER, mean_table=table, **kw), ev
+
+    run(compute_probe_every=0)                                   # warm
+    stats, ev = run(warmup=0, compute_probe_every=0)
+    s, n = stats["total_s"], stats["images"]
+    print(f"evaluate, timed pass (no probe, prefetch 2): {n} images in {s:.4f} s, "
+          f"{n / s:.1f} images/s, {n * m / s:.1f} slot obj/s, {n_objs / s:.1f} real obj/s; "
+          f"overlap_fetch_s_per_img {stats['overlap_fetch_s_per_img']:.6f}, process_s_per_img "
+          f"{stats['process_s_per_img']:.6f}")
+    t0 = time.perf_counter()
+    results = ev.evaluate(dump=False)
+    print(f"evaluate(): {time.perf_counter() - t0:.3f} s over {len(results)} iterations; "
+          f"iteration 0 IoU75 {results[0]['summary']['IoU75']:.2f}, te2 "
+          f"{results[0]['summary']['te2']:.2f}")
+    stats, _ = run()
+    print(f"evaluate, probed pass (every 8th batch after 1 of warm-up): compute_s_per_img "
+          f"{stats['compute_s_per_img']:.6f}, overlap_fetch_s_per_img "
+          f"{stats['overlap_fetch_s_per_img']:.6f}, process_s_per_img "
+          f"{stats['process_s_per_img']:.6f}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        stats, _ = run(warmup=0, compute_probe_every=0)
+    device_ms = sum(device_us(e) for e in device_kernels(prof.key_averages())) / 1e3
+    wall = stats["total_s"] * 1e3
+    print(f"evaluate, profiled timed pass: wall {wall:.3f} ms, device kernels {device_ms:.3f} ms, "
+          f"idle share {1 - device_ms / wall:.4f}; against the unprofiled timed pass's wall "
+          f"({s * 1e3:.3f} ms) {1 - device_ms / (s * 1e3):.4f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=2752)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--evaluate", action="store_true",
+                    help="also run the passes through run_inference and the evaluator")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_loader needs a CUDA card")
@@ -101,6 +146,8 @@ def main(argv=None) -> int:
         for e in sorted(ops, key=device_us, reverse=True)[:args.top]:
             ms = device_us(e) / 1e3
             print(f"{ms:10.3f} {e.count:6d} {ms / device_ms:6.1%}  {e.key[:100]}")
+        if args.evaluate:
+            evaluate_passes(loader, refine, table, records, n_objs, m)
         del loader
         dl.clear_decoded_caches()
         torch.cuda.empty_cache()

@@ -71,6 +71,17 @@ code is non-zero):
                loader's own draws; host decode ms a frame (`data/png.py`),
                cold s, warm and uncached obj/s, device cache and candidate
                GB;
+  5e. evaluate: the same split -> `entry.evaluate_split` (shipped loader,
+               shipped refine, `CATREEvaluator`, `run_inference`): a warm
+               pass, a timed pass without probes and one with the default
+               probe; 256 images scored, exactly K1 = 4, K2 = 8, K3 = 4 a
+               batch, finite summaries, 100 at iteration 0 (init = gt) on
+               IoU25 / IoU50 / IoU75 / re5te2 / te2 for every class with
+               ground truth; predictions of prefetch 0 and 2 bit-equal; the
+               packed and the host `select_kps` input paths bit-equal on
+               the first 2 groups; a perturbed init below 100;
+               images/s, slot and real obj/s, compute / overlap / process s
+               per image, the seconds of evaluate() and peak memory;
   6. K4:       the rotation-head backward kernel vs its plain version
                (autograd of the K3 twin), B = 64 and the main path's B = 512
                objects x 2048 points, f32 (tight) and bf16 (loose), per
@@ -178,6 +189,10 @@ LOADER_WORKERS = 4           # decode threads of the uncached pass
 LOADER_DECODE_FRAMES = 32    # frames decoded one by one for the host decode time
 LOADER_CPU_GROUPS = 2        # groups held card against CPU
 LOADER_SERIAL_GROUPS = 4     # groups of the pipelined-vs-serial check (the pinned slots reused)
+EVAL_PATH_GROUPS = 2         # groups on which the packed and the host select_kps paths agree
+EVAL_NOISY_FRAMES = 64       # frames of the perturbed-init split that must score below 100
+EVAL_NOISE_M = 0.1           # its translation noise, metres a component (numpy seed 0)
+AP_EXACT = 1e-9              # an AP of 1 summed from float32 recall steps
 
 
 def log(phase, msg):
@@ -1249,10 +1264,123 @@ def loader_phase(dev, card, model_seed=0):
         same_batches("pipelined vs serial", piped_batches, list(piped.iter_serial()))
         log("loader", f"pipelined = serial over {LOADER_SERIAL_GROUPS} groups (pinned slots "
                       "reused from the third)")
-    # the registry holds the device cache and the candidates (1.5 GB): later phases measure peaks
-    del loader, unc, piped, table_dev
+        del loader, unc, piped
+        counts_eval = evaluate_phase(dev, card, records, table, model_seed)
+    # the registry holds the device caches and the candidates (1.5 GB each): later phases
+    # measure peaks
+    del table_dev
     dl.clear_decoded_caches()
     torch.cuda.empty_cache()
+    return counts, counts_eval
+
+
+def same_predictions(tag, got, ref):
+    """Two evaluators' predictions equal: the same images at every iteration,
+    every array of the same dtype and bits."""
+    if len(got) != len(ref):
+        raise RuntimeError(f"evaluate {tag}: {len(got)} iterations, want {len(ref)}")
+    for it, (a, b) in enumerate(zip(got, ref)):
+        if sorted(a) != sorted(b) or not a:
+            raise RuntimeError(f"evaluate {tag}: iteration {it} holds other images")
+        for sid in a:
+            for k, x in a[sid].items():
+                y = b[sid][k]
+                if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+                    raise RuntimeError(f"evaluate {tag}: iteration {it} {sid} {k} differs")
+
+
+def evaluate_phase(dev, card, records, table, model_seed=0):
+    """The split of 5d -> `entry.evaluate_split` (see 5e in the module
+    docstring); returns the launch counts of the timed pass."""
+    import itertools
+
+    import numpy as np
+
+    from catre_tpu_torch import ops
+    from catre_tpu_torch.engine.refiner import make_refine_fn
+    from catre_tpu_torch.entry import (N_ITER, evaluate_split, flagship_config,
+                                       shipped_test_loader)
+    from catre_tpu_torch.eval.evaluator import CATREEvaluator, run_inference
+    from catre_tpu_torch.models.catre import init_model
+
+    n_objs = sum(len(r["annotations"]) for r in records)
+    shipped = shipped_test_loader(records, dev, mean_points=table, ship_mean_points=False)
+    ims, m = shipped.ims_per_batch, shipped.cfg.max_objs_per_image
+    cfg = flagship_config(num_pcl=shipped.cfg.num_pcl, num_kps=shipped.cfg.num_kps)
+    del shipped
+    evaluate_split(records, dev, table, model_seed, compute_probe_every=0)      # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    stats, results = evaluate_split(records, dev, table, model_seed, warmup=0,
+                                    compute_probe_every=0)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_ims = stats["images"]
+    if n_ims != LOADER_FRAMES:
+        raise RuntimeError(f"evaluate: {n_ims} images scored, want {LOADER_FRAMES}")
+    calls = -(-LOADER_FRAMES // ims)
+    want = {**dict.fromkeys(counts, 0), "dense_relu_dense_max": N_ITER * calls,
+            "dense_relu_max": 2 * N_ITER * calls, "rot_head": N_ITER * calls}
+    if counts != want:
+        raise RuntimeError(f"evaluate: launches {counts}, want {want}")
+    if sorted(results) != list(range(N_ITER + 1)) or not all(
+            np.isfinite(v) for r in results.values() for v in r["summary"].values()):
+        raise RuntimeError("evaluate: an iteration's table is missing or not finite")
+    present = sorted({a["category_id"] + 1 for r in records for a in r["annotations"]})
+    iou_aps, pose_aps = results[0]["iou_aps"], results[0]["pose_aps"]
+    at_init = {c: [iou_aps[c, 1], iou_aps[c, 2], iou_aps[c, 3], pose_aps[c, 0, 0],
+                   pose_aps[c, -1, 0]] for c in present}
+    if not present or not all(v >= 1.0 - AP_EXACT for vs in at_init.values() for v in vs):
+        raise RuntimeError(f"evaluate: iteration 0 (init = gt) below 100 on a present class: "
+                           f"{at_init}")
+    s = stats["total_s"]
+    log("evaluate", f"timed pass (no probe, prefetch 2): {n_ims} images in {s:.4f} s, "
+                    f"{n_ims / s:.1f} images/s, {n_ims * m / s:.1f} slot obj/s, {n_objs / s:.1f} "
+                    f"real obj/s; overlap_fetch_s_per_img {stats['overlap_fetch_s_per_img']:.6f}, "
+                    f"process_s_per_img {stats['process_s_per_img']:.6f}; evaluate() over "
+                    f"{N_ITER + 1} iterations {stats['score_s']:.3f} s; peak {peak:.2f} GiB; "
+                    f"launches per batch { {k: v // calls for k, v in counts.items() if v} } "
+                    f"| {card}")
+    log("evaluate", f"iteration 0: 100 on IoU25/50/75, re5te2, te2 for the classes {present}; "
+                    f"iteration {N_ITER} summary "
+                    f"{ {k: round(float(v), 2) for k, v in results[N_ITER]['summary'].items()} }")
+    stats, _ = evaluate_split(records, dev, table, model_seed)
+    log("evaluate", f"probed pass (every 8th batch after 1 of warm-up): compute_s_per_img "
+                    f"{stats['compute_s_per_img']:.6f}, overlap_fetch_s_per_img "
+                    f"{stats['overlap_fetch_s_per_img']:.6f}, process_s_per_img "
+                    f"{stats['process_s_per_img']:.6f}, {stats['images']} images timed | {card}")
+
+    # prefetch 0 = 2, and the two input paths, on the shipped loader and refine
+    refine = make_refine_fn(init_model(cfg, seed=model_seed, device=dev), N_ITER)
+
+    def preds(n_groups=None, ship=False, **kw):
+        ld = shipped_test_loader(records, dev, mean_points=table, ship_mean_points=ship)
+        ev = CATREEvaluator(records, n_iters=N_ITER)
+        src = ld if n_groups is None else itertools.islice(ld, n_groups)
+        run_inference(refine, src, ev, N_ITER, warmup=0, compute_probe_every=0,
+                      mean_table=table, device=dev, **kw)
+        return ev._preds
+
+    same_predictions("prefetch 0 vs 2", preds(prefetch=0), preds(prefetch=2))
+    same_predictions("host select_kps vs packed",
+                     preds(EVAL_PATH_GROUPS, ship=True, use_mean_table=False),
+                     preds(EVAL_PATH_GROUPS))
+    log("evaluate", f"predictions bit-equal (dtypes too): prefetch 0 = 2 over the split; packed "
+                    f"= host select_kps on the first {EVAL_PATH_GROUPS} groups")
+
+    rng = np.random.default_rng(0)
+    noisy = [dict(r, annotations=[dict(a, pose_est=a["pose_est"].copy()) for a in r["annotations"]])
+             for r in records[:EVAL_NOISY_FRAMES]]
+    for r in noisy:                  # the ground truth stays: gt_annotations keeps the originals
+        for a in r["annotations"]:
+            a["pose_est"][:, 3] += rng.normal(0, EVAL_NOISE_M, 3).astype(np.float32)
+    _, res = evaluate_split(noisy, dev, table, model_seed, warmup=0, compute_probe_every=0)
+    te2 = res[0]["summary"]["te2"]
+    if not te2 < 100.0:
+        raise RuntimeError(f"evaluate: a perturbed init scores te2 {te2} at iteration 0")
+    log("evaluate", f"perturbed init ({EVAL_NOISY_FRAMES} frames, N(0, {EVAL_NOISE_M} m) on t): "
+                    f"iteration 0 te2 {te2:.2f}, IoU75 {res[0]['summary']['IoU75']:.2f}")
     return counts
 
 
@@ -1509,10 +1637,10 @@ def main():
     for k in launches:
         launches[k] += counts[k]
 
-    # ---- 5d. split from disk -> test loader -> shipped refine
-    counts = loader_phase(dev, card)
-    for k in launches:
-        launches[k] += counts[k]
+    # ---- 5d. split from disk -> test loader -> shipped refine; 5e. the same split scored
+    for counts in loader_phase(dev, card):
+        for k in launches:
+            launches[k] += counts[k]
 
     # ---- 6. K4 vs its plain version, per gradient tensor
     results["K4"] = check_k4(head, dev, gen)

@@ -1268,3 +1268,73 @@ def test_counter_draws_are_the_cpus_bits_on_the_card(dev):
     assert card.device.type == "cuda"
     assert torch.equal(card.cpu().view(torch.int32),
                        counter_draws(keys, (6, 8, 224 * 224), "cpu").view(torch.int32))
+
+
+# ---- the evaluator's inference loop on the card
+
+def _eval_preds(records, device, model, prefetch=2, **kw):
+    from catre_tpu_torch.engine.refiner import make_refine_fn
+    from catre_tpu_torch.eval.evaluator import CATREEvaluator, run_inference
+
+    table = _loader_table()
+    ev = CATREEvaluator(records, n_iters=2)
+    run_inference(make_refine_fn(model, 2), _loader(records, device, device_batches=True, **kw),
+                  ev, 2, warmup=0, compute_probe_every=1, prefetch=prefetch, mean_table=table)
+    return ev._preds
+
+
+def _loader_table():
+    import numpy as np
+
+    return np.random.default_rng(0).normal(size=(6, 1024, 3)).astype(np.float32)
+
+
+def _eval_model(device, **overrides):
+    from catre_tpu_torch.entry import flagship_config
+    from catre_tpu_torch.models.catre import init_model
+
+    return init_model(flagship_config(num_pcl=64, **overrides), seed=0, device=device)
+
+
+@pytest.mark.parametrize("cache", ["device", ""])
+def test_run_inference_card_equals_cpu_f32(dev, tmp_path, cache):
+    """The f32 refine on the card (K1-K3's f32 builds) against the CPU (their
+    plain versions) through `run_inference`: iteration 0 and the host fields
+    exact, the refined poses and scales within 5e-4, the dtypes equal."""
+    import numpy as np
+
+    from catre_tpu_torch.data.loader import clear_decoded_caches
+
+    records = _loader_split(tmp_path)
+    card = _eval_preds(records, dev, _eval_model(dev, dtype=None), cache_decoded=cache)
+    cpu = _eval_preds(records, "cpu", _eval_model("cpu", dtype=None), cache_decoded=cache)
+    clear_decoded_caches()
+    assert len(card) == len(cpu) == 3 and len(card[0]) == len(records)
+    for it, (a, b) in enumerate(zip(card, cpu)):
+        assert sorted(a) == sorted(b)
+        for sid in a:
+            for k in a[sid]:
+                x, y = a[sid][k], b[sid][k]
+                assert x.dtype == y.dtype and x.shape == y.shape, (it, sid, k)
+                if it == 0 or k not in ("pred_RTs", "pred_scales"):
+                    np.testing.assert_array_equal(x, y)
+                else:
+                    np.testing.assert_allclose(x, y, atol=5e-4, rtol=0)
+
+
+def test_run_inference_prefetch_0_equals_2_on_the_card(dev, tmp_path):
+    """The pinned result buffers are rewritten only after their copy's event:
+    prefetch 0 and 2 give the same predictions bit for bit (bf16 refine)."""
+    from catre_tpu_torch.data.loader import clear_decoded_caches
+
+    records = _loader_split(tmp_path, n=10)
+    model = _eval_model(dev)
+    got = [_eval_preds(records, dev, model, prefetch=p, cache_decoded="device")
+           for p in (0, 2)]
+    clear_decoded_caches()
+    for a, b in zip(*got):
+        assert sorted(a) == sorted(b) and a
+        for sid in a:
+            for k in a[sid]:
+                x, y = a[sid][k], b[sid][k]
+                assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), (sid, k)

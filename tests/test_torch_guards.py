@@ -123,6 +123,40 @@ def test_sampler_and_loader_run_with_jax_blocked():
     assert "sampler ok" in proc.stdout
 
 
+def test_evaluator_runs_with_jax_blocked():
+    """`entry.evaluate_split` (the shipped loader, refine, `CATREEvaluator` and
+    `run_inference`) and the standalone scorer without jax, flax, cv2 or PIL."""
+    code = (
+        "import sys\n"
+        "for blocked in ('jax', 'flax', 'cv2', 'PIL'):\n"
+        "    sys.modules[blocked] = None\n"
+        "import math, pickle, tempfile\n"
+        "import numpy as np\n"
+        "from catre_tpu_torch.entry import evaluate_split, write_example_split\n"
+        "from catre_tpu_torch.eval import CATREEvaluator, nocs_eval\n"
+        "table = np.random.default_rng(0).normal(size=(6, 1024, 3)).astype(np.float32)\n"
+        "with tempfile.TemporaryDirectory() as root:\n"
+        "    recs = write_example_split(root, 5, 96, 128, m=4)\n"
+        "    stats, res = evaluate_split(recs, device='cpu', mean_table=table, num_pcl=32,\n"
+        "                                max_objs_per_image=4, ims_per_batch=2, warmup=0,\n"
+        "                                output_dir=root + '/out')\n"
+        "    assert stats['images'] == 5 and sorted(res) == [0, 1, 2, 3, 4]\n"
+        "    assert all(math.isfinite(v) for r in res.values() for v in r['summary'].values())\n"
+        "    preds = pickle.load(open(root + '/out/predictions.pkl', 'rb'))\n"
+        "    assert len(preds) == 5 and len(preds[0]) == 5\n"
+        "    gts = CATREEvaluator(recs)._gts\n"
+        "    results = {k: dict(**g, **preds[0][k]) for k, g in gts.items()}\n"
+        "    pickle.dump(results, open(root + '/r.pkl', 'wb'))\n"
+        "    assert nocs_eval._main([root + '/r.pkl']) == 0\n"
+        "assert not any(m == 'catre_tpu' or m.startswith('catre_tpu.') for m in sys.modules)\n"
+        "assert not any(sys.modules.get(m) for m in ('jax', 'flax', 'cv2', 'PIL'))\n"
+        "print('evaluator ok')\n"
+    )
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "evaluator ok" in proc.stdout and "3D IoU at 75" in proc.stdout
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
