@@ -1,9 +1,15 @@
 """From the UPPERCASE config tree to the port's typed configs.
 
-Counterpart of `catre_tpu/config/build.py`: `model_config_from` (:93) with
-`_fused_ok` (:61) and `_enc_train_ok` (:73), `loss_config_from` (:143),
-`noise_config_from` (:167) and `loader_config_from` (:203) with
-`_mean_table_matches` (:189), for the fields the test-phase loader reads.
+Counterpart of `catre_tpu/config/build.py`: `validate_config` (:39) with
+`_unknown_key_paths` (:23), `model_config_from` (:93) with `_fused_ok` (:61)
+and `_enc_train_ok` (:73), `loss_config_from` (:143), `noise_config_from`
+(:167) and `loader_config_from` (:203) with `_mean_table_matches` (:189),
+for the fields the test-phase loader reads.
+
+`model_config_from` also checks the kernels' shape limits before any weight
+is built (`ops.limits.check_model_limits`): a config whose fused flags ask
+a kernel for a width it does not take raises, naming the flag to turn off
+and the limit.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from ..engine.train import InputNoiseConfig
 from ..geom.rotations import get_rot_dim
 from ..losses import LossConfig
 from ..models.catre import CATREConfig
+from ..ops.limits import check_model_limits
 
 logger = logging.getLogger(__name__)
 
@@ -25,6 +32,47 @@ CONFIG_DIR = Path(__file__).resolve().parents[2] / "catre_tpu" / "configs"
 # the shipped production variant: bf16, fused heads, fused encoder tails
 FLAGSHIP_CONFIG = (CONFIG_DIR / "nocs_real" /
                    "aug05_kpsMS_r9d_catreDisR_shared_tspcl_convPerRot_scaleexp_120e_tpu.py")
+
+# subtrees whose children are free-form kwargs (module- or optimizer-specific)
+_OPEN_SUBTREES = {"INIT_CFG", "OPTIMIZER_CFG"}
+# keys the CLI and the runner put in, not part of the config-file schema
+_EXTRA_TOP_KEYS = {"NUM_CHIPS", "STRICT_CFG"}
+
+
+def _unknown_key_paths(cfg: dict, schema: dict, prefix: str = "") -> list:
+    unknown = []
+    for k, v in cfg.items():
+        if prefix == "" and k in _EXTRA_TOP_KEYS:
+            continue
+        if k not in schema:
+            unknown.append(prefix + k)
+            continue
+        if k in _OPEN_SUBTREES:
+            continue
+        sv = schema[k]
+        if isinstance(v, dict) and isinstance(sv, dict):
+            unknown += _unknown_key_paths(v, sv, prefix + k + ".")
+    return unknown
+
+
+def validate_config(cfg, strict: bool | None = None) -> list:
+    """Check the merged config against the base schema
+    (`catre_tpu/configs/_base_/catre_base.py`, the typo keys SCLAE_TYPE and
+    REFINE_SCLAE included): an unknown key path is warned about, or rejected
+    when strict (STRICT_CFG=True or strict=True), since a key that nothing
+    reads silently spoils an ablation. -> the unknown dotted key paths."""
+    from .loader import load_config
+
+    schema = load_config(str(CONFIG_DIR / "_base_" / "catre_base.py"))
+    if strict is None:
+        strict = bool(cfg.get("STRICT_CFG", False))
+    unknown = _unknown_key_paths(cfg, schema)
+    if unknown:
+        msg = "unknown config keys (not in the base schema): " + ", ".join(sorted(unknown))
+        if strict:
+            raise ValueError(msg)
+        logger.warning(msg)
+    return unknown
 
 
 def _fused_ok(flag, rot_type: str) -> bool:
@@ -68,7 +116,7 @@ def model_config_from(cfg) -> CATREConfig:
             f"ROT_HEAD.INIT_CFG.rot_dim={cfg_rot_dim} inconsistent with ROT_TYPE={rot_type} "
             f"(total width {rot_out_dim} needs per-head rot_dim {(rot_out_dim + 1) // 2})")
     fht = _fused_ok(cfg.MODEL.get("FUSED_HEADS_TRAIN", False), rot_type)
-    return CATREConfig(
+    mcfg = CATREConfig(
         num_pcl=int(cfg.INPUT.NUM_PCL),
         num_kps=int(cfg.INPUT.NUM_KPS),
         pclnet_out_dim=int(net.PCLNET.INIT_CFG.get("out_dim", 1024)),
@@ -96,6 +144,8 @@ def model_config_from(cfg) -> CATREConfig:
         fused_heads_train=fht,
         fused_encoder_train=_enc_train_ok(cfg, fht),
     )
+    check_model_limits(mcfg)
+    return mcfg
 
 
 def loss_config_from(cfg) -> LossConfig:

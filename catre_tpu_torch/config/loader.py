@@ -1,7 +1,8 @@
 """Python-file configs with `_base_` inheritance and `_delete_` overrides.
 
-A jax-free copy of `catre_tpu/config/loader.py` (`Config` :18,
-`merge_a_into_b` :47, `load_config` :72). The config files themselves stay
+A jax-free copy of `catre_tpu/config/loader.py` (`Config` :18 with
+`get_path` :38, `merge_a_into_b` :47, `load_config` :72, `_parse_value` :90,
+`apply_overrides` :100, `dump_config` :117). The config files themselves stay
 in `catre_tpu/configs/` and are read by path (`runpy`), never imported as a
 package.
 """
@@ -33,6 +34,14 @@ class Config(dict):
         if isinstance(obj, (list, tuple)):
             return type(obj)(Config.wrap(v) for v in obj)
         return obj
+
+    def get_path(self, dotted: str, default: Any = None) -> Any:
+        node: Any = self
+        for part in dotted.split("."):
+            if not isinstance(node, dict) or part not in node:
+                return default
+            node = node[part]
+        return node
 
 
 def merge_a_into_b(a: dict, b: dict) -> dict:
@@ -74,3 +83,39 @@ def load_config(path: str) -> Config:
         merged_base = merge_a_into_b(load_config(osp.join(osp.dirname(path), base_rel)),
                                      merged_base)
     return Config.wrap(merge_a_into_b(cfg, merged_base))
+
+
+def _parse_value(text: str) -> Any:
+    """A CLI override value: a python literal if it parses, else the string."""
+    import ast
+
+    try:
+        return ast.literal_eval(text)
+    except (ValueError, SyntaxError):
+        return text
+
+
+def apply_overrides(cfg: Config, opts: list) -> Config:
+    """Apply `KEY.SUBKEY=value` overrides in place (the reference's --opts,
+    mmcv DictAction); a missing subtree is made."""
+    for opt in opts or []:
+        if "=" not in opt:
+            raise ValueError(f"override must be KEY=VALUE, got: {opt}")
+        key, val = opt.split("=", 1)
+        node: Any = cfg
+        parts = key.split(".")
+        for p in parts[:-1]:
+            if p not in node or not isinstance(node[p], dict):
+                node[p] = Config()
+            node = node[p]
+        node[parts[-1]] = _parse_value(val)
+    return cfg
+
+
+def dump_config(cfg: Config, path: str) -> None:
+    """Write the merged config as a python literal (the reference dumps it
+    through mmcv, `default_args_setup.py:136-144`)."""
+    import pprint
+
+    with open(path, "w") as f:
+        f.write(pprint.pformat(dict(cfg), width=100, sort_dicts=False))

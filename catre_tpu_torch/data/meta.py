@@ -14,16 +14,26 @@ import os.path as osp
 import numpy as np
 
 # ---------------------------------------------------------------- paths
-DATA_ROOT = os.environ.get("CATRE_DATA_ROOT", osp.join(osp.dirname(__file__), "../../datasets"))
-NOCS_ROOT = osp.join(DATA_ROOT, "NOCS")
-MODEL_DIR = osp.join(NOCS_ROOT, "obj_models")
-CR_MEAN_MODEL_PATH = osp.join(MODEL_DIR, "cr_normed_mean_model_points_spd.pkl")
-TRAIN_MODEL_PATH = osp.join(MODEL_DIR, "real_train_spd.pkl")
-TEST_MODEL_PATH = osp.join(MODEL_DIR, "real_test_spd.pkl")
-ABS_SCALE_PATH = osp.join(MODEL_DIR, "abs_scale.pkl")
-MUG_META_PATH = osp.join(MODEL_DIR, "mug_meta.pkl")
-MUG_HANDLE_PATH = osp.join(MODEL_DIR, "mug_handle.pkl")
-FPS_POINTS_PATH = osp.join(MODEL_DIR, "fps_points_spd.pkl")
+def set_data_root(root: str) -> None:
+    """Point every asset and dataset path below at `root` (by default the
+    CATRE_DATA_ROOT environment variable, else `datasets/` of the checkout).
+    Readers look the paths up here when they are called, so this may run
+    after the port is imported."""
+    global DATA_ROOT, NOCS_ROOT, MODEL_DIR, CR_MEAN_MODEL_PATH, TRAIN_MODEL_PATH, \
+        TEST_MODEL_PATH, ABS_SCALE_PATH, MUG_META_PATH, MUG_HANDLE_PATH, FPS_POINTS_PATH
+    DATA_ROOT = root
+    NOCS_ROOT = osp.join(DATA_ROOT, "NOCS")
+    MODEL_DIR = osp.join(NOCS_ROOT, "obj_models")
+    CR_MEAN_MODEL_PATH = osp.join(MODEL_DIR, "cr_normed_mean_model_points_spd.pkl")
+    TRAIN_MODEL_PATH = osp.join(MODEL_DIR, "real_train_spd.pkl")
+    TEST_MODEL_PATH = osp.join(MODEL_DIR, "real_test_spd.pkl")
+    ABS_SCALE_PATH = osp.join(MODEL_DIR, "abs_scale.pkl")
+    MUG_META_PATH = osp.join(MODEL_DIR, "mug_meta.pkl")
+    MUG_HANDLE_PATH = osp.join(MODEL_DIR, "mug_handle.pkl")
+    FPS_POINTS_PATH = osp.join(MODEL_DIR, "fps_points_spd.pkl")
+
+
+set_data_root(os.environ.get("CATRE_DATA_ROOT", osp.join(osp.dirname(__file__), "../../datasets")))
 
 # ---------------------------------------------------------------- objects
 OBJECTS = ["bottle", "bowl", "camera", "can", "laptop", "mug"]

@@ -37,6 +37,7 @@ from .eval.evaluator import CATREEvaluator, pack_host, run_inference, unpack_ref
 from .geom.rotations import euler_to_mat
 from .geom.symmetry import axis_symmetry_rotation_bank
 from .models.catre import CATREConfig, CATREDisRShared, init_model
+from .ops.limits import check_model_limits
 from .solver.build import build_optimizer, refuse_unported_training_keys
 
 N_ITER = 4
@@ -45,9 +46,12 @@ REAL_K = ((591.0125, 0.0, 322.525), (0.0, 590.16775, 244.11084), (0.0, 0.0, 1.0)
 
 
 def flagship_config(**overrides) -> CATREConfig:
-    """`CATREConfig` of the shipped production config, with field overrides."""
-    cfg = model_config_from(load_config(str(FLAGSHIP_CONFIG)))
-    return dataclasses.replace(cfg, **overrides)
+    """`CATREConfig` of the shipped production config, with field overrides
+    (`fused_encoder`, which no config key sets, among them), held to the
+    kernels' shape limits."""
+    cfg = dataclasses.replace(model_config_from(load_config(str(FLAGSHIP_CONFIG))), **overrides)
+    check_model_limits(cfg)
+    return cfg
 
 
 def example_batch(b: int, num_pcl: int, num_kps: int, device="cpu", seed: int = 0) -> dict:
@@ -197,8 +201,9 @@ def evaluate_split(records: list, device="cuda", mean_table=None, seed: int = 0,
     follow the loader's), a `CATREEvaluator` over `records`, then
     `eval.run_inference` (packed inputs, prefetch 2) and `evaluate()`. The
     inner loop of JAX `do_test` (`catre_tpu/engine/runner.py:480-600`) for one
-    dataset; `do_test` itself, the init modes `gt_noise` and `canonical` and
-    the CLI are ROADMAP item 13a. `mean_table` is the (6, K, 3) mean-shape
+    dataset; `engine.runner.do_test` is the whole of it, from a config, and
+    gives the same predictions on the same records, weights and table.
+    `mean_table` is the (6, K, 3) mean-shape
     table (None: the asset file), gathered on the device by class, so the
     loader ships no per-object mean points unless `ship_mean_points=True`.
     -> (stats, results): `run_inference`'s statistics plus `score_s`, the

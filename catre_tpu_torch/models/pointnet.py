@@ -29,6 +29,11 @@ from ..ops.encoder_chain import chain3_max
 from ..ops.encoder_epilogue import ENCODER_TAIL_TWINS
 from .layers import Dense
 
+# the encoder's fixed widths: the point features (conv1), the main column's
+# conv2 and conv3 (its conv4 is `out_dim`), and an STN's conv1 -> conv3 column
+POINT_FEAT, MAIN_C2, MAIN_C3 = 64, 128, 512
+STN_C1, STN_C2, STN_C3 = 64, 128, 1024
+
 
 def _column(x, layers, cdt, relu_last):
     """`chain3_max` over three `Dense` layers' parameters."""
@@ -49,8 +54,8 @@ class STN(nn.Module):
         super().__init__()
         self.k = k
         self.dtype = dtype
-        widths = [("conv1", k, 64), ("conv2", 64, 128), ("conv3", 128, 1024),
-                  ("fc1", 1024, 512), ("fc2", 512, 256), ("fc3", 256, k * k)]
+        widths = [("conv1", k, STN_C1), ("conv2", STN_C1, STN_C2), ("conv3", STN_C2, STN_C3),
+                  ("fc1", STN_C3, 512), ("fc2", 512, 256), ("fc3", 256, k * k)]
         for name, cin, cout in widths:
             setattr(self, name, Dense(cin, cout, generator, dtype=dtype))
 
@@ -83,12 +88,12 @@ class PointNetFeat(nn.Module):
         self.dtype = dtype
         self.feature_transform = feature_transform
         self.stn = STN(3, generator, dtype)
-        self.conv1 = Dense(3, 64, generator, dtype=dtype)
+        self.conv1 = Dense(3, POINT_FEAT, generator, dtype=dtype)
         if feature_transform:
-            self.fstn = STN(64, generator, dtype)
-        self.conv2 = Dense(64, 128, generator, dtype=dtype)
-        self.conv3 = Dense(128, 512, generator, dtype=dtype)
-        self.conv4 = Dense(512, out_dim, generator, dtype=dtype)
+            self.fstn = STN(POINT_FEAT, generator, dtype)
+        self.conv2 = Dense(POINT_FEAT, MAIN_C2, generator, dtype=dtype)
+        self.conv3 = Dense(MAIN_C2, MAIN_C3, generator, dtype=dtype)
+        self.conv4 = Dense(MAIN_C3, out_dim, generator, dtype=dtype)
 
     def forward(self, x: torch.Tensor, tails=ENCODER_TAIL_TWINS):
         cdt = x.dtype if self.dtype is None else self.dtype

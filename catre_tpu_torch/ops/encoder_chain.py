@@ -77,11 +77,20 @@ MAIN_CIN, MAIN_C1, MAIN_MAX_C2, MAIN_MAX_C3 = 64, 128, 512, 4096
 STN_CINS, STN_C1, STN_C2 = (3, 64), 64, 128
 
 
+def check_k9_widths(name, cin, c1, c2, c3):
+    """Raise for widths that no build of K9 takes: after the first, multiples
+    of 64, 128 and 128."""
+    if c1 % 64 or c2 % 128 or c3 % 128:
+        raise ValueError(f"{name}: widths {cin}->{c1}->{c2}->{c3} must be multiples of "
+                         "64, 128, 128 after the first")
+
+
 def check_k9_bf16(name, x, cin, c1, c2, c3):
     """Which bf16 design takes these widths, "main" or "stn"; raise, naming
     the limits, for widths neither takes (c3 a multiple of 128 is checked
     before) or for an x of 64 channels that does not start on a 16-byte
-    boundary (its rows arrive by bulk copy or 16-byte `cp.async`)."""
+    boundary (its rows arrive by bulk copy or 16-byte `cp.async`). x None
+    checks the widths alone."""
     if cin == MAIN_CIN and c1 == MAIN_C1 and c2 % 128 == 0 and c2 <= MAIN_MAX_C2 \
             and c3 <= MAIN_MAX_C3:
         design = "main"
@@ -93,7 +102,7 @@ def check_k9_bf16(name, x, cin, c1, c2, c3):
             f"{MAIN_CIN}->{MAIN_C1}->(a multiple of 128 up to {MAIN_MAX_C2})->(up to "
             f"{MAIN_MAX_C3}) nor an STN column's {' or '.join(map(str, STN_CINS))}->"
             f"{STN_C1}->{STN_C2}->c3")
-    if cin % 8 == 0 and x.data_ptr() % 16:
+    if cin % 8 == 0 and x is not None and x.data_ptr() % 16:
         raise ValueError(f"{name}: x must start on a 16-byte boundary (its rows are copied 16 "
                          "bytes at a time)")
     return design
@@ -137,9 +146,7 @@ def chain3_max(x, w1, b1, w2, b2, w3, b3, cdt, relu_last: bool = False):
             or b1.shape != (c1,) or b2.shape != (c2,) or b3.shape != (c3,)):
         raise ValueError(f"{name}: weights {tuple(w1.shape)}, {tuple(w2.shape)}, "
                          f"{tuple(w3.shape)} do not chain from x {tuple(x.shape)}")
-    if c1 % 64 or c2 % 128 or c3 % 128:
-        raise ValueError(f"{name}: widths {cin}->{c1}->{c2}->{c3} must be multiples of "
-                         "64, 128, 128 after the first")
+    check_k9_widths(name, cin, c1, c2, c3)
     x = x.to(cdt).contiguous()
     ws = [w.to(device=x.device, dtype=cdt).contiguous() for w in (w1, w2, w3)]
     bs = [b.to(device=x.device, dtype=torch.float32).contiguous() for b in (b1, b2, b3)]

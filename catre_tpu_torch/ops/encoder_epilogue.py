@@ -168,11 +168,12 @@ def check_k1_bf16(name, x, cin, chid, cout):
     """Raise for what the bf16 K1 body (`csrc/encoder_tail_wgmma.cuh`, also
     the bf16 K6 forward) does not take: widths above 128 -> 512 -> 4096
     (multiples of 64 -> 128 are checked by `_check_widths`), or an x that
-    does not start on a 16-byte boundary (its rows arrive by bulk copy)."""
+    does not start on a 16-byte boundary (its rows arrive by bulk copy). x
+    None checks the widths alone."""
     if cin > BF16_MAX_CIN or chid > BF16_MAX_HID or cout > BF16_MAX_OUT:
         raise ValueError(f"{name}: bf16 widths {cin}->{chid}->{cout} exceed "
                          f"{BF16_MAX_CIN}->{BF16_MAX_HID}->{BF16_MAX_OUT}")
-    if x.data_ptr() % 16:
+    if x is not None and x.data_ptr() % 16:
         raise ValueError(f"{name}: x must start on a 16-byte boundary (bulk copies)")
 
 
@@ -181,11 +182,11 @@ def check_k2_bf16(name, x, cin):
     also the bf16 K5 forward) does not take: an input width other than 64 or
     128 (its A registers; cout a multiple of 128 is checked by
     `_check_widths`), or an x that does not start on a 16-byte boundary (its
-    rows are copied 16 bytes at a time)."""
+    rows are copied 16 bytes at a time). x None checks the width alone."""
     if cin not in (64, 128):
         raise ValueError(f"{name}: the bf16 kernel takes 64 or 128 input channels "
                          f"(its A registers), got {cin}")
-    if x.data_ptr() % 16:
+    if x is not None and x.data_ptr() % 16:
         raise ValueError(f"{name}: x must start on a 16-byte boundary (16-byte copies)")
 
 

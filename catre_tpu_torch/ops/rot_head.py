@@ -61,6 +61,18 @@ class RotHeadPack:
     cdt: torch.dtype
 
 
+def check_rot_head_widths(in_global: int, in_point: int, feat: int, num_layers: int,
+                          rot_dim: int, num_gn_groups: int) -> None:
+    """Raise for a rotation head that the kernels (K3, K4, K7/K8) do not
+    take: anything but 1024 + 64 -> 256 -> 256 (GN 32) -> 3 per head."""
+    got = (in_global, in_point, feat, num_layers, rot_dim, num_gn_groups)
+    if got != (IN_GLOBAL, IN_POINT, FEAT, 2, 3, GROUPS):
+        raise ValueError("the fused rot head takes the flagship widths only: 1024 + 64 -> "
+                         "256 -> 256 (GN 32) -> 3 per head; got inputs "
+                         f"{in_global} + {in_point}, width {feat}, {num_layers} layers, "
+                         f"{rot_dim} outputs, GN {num_gn_groups}")
+
+
 def pack_rot_head(head, cdt: torch.dtype, weight_dtype: torch.dtype | None = None) -> RotHeadPack:
     """Merge a flagship-width `ConvOutPerRotHead` into a `RotHeadPack`. The
     matmul weights w_pt and w1 take `weight_dtype` (default `cdt`); the
@@ -68,12 +80,10 @@ def pack_rot_head(head, cdt: torch.dtype, weight_dtype: torch.dtype | None = Non
     gradients through a cast. Differentiable in the head's parameters."""
     hx, hy = head.rot_head_x, head.rot_head_y
     for h in (hx, hy):
-        if (h.layer0_global_weight.shape != (FEAT, IN_GLOBAL)
-                or h.layer0_point_weight.shape != (FEAT, IN_POINT)
-                or len(h.layers) != 1 or h.neck.weight.shape != (3, FEAT)
-                or any(gn.num_groups != GROUPS for gn in h.gns)):
-            raise ValueError("the fused rot head takes the flagship widths only: 1024 + 64 -> "
-                             "256 -> 256 (GN 32) -> 3 per head")
+        groups = {gn.num_groups for gn in h.gns}
+        check_rot_head_widths(h.layer0_global_weight.shape[1], h.layer0_point_weight.shape[1],
+                              h.layer0_global_weight.shape[0], len(h.layers) + 1,
+                              h.neck.weight.shape[0], groups.pop() if len(groups) == 1 else 0)
     wdt = cdt if weight_dtype is None else weight_dtype
 
     def cat(fn):

@@ -1,1 +1,2 @@
-"""Command-line tools of the port that need a CUDA card."""
+"""Command-line tools of the port: probes and profiles that need a CUDA card, and
+`convert_checkpoint`, which runs anywhere."""

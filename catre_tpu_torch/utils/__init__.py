@@ -1,1 +1,2 @@
-"""Parameter conversion from the JAX package."""
+"""Parameter conversion from the JAX package (`convert`) and checkpoints: the
+reference layout and the port's own (`checkpoint`)."""

@@ -82,6 +82,22 @@ code is non-zero):
                the first 2 groups; a perturbed init below 100;
                images/s, slot and real obj/s, compute / overlap / process s
                per image, the seconds of evaluate() and peak memory;
+  5f. do_test: the same split through the command line, in process:
+               `catre_tpu_torch.main.main([... --eval-only ...])` on the
+               shipped ..._120e_tpu.py, the split registered under its
+               DATASETS.TEST name, its init estimates as an init-pose JSON
+               (LOAD_POSES_TEST), the seeded mean-shape table as a pickle
+               under a temporary data root; three runs: MODEL.WEIGHTS a
+               directory of the port's checkpoints (the seed-0 shipped model,
+               `save_checkpoint`), the same weights written as a
+               reference-layout .pth and converted by
+               `tools/convert_checkpoint.py`, and the .pth itself; each scores
+               all 256 images with exactly K1 = 4, K2 = 8, K3 = 4 a batch,
+               predictions bit-equal (dtypes too) to `entry.evaluate_split`'s
+               with the same seed and table on the same init poses, 100 at
+               iteration 0 on the present classes, predictions.pkl and
+               config_dump.py written; images/s of each run's inference
+               pass, its wall seconds and the weights' load seconds;
   6. K4:       the rotation-head backward kernel vs its plain version
                (autograd of the K3 twin), B = 64 and the main path's B = 512
                objects x 2048 points, f32 (tight) and bf16 (loose), per
@@ -127,6 +143,8 @@ limit, and as the last line {"ok": true, "device": {...}}.
 import copy
 import dataclasses
 import json
+import logging
+import os
 import subprocess
 import sys
 import tempfile
@@ -1266,12 +1284,13 @@ def loader_phase(dev, card, model_seed=0):
                       "reused from the third)")
         del loader, unc, piped
         counts_eval = evaluate_phase(dev, card, records, table, model_seed)
+        counts_test = do_test_phase(dev, card, records, table, model_seed)
     # the registry holds the device caches and the candidates (1.5 GB each): later phases
     # measure peaks
     del table_dev
     dl.clear_decoded_caches()
     torch.cuda.empty_cache()
-    return counts, counts_eval
+    return counts, counts_eval, counts_test
 
 
 def same_predictions(tag, got, ref):
@@ -1382,6 +1401,140 @@ def evaluate_phase(dev, card, records, table, model_seed=0):
     log("evaluate", f"perturbed init ({EVAL_NOISY_FRAMES} frames, N(0, {EVAL_NOISE_M} m) on t): "
                     f"iteration 0 te2 {te2:.2f}, IoU75 {res[0]['summary']['IoU75']:.2f}")
     return counts
+
+
+def reference_layout(sd):
+    """A state dict of the port -> the reference's layout (Conv1d weights
+    (out, in, 1), a rotation head's [conv, GN, GELU] list with layer 0 joined,
+    conv_p; the TS head's [Linear, GN, GELU] list): the key map of
+    `utils/checkpoint.py` read backwards, for this check only."""
+    out = {}
+    for k, v in sd.items():
+        parts = k.split(".")
+        if parts[0] == "rot_head":
+            head, rest = ".".join(parts[:2]), parts[2:]
+            if rest[0] == "layer0_global_weight":
+                w = torch.cat([v, sd[f"{head}.layer0_point_weight"]], dim=1)
+                out[f"{head}.layers.0.weight"] = w[:, :, None]
+            elif rest[0] == "layer0_bias":
+                out[f"{head}.layers.0.bias"] = v
+            elif rest[0] in ("gns", "layers"):
+                i = 3 * int(rest[1]) + (1 if rest[0] == "gns" else 3)
+                out[f"{head}.layers.{i}.{rest[2]}"] = v[:, :, None] if v.dim() == 2 else v
+            elif rest[0] == "neck":
+                out[f"{head}.neck.0.{rest[1]}"] = v[:, :, None] if v.dim() == 2 else v
+            elif rest[0] == "point_weight":
+                out[f"{head}.conv_p.weight"] = v.reshape(1, -1, 1)
+            elif rest[0] == "point_bias":
+                out[f"{head}.conv_p.bias"] = v
+        elif parts[0] == "ts_head" and parts[1] in ("linears", "gns"):
+            out[f"ts_head.linears.{3 * int(parts[2]) + (parts[1] == 'gns')}.{parts[3]}"] = v
+        else:    # pcl_net's convs are Conv1d; its fc layers and fc_t / fc_s are Linear
+            out[k] = v[:, :, None] if ".conv" in k and v.dim() == 2 else v
+    return out
+
+
+def do_test_phase(dev, card, records, table, model_seed=0):
+    """The split of 5d through `main --eval-only` (see 5f in the module
+    docstring); returns the launch counts of its three runs."""
+    import pickle
+
+    import numpy as np
+
+    from catre_tpu_torch import main as cli
+    from catre_tpu_torch import ops
+    from catre_tpu_torch.config.build import FLAGSHIP_CONFIG
+    from catre_tpu_torch.config.loader import load_config
+    from catre_tpu_torch.data import meta, nocs
+    from catre_tpu_torch.entry import N_ITER, evaluate_split, flagship_config
+    from catre_tpu_torch.models.catre import init_model
+    from catre_tpu_torch.tools import convert_checkpoint
+    from catre_tpu_torch.utils.checkpoint import save_checkpoint
+
+    shipped = load_config(str(FLAGSHIP_CONFIG))
+    name, ims = shipped.DATASETS.TEST[0], int(shipped.TEST.IMS_PER_BATCH)
+    old_root = meta.DATA_ROOT
+    total = None
+    with tempfile.TemporaryDirectory(prefix="catre_do_test_") as work:
+        meta.set_data_root(os.path.join(work, "data"))
+        os.makedirs(meta.MODEL_DIR)
+        with open(meta.CR_MEAN_MODEL_PATH, "wb") as f:
+            pickle.dump({meta.ID2OBJ[i + 1]: table[i] for i in range(6)}, f)
+        init_file = os.path.join(work, "init_poses.json")
+        with open(init_file, "w") as f:
+            json.dump({r["scene_im_id"]: [
+                {"obj_id": a["category_id"] + 1, "pose_est": np.asarray(a["pose_est"]).tolist(),
+                 "scale_est": np.asarray(a["scale_est"]).tolist(), "score": a["score"],
+                 "bbox_est": [float(x) for x in a["bbox_est"]],
+                 "segmentation": {"counts": [int(c) for c in a["segmentation"]["counts"]],
+                                  "size": list(a["segmentation"]["size"])}}
+                for a in r["annotations"]] for r in records}, f)
+        nocs.register_dataset(name, lambda: [dict(r) for r in records])
+
+        # the reference: evaluate_split on the records with the same init poses (the
+        # JSON orders each image's objects by class, as load_init_poses_into_dataset does)
+        ref_records = nocs.load_init_poses_into_dataset([dict(r) for r in records], init_file)
+        evaluate_split(ref_records, dev, table, model_seed, warmup=0, compute_probe_every=0,
+                       output_dir=os.path.join(work, "ref"))
+        with open(os.path.join(work, "ref", "predictions.pkl"), "rb") as f:
+            ref = pickle.load(f)
+
+        model = init_model(flagship_config(), seed=model_seed)
+        save_checkpoint(os.path.join(work, "ckpt"), 0, {"model": model})
+        pth = os.path.join(work, "model_final.pth")
+        torch.save({"model": reference_layout(model.state_dict())}, pth)
+        convert_checkpoint.main([pth, os.path.join(work, "converted")])
+        present = sorted({a["category_id"] + 1 for r in records for a in r["annotations"]})
+        calls = -(-LOADER_FRAMES // ims)
+        runs = (("native", os.path.join(work, "ckpt")),
+                ("converted", os.path.join(work, "converted")), ("pth", pth))
+        for tag, weights in runs:
+            out_dir = os.path.join(work, "out_" + tag)
+            # main's INFO lines go to this file, not to the check's output
+            quiet = logging.StreamHandler(open(os.path.join(work, f"log_{tag}.txt"), "w"))
+            logging.getLogger().addHandler(quiet)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                res = cli.main(["--config-file", str(FLAGSHIP_CONFIG), "--eval-only",
+                                f"OUTPUT_DIR={out_dir}", f"MODEL.WEIGHTS={weights}",
+                                "MODEL.LOAD_POSES_TEST=True",
+                                f"DATASETS.INIT_POSE_FILES_TEST=('{init_file}',)"])[name]
+            finally:
+                wall = time.perf_counter() - t0
+                for h in [quiet, *cli._HANDLERS]:
+                    logging.getLogger().removeHandler(h)
+                    h.close()
+                cli._HANDLERS.clear()
+            counts = ops.launch_counts()
+            want = {**dict.fromkeys(counts, 0), "dense_relu_dense_max": N_ITER * calls,
+                    "dense_relu_max": 2 * N_ITER * calls, "rot_head": N_ITER * calls}
+            if counts != want:
+                raise RuntimeError(f"do_test {tag}: launches {counts}, want {want}")
+            total = counts if total is None else {k: total[k] + v for k, v in counts.items()}
+            with open(os.path.join(out_dir, "predictions.pkl"), "rb") as f:
+                got = pickle.load(f)
+            if len(got[0]) != LOADER_FRAMES or not os.path.exists(
+                    os.path.join(out_dir, "config_dump.py")):
+                raise RuntimeError(f"do_test {tag}: {len(got[0])} images scored, or no "
+                                   "config_dump.py")
+            same_predictions(f"do_test {tag} vs evaluate_split", got, ref)
+            iou_aps, pose_aps = res["results"][0]["iou_aps"], res["results"][0]["pose_aps"]
+            at_init = [v for c in present for v in (iou_aps[c, 1], iou_aps[c, 2], iou_aps[c, 3],
+                                                     pose_aps[c, 0, 0], pose_aps[c, -1, 0])]
+            if not all(v >= 1.0 - AP_EXACT for v in at_init):
+                raise RuntimeError(f"do_test {tag}: iteration 0 (init = gt) below 100")
+            st = res["stats"]
+            log("do_test", f"main --eval-only, MODEL.WEIGHTS {tag}: {len(got[0])} images, "
+                           f"inference pass {st['total_s']:.4f} s = "
+                           f"{LOADER_FRAMES / st['total_s']:.1f} images/s, the whole run "
+                           f"{wall:.2f} s, weights loaded in {st['load_s']:.4f} s; launches "
+                           f"per batch { {k: v // calls for k, v in counts.items() if v} }; "
+                           f"predictions bit-equal to evaluate_split's, iteration 0 at 100 "
+                           f"on {present} | {card}")
+        nocs._DATASET_REGISTRY.pop(name)
+        meta.set_data_root(old_root)
+    return total
 
 
 def first_grads(model, optimizer):

@@ -157,6 +157,76 @@ def test_evaluator_runs_with_jax_blocked():
     assert "evaluator ok" in proc.stdout and "3D IoU at 75" in proc.stdout
 
 
+def test_cli_and_checkpoints_run_with_jax_blocked():
+    """Every module of the port imports with jax, flax, cv2, PIL, matplotlib,
+    orbax and torchvision blocked; then the CLI scores a written split from a
+    checkpoint of the port and from a reference .pth converted by
+    `tools/convert_checkpoint.py`, with the mean-shape table read from a
+    pickle under a data root set after import (`meta.set_data_root`)."""
+    code = (
+        "import sys\n"
+        "BLOCKED = ('jax', 'flax', 'cv2', 'PIL', 'matplotlib', 'orbax', 'torchvision')\n"
+        "for blocked in BLOCKED:\n"
+        "    sys.modules[blocked] = None\n"
+        "import importlib, os, pickle, pkgutil, tempfile\n"
+        "import numpy as np, torch\n"
+        "import catre_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(catre_tpu_torch.__path__, "
+        "'catre_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert {'catre_tpu_torch.main', 'catre_tpu_torch.engine.runner', "
+        "'catre_tpu_torch.data.nocs', 'catre_tpu_torch.utils.checkpoint', "
+        "'catre_tpu_torch.tools.convert_checkpoint', 'catre_tpu_torch.ops.limits'} <= set(names)\n"
+        "from catre_tpu_torch import main\n"
+        "from catre_tpu_torch.config.build import FLAGSHIP_CONFIG, model_config_from\n"
+        "from catre_tpu_torch.config.loader import apply_overrides, load_config\n"
+        "from catre_tpu_torch.data import meta, nocs\n"
+        "from catre_tpu_torch.entry import write_example_split\n"
+        "from catre_tpu_torch.models.catre import init_model\n"
+        "from catre_tpu_torch.tools import convert_checkpoint\n"
+        "from catre_tpu_torch.utils.checkpoint import save_checkpoint\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from torch_mirror import TorchCATRE, TorchConvOutPerRotHead\n"
+        "with tempfile.TemporaryDirectory() as root:\n"
+        "    meta.set_data_root(root)\n"
+        "    os.makedirs(meta.MODEL_DIR)\n"
+        "    rng = np.random.default_rng(0)\n"
+        "    shapes = {o: rng.normal(size=(1024, 3)).astype(np.float32) for o in meta.OBJECTS}\n"
+        "    pickle.dump(shapes, open(meta.CR_MEAN_MODEL_PATH, 'wb'))\n"
+        "    recs = write_example_split(root, 4, 96, 128, m=4)\n"
+        "    nocs.register_dataset('nocs_test_real', lambda: [dict(r) for r in recs])\n"
+        "    cfg = apply_overrides(load_config(str(FLAGSHIP_CONFIG)), ['INPUT.NUM_PCL=32'])\n"
+        "    save_checkpoint(root + '/ckpt', 0, {'model': init_model(model_config_from(cfg))})\n"
+        "    ref = TorchCATRE()\n"
+        "    ref.rot_head = TorchConvOutPerRotHead(num_points=32 + 1024)\n"
+        "    torch.save(ref.state_dict(), root + '/model.pth')\n"
+        "    sys.argv = ['x', root + '/model.pth', root + '/converted', '--config-file',\n"
+        "                str(FLAGSHIP_CONFIG)]\n"
+        "    try:\n"
+        "        convert_checkpoint.main(sys.argv[1:])\n"
+        "        raise AssertionError('a 1024-point config took a 32-point checkpoint')\n"
+        "    except ValueError as e:\n"
+        "        assert 'point_weight' in str(e)\n"
+        "    opts = ['INPUT.NUM_PCL=32', 'MODEL.LOAD_POSES_TEST=False', 'TEST.IMS_PER_BATCH=2',\n"
+        "            'DATALOADER.MAX_OBJS_PER_IMAGE=4', 'MODEL.CATRE.N_ITER_TEST=1']\n"
+        "    for weights in ('/ckpt', '/model.pth'):\n"
+        "        out = main.main(['--config-file', str(FLAGSHIP_CONFIG), '--eval-only',\n"
+        "                         '--device', 'cpu',\n"
+        "                         'OUTPUT_DIR=' + root + '/out' + weights[1:5],\n"
+        "                         'MODEL.WEIGHTS=' + root + weights, *opts])\n"
+        "        res = out['nocs_test_real']\n"
+        "        assert sorted(res['results']) == [0, 1] and res['stats']['load_s'] > 0\n"
+        "        assert os.path.exists(root + '/out' + weights[1:5] + '/predictions.pkl')\n"
+        "assert not any(m == 'catre_tpu' or m.startswith('catre_tpu.') for m in sys.modules)\n"
+        "assert not any(sys.modules.get(m) for m in BLOCKED)\n"
+        "print('cli ok')\n"
+    )
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "cli ok" in proc.stdout
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
