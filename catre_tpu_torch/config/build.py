@@ -3,8 +3,8 @@
 Counterpart of `catre_tpu/config/build.py`: `validate_config` (:39) with
 `_unknown_key_paths` (:23), `model_config_from` (:93) with `_fused_ok` (:61)
 and `_enc_train_ok` (:73), `loss_config_from` (:143), `noise_config_from`
-(:167) and `loader_config_from` (:203) with `_mean_table_matches` (:189),
-for the fields the test-phase loader reads.
+(:167, every field) and `loader_config_from` (:203) with
+`_mean_table_matches` (:189), for the fields the test-phase loader reads.
 
 `model_config_from` also checks the kernels' shape limits before any weight
 is built (`ops.limits.check_model_limits`): a config whose fused flags ask
@@ -185,10 +185,17 @@ def noise_config_from(cfg) -> InputNoiseConfig:
         rt_aug_prob=float(inp.get("RT_AUG_PROB", 0.0)),
         init_pose_types=_t(inp.get("INIT_POSE_TYPE_TRAIN", ["gt_noise"])),
         init_scale_types=_t(inp.get("INIT_SCALE_TYPE_TRAIN", ["gt_noise"])),
+        random_trans_min=_t(inp.get("RANDOM_TRANS_MIN", (-0.35, -0.35, 0.5))),
+        random_trans_max=_t(inp.get("RANDOM_TRANS_MAX", (0.35, 0.35, 1.3))),
+        random_scale_min=_t(inp.get("RANDOM_SCALE_MIN", (0.04, 0.04, 0.04))),
+        random_scale_max=_t(inp.get("RANDOM_SCALE_MAX", (0.5, 0.3, 0.4))),
+        canonical_rot=_t(inp.get("CANONICAL_ROT", ((1, 0, 0, 0.5), (0, 0, 1, -0.7)))),
+        canonical_trans=_t(inp.get("CANONICAL_TRANS", (0.0, 0.0, 1.0))),
+        canonical_size=_t(inp.get("CANONICAL_SIZE", (0.2, 0.2, 0.2))),
     )
 
 
-_LOADER_LATER = "ROADMAP.md items 11 + 12a"
+_LOADER_LATER = "ROADMAP.md items 11 + 12a, the loader's train phase (the part still open)"
 
 
 def _mean_table_matches(num_kps: int) -> bool:

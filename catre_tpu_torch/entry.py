@@ -38,7 +38,7 @@ from .geom.rotations import euler_to_mat
 from .geom.symmetry import axis_symmetry_rotation_bank
 from .models.catre import CATREConfig, CATREDisRShared, init_model
 from .ops.limits import check_model_limits
-from .solver.build import build_optimizer, refuse_unported_training_keys
+from .solver.build import optimizer_from_config
 
 N_ITER = 4
 # NOCS-REAL intrinsics of a 640 x 480 frame
@@ -295,18 +295,33 @@ class Trainer:
     lr: float
 
 
-def flagship_trainer(device="cuda", batch_size: int = 512, seed: int = 0,
+def solver_example_config():
+    """The shipped config with clipping by the global norm, the rot head at
+    half the lr (LR_MULT 0.5), the TS head frozen and three init modes drawn
+    per step: the solver path that the shipped config bypasses
+    (`chip_smoke.py` phase 7b, `tools/profile_train.py --solver-config`)."""
+    cfg = load_config(str(FLAGSHIP_CONFIG))
+    cfg.SOLVER.CLIP_GRADIENTS.update(ENABLED=True, CLIP_TYPE="norm")
+    cfg.MODEL.CATRE.ROT_HEAD.LR_MULT = 0.5
+    cfg.MODEL.CATRE.TS_HEAD.FREEZE = True
+    cfg.INPUT.INIT_POSE_TYPE_TRAIN = ["gt_noise", "random", "canonical"]
+    return cfg
+
+
+def flagship_trainer(device="cuda", batch_size: int = 512, seed: int = 0, cfg=None,
                      **model_overrides) -> Trainer:
     """The shipped config's training set-up (rot head K3/K4, encoder tails
-    K5/K6): a seeded model on `device`, Ranger at the shipped lr, the train
-    step at N_ITER_TRAIN inner iterations and a synthetic batch.
-    `model_overrides` replace fields of the model's `CATREConfig`, e.g.
-    `fused_encoder_train=False` for the plain encoder under autograd."""
-    cfg = load_config(str(FLAGSHIP_CONFIG))
-    refuse_unported_training_keys(cfg)
+    K5/K6): a seeded model on `device`, the optimizer of `cfg`'s SOLVER and
+    heads' LR_MULT / FREEZE (`solver.build.optimizer_from_config`) at its base
+    lr, the train step at N_ITER_TRAIN inner iterations with `cfg`'s INPUT
+    noise and init modes, and a synthetic batch. `cfg` defaults to the shipped
+    config as read from its file. `model_overrides` replace fields of the
+    model's `CATREConfig`, e.g. `fused_encoder_train=False` for the plain
+    encoder under autograd."""
+    cfg = load_config(str(FLAGSHIP_CONFIG)) if cfg is None else cfg
     mcfg = dataclasses.replace(model_config_from(cfg), **model_overrides)
     model = init_model(mcfg, seed=seed, device=device)
-    optimizer = build_optimizer(cfg.SOLVER, model.named_parameters())
+    optimizer = optimizer_from_config(cfg, model)
     sym_bank = axis_symmetry_rotation_bank(
         max_sym_disc_step=float(cfg.INPUT.get("MAX_SYM_DISC_STEP", 0.01)))
     step = make_train_step(model, loss_config_from(cfg), noise_config_from(cfg), optimizer,
@@ -317,14 +332,17 @@ def flagship_trainer(device="cuda", batch_size: int = 512, seed: int = 0,
 
 
 def train_entry(device="cuda", batch_size: int = 512, steps: int = 3, seed: int = 0,
-                callback=None, **model_overrides):
+                callback=None, cfg=None, lr_fn=None, **model_overrides):
     """`steps` flagship training steps (N_ITER_TRAIN = 4 inner iterations
-    each) on `device`; `callback(i, metrics)` runs after step i. Returns
+    each) on `device`; `callback(i, metrics)` runs after step i. `cfg` as in
+    `flagship_trainer`; `lr_fn(i)` gives step i's lr (e.g.
+    `solver.schedule.build_lr_fn`), else the base lr throughout. Returns
     (state, [metrics of each step]); the state names the trained parameters."""
-    t = flagship_trainer(device, batch_size, seed, **model_overrides)
+    t = flagship_trainer(device, batch_size, seed, cfg, **model_overrides)
     history = []
     for i in range(steps):
-        t.state, metrics = t.step(t.state, t.batch, t.generator, t.lr)
+        lr = t.lr if lr_fn is None else lr_fn(i)
+        t.state, metrics = t.step(t.state, t.batch, t.generator, lr)
         history.append(metrics)
         if callback is not None:
             callback(i, metrics)

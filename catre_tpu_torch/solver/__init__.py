@@ -1,1 +1,1 @@
-"""Optimizers (Ranger so far)."""
+"""Optimizers (the registry of `solver/build.py`) and learning-rate schedules."""

@@ -14,9 +14,13 @@ reference's `lib/torch_utils/solver/ranger.py`, as a `torch.optim.Optimizer`:
   - decoupled weight decay, p -= wd * lr * p;
   - Lookahead: every k = 6 steps the slow copy (its own tensor, never the
     parameter's storage) moves alpha = 0.5 toward the fast weights and the
-    fast weights snap to it.
+    fast weights snap to it; this is the first Lookahead layer of
+    `optimizer.PortOptimizer`, the one that `lookahead` and the Ranger family
+    use too.
 The learning rate is read from `param_groups` at every step; the train step
 sets it once per outer step, as `_set_lr` (`engine/train.py:60`) does.
+`rect_terms` gives the RAdam scalars to the Ranger family too
+(`ranger_family.py`), as `_rect_terms` does in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +28,26 @@ from __future__ import annotations
 import math
 
 import torch
+
+from .optimizer import PortOptimizer
+
+
+N_SMA_THRESHOLD = 5.0
+
+
+def rect_terms(t: int, b1: float, b2: float):
+    """RAdam's rectification at step t -> (rectified, step_rect, 1 - b1^t),
+    1 - b^t as -expm1(t log b): the naive float32 subtraction flips the branch
+    near n_sma = 5 (`catre_tpu/solver/ranger_family.py::_rect_terms`)."""
+    beta2_t = math.exp(t * math.log(b2))
+    one_minus_beta2_t = -math.expm1(t * math.log(b2))
+    n_sma_max = 2.0 / (1.0 - b2) - 1.0
+    n_sma = n_sma_max - 2.0 * t * beta2_t / one_minus_beta2_t
+    one_minus_beta1_t = -math.expm1(t * math.log(b1))
+    step_rect = math.sqrt(max(
+        one_minus_beta2_t * (n_sma - 4.0) / (n_sma_max - 4.0)
+        * (n_sma - 2.0) / n_sma * n_sma_max / (n_sma_max - 2.0), 0.0)) / one_minus_beta1_t
+    return n_sma > N_SMA_THRESHOLD, step_rect, one_minus_beta1_t
 
 
 def gc_rules(named_params) -> dict:
@@ -44,16 +68,15 @@ def gc_rules(named_params) -> dict:
     return rules
 
 
-class Ranger(torch.optim.Optimizer):
+class Ranger(PortOptimizer):
     """Ranger over named parameters (the names decide the GC rule)."""
 
     def __init__(self, named_params, lr: float = 1e-3, alpha: float = 0.5, k: int = 6,
-                 n_sma_threshold: float = 5.0, betas=(0.95, 0.999), eps: float = 1e-5,
-                 weight_decay: float = 0.0, use_gc: bool = True):
+                 betas=(0.95, 0.999), eps: float = 1e-5, weight_decay: float = 0.0,
+                 use_gc: bool = True, lookaheads=()):
         named = list(named_params)
-        defaults = dict(lr=lr, alpha=alpha, k=k, n_sma_threshold=n_sma_threshold, betas=betas,
-                        eps=eps, weight_decay=weight_decay, use_gc=use_gc)
-        super().__init__([p for _, p in named], defaults)
+        defaults = dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay, use_gc=use_gc)
+        super().__init__(named, defaults, ((k, alpha),) + tuple(lookaheads))
         by_name = dict(named)
         self._rule = {}
         for n, rule in gc_rules(named).items():
@@ -79,10 +102,7 @@ class Ranger(torch.optim.Optimizer):
                 out[p] = g - mean
         return out
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        if closure is not None:
-            raise ValueError("Ranger takes no closure")
+    def _update(self) -> None:
         for group in self.param_groups:
             params = [p for p in group["params"] if p.grad is not None]
             grads = self._centralized(params) if group["use_gc"] else {p: p.grad for p in params}
@@ -90,11 +110,10 @@ class Ranger(torch.optim.Optimizer):
             lr, wd, eps = group["lr"], group["weight_decay"], group["eps"]
             for p in params:
                 state = self.state[p]
-                if not state:
+                if "step" not in state:
                     state["step"] = 0
                     state["exp_avg"] = torch.zeros_like(p)
                     state["exp_avg_sq"] = torch.zeros_like(p)
-                    state["slow"] = p.detach().clone()
                 state["step"] += 1
                 t = state["step"]
                 g = grads[p]
@@ -102,24 +121,11 @@ class Ranger(torch.optim.Optimizer):
                 m.mul_(b1).add_(g, alpha=1 - b1)
                 v.mul_(b2).addcmul_(g, g, value=1 - b2)
 
-                beta2_t = math.exp(t * math.log(b2))
-                one_minus_beta2_t = -math.expm1(t * math.log(b2))
-                n_sma_max = 2.0 / (1.0 - b2) - 1.0
-                n_sma = n_sma_max - 2.0 * t * beta2_t / one_minus_beta2_t
-                one_minus_beta1_t = -math.expm1(t * math.log(b1))
-                if n_sma > group["n_sma_threshold"]:
-                    step_size = math.sqrt(
-                        one_minus_beta2_t * (n_sma - 4.0) / (n_sma_max - 4.0)
-                        * (n_sma - 2.0) / n_sma * n_sma_max / (n_sma_max - 2.0)
-                    ) / one_minus_beta1_t
-                    upd = -lr * step_size * m / (v.sqrt() + eps)
+                rectified, step_rect, one_minus_beta1_t = rect_terms(t, b1, b2)
+                if rectified:
+                    upd = -lr * step_rect * m / (v.sqrt() + eps)
                 else:
                     upd = -lr / one_minus_beta1_t * m
                 if wd != 0.0:
                     upd = upd - wd * lr * p
                 p.add_(upd)
-                if t % group["k"] == 0:
-                    slow = state["slow"]
-                    slow.add_(p - slow, alpha=group["alpha"])
-                    p.copy_(slow)
-        return None

@@ -1,6 +1,7 @@
 """Where the time of one flagship training step goes, on one CUDA card.
 
-    python -m catre_tpu_torch.tools.profile_train [--batch 512] [--plain-encoder] [--trace PATH]
+    python -m catre_tpu_torch.tools.profile_train [--batch 512] [--plain-encoder]
+        [--solver-config] [--trace PATH]
 
 Builds the flagship trainer (`entry.flagship_trainer`: bf16, K3 forward and
 K4 backward in the rotation head, K5/K6 encoder tails; `--plain-encoder`
@@ -21,7 +22,10 @@ kernels, read off the timeline (K5: gate pass, two `sum_rows`, routing pass,
 dx pass; K6: routing pass, cloud, dW3 and dW4 passes, four `sum_rows`), and
 counts the copy kernels right after each: none, since both write dx in x's
 dtype.
-`--trace` writes the Chrome trace of the first step.
+`--solver-config` trains under `entry.solver_example_config()` (clipping,
+LR_MULT, FREEZE, three init modes: `chip_smoke.py` phase 7b's config) in
+place of the shipped config. `--trace` writes the Chrome trace of the first
+step.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ..entry import flagship_trainer
+from ..entry import flagship_trainer, solver_example_config
 from ..ops import launch_counts, reset_launch_counts
 
 UNPROFILED_STEPS = 2      # timed by the host clock before the profiled step
@@ -120,12 +124,15 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", default="")
     ap.add_argument("--plain-encoder", action="store_true",
                     help="train the encoder as plain layers under autograd")
+    ap.add_argument("--solver-config", action="store_true",
+                    help="train under phase 7b's solver config instead of the shipped one")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
     card = card_line()
     overrides = {"fused_encoder_train": False} if args.plain_encoder else {}
-    t = flagship_trainer("cuda", batch_size=args.batch, seed=0, **overrides)
+    cfg = solver_example_config() if args.solver_config else None
+    t = flagship_trainer("cuda", batch_size=args.batch, seed=0, cfg=cfg, **overrides)
     t.state, _ = t.step(t.state, t.batch, t.generator, t.lr)        # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -148,6 +155,7 @@ def main(argv=None) -> int:
     device_ms = sum(device_us(e) for e in kernels) / 1e3
     print(f"card: {card}")
     print(f"B={args.batch} {'plain' if args.plain_encoder else 'K5/K6'} encoder tails, "
+          f"{'solver' if args.solver_config else 'shipped'} config, "
           f"launches in the step {launch_counts()}")
     print(f"B={args.batch} {UNPROFILED_STEPS} steps without the profiler: {step_ms:.3f} ms a step "
           f"(host clock), peak memory {peak:.2f} GiB")

@@ -203,8 +203,10 @@ def _step_files(ckpt_dir: str) -> dict:
 def save_checkpoint(ckpt_dir: str, step: int, state: Mapping[str, Any], keep: int = 5) -> str:
     """Write `state` as `ckpt_dir/step_<step>.pt` and keep the newest `keep`
     steps. `state` holds "model" (a module or its state dict) and, when
-    given, "optimizer" (the optimizer or its state dict: Ranger's includes
-    its Lookahead slow copies), "generator" (a CPU `torch.Generator` or its
+    given, "optimizer" (any optimizer of `solver.build` or its state dict:
+    moments, counts, Lookahead slow copies and the Lookahead layers' own, a
+    registry transform's state of a rotation head's layer-0 pair under
+    `layer0_global_weight`), "generator" (a CPU `torch.Generator` or its
     state) and any other picklable entry. -> the file's path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {"format": FORMAT, "step": int(step)}

@@ -133,7 +133,21 @@ code is non-zero):
                one warm-up and one timed step;
                plus one B = 8 f32 step on the card (kernels) against the same
                step on a CPU copy (plain versions): metrics, parameters, and
-               each parameter's gradient and change relative to its norm.
+               each parameter's gradient and change relative to its norm;
+  7b. solver:  the same B = 512 bf16 step at the shipped kernel flags under
+               the shipped config with CLIP_GRADIENTS (norm), ROT_HEAD.LR_MULT
+               0.5, TS_HEAD.FREEZE and INIT_POSE_TYPE_TRAIN gt_noise / random
+               / canonical, its optimizer from `optimizer_from_config` and its
+               lr from `build_lr_fn` at two warm-up steps and two steps past
+               ANNEAL_POINT of 120000: phase 7's launches per step, finite
+               losses and parameters, the TS head bit-unchanged, ms per step
+               and peak memory beside phase 7's; every registry type, 3 steps
+               on the flagship model's f32 parameters, card vs a CPU copy fed
+               the same gradients within 1e-5 x max(1, max|p|), and each
+               type's ms per step on the card; one B = 8 f32 step with adamw,
+               clipping and LR_MULT, card (kernels) vs CPU (plain versions),
+               at phase 7's tolerances and each parameter's change within 3e-2
+               of the CPU's in norm.
 Then one JSON line of per-kernel results (each with its time, its plain
 version's time and its bound: the larger of its bytes over 3.35 TB/s and its
 operations over the card's peak for their type), the card's name and power
@@ -186,6 +200,15 @@ K4_CHECK_B, K4_TIME_B = 64, 512
 K4_REPEATS = 3               # further launches of K4 that must give the first one's bits
 TN_TOL = 1e-5                # K4's transposed products alone, x max|plain|
 TRAIN_B, TRAIN_STEPS = 512, 3     # timed train steps, after one warm-up
+# phase 7b: the schedule's total (120 epochs x 1000 iterations) and the schedule steps of its
+# warm-up step and three timed steps, two inside the 1000-iteration warm-up, two past ANNEAL_POINT
+SCHEDULE_TOTAL, SCHEDULE_STEPS = 120_000, (500, 999, 90_000, 119_000)
+OPT_STEPS, OPT_TIMED = 3, 10      # optimizer steps card vs CPU; timed card steps after them
+OPT_TOL = 1e-5               # card vs CPU after OPT_STEPS, per parameter x max(1, max|p|)
+# the B = 8 adamw step: its lr, at which an Adam element moves about lr a step whatever its
+# gradient's size (so phase 7's 1e-3 parameter bound holds where a near-zero gradient takes
+# the other sign), and each parameter's change within this share of the CPU's in norm
+ADAMW_LR, ADAMW_CHANGE_RTOL = 1e-4, 3e-2
 NEAR_TIE = 1e-6              # f32 argmax rows may differ where two rows are this close
 # published peaks of one H100 SXM: device memory bytes/s, dense bf16 tensor-core
 # FLOP/s, f32 FLOP/s outside the tensor cores
@@ -935,9 +958,11 @@ def check_k5_bwd_design(enc, dev, gen, n_clouds, n_pts):
             "ms_step_inputs": step_ms, "passes": passes}
 
 
-def train_phase(dev, per_step, steps=TRAIN_STEPS, **model_overrides):
+def train_phase(dev, per_step, steps=TRAIN_STEPS, cfg=None, lr_fn=None, **model_overrides):
     """The flagship training step through `entry.train_entry` at B = TRAIN_B,
-    bf16: one warm-up and `steps` timed steps; returns its launch counts."""
+    bf16: one warm-up and `steps` timed steps, on the shipped config or `cfg`,
+    at its base lr or `lr_fn(step)`; -> (launch counts, ms per step, peak
+    GiB, state)."""
     from catre_tpu_torch import ops
     from catre_tpu_torch.entry import train_entry
 
@@ -953,7 +978,7 @@ def train_phase(dev, per_step, steps=TRAIN_STEPS, **model_overrides):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     state, history = train_entry(dev, batch_size=TRAIN_B, steps=1 + steps, seed=0,
-                                 callback=on_step, **model_overrides)
+                                 callback=on_step, cfg=cfg, lr_fn=lr_fn, **model_overrides)
     torch.cuda.synchronize()
     total = ops.launch_counts()
     ms = events[0].elapsed_time(events[-1]) / steps
@@ -970,11 +995,12 @@ def train_phase(dev, per_step, steps=TRAIN_STEPS, **model_overrides):
     if not all(torch.isfinite(p).all() for p in state.params.values()):
         raise RuntimeError("non-finite parameters after training")
     loss = [round(m["loss_total"][-1].item(), 5) for m in history]
-    log("train", f"B={TRAIN_B} bf16 {model_overrides or 'shipped flags'} "
+    what = "phase 7b solver config" if cfg is not None else (model_overrides or "shipped flags")
+    log("train", f"B={TRAIN_B} bf16 {what} "
                  f"{history[0]['loss_total'].numel()} inner iterations, {steps} timed steps: "
                  f"{ms:.3f} ms/step, {TRAIN_B / ms * 1e3:.1f} train obj/s, peak {peak:.2f} GiB, "
                  f"launches per step {per_step}, last-iteration loss per step {loss}")
-    return total
+    return total, ms, peak, state
 
 
 def refine_phase(dev, B, calls, per_call, **overrides):
@@ -1600,6 +1626,131 @@ def train_kernel_vs_plain(dev):
         raise RuntimeError("the kernel train step disagrees with the plain train step")
 
 
+def solver_train_phase(dev, per_step, phase7):
+    """Phase 7b's B = TRAIN_B bf16 train step at the shipped kernel flags
+    under `entry.solver_example_config()`, its lr from `build_lr_fn` at SCHEDULE_STEPS:
+    phase 7's launches per step, finite losses and parameters, the TS head's
+    parameters bit-unchanged; ms per step and peak memory beside phase 7's.
+    -> launch counts."""
+    from catre_tpu_torch.config.build import model_config_from
+    from catre_tpu_torch.entry import solver_example_config
+    from catre_tpu_torch.models.catre import init_model
+    from catre_tpu_torch.solver.schedule import build_lr_fn
+
+    cfg = solver_example_config()
+    lr_at = build_lr_fn(dict(cfg.SOLVER), SCHEDULE_TOTAL)
+    lrs = [lr_at(s) for s in SCHEDULE_STEPS]
+    log("train", f"phase 7b lr at schedule steps {SCHEDULE_STEPS} of {SCHEDULE_TOTAL}: {lrs}")
+    counts, ms, peak, state = train_phase(dev, per_step, cfg=cfg, lr_fn=lambda i: lrs[i])
+    initial = init_model(model_config_from(cfg), seed=0).state_dict()
+    ts = [n for n in state.params if n.startswith("ts_head.")]
+    changed = [n for n in ts if not torch.equal(state.params[n].detach().cpu(), initial[n])]
+    moved = [n for n in state.params if not n.startswith("ts_head.")
+             and not torch.equal(state.params[n].detach().cpu(), initial[n])]
+    log("train", f"phase 7b: {len(ts)} frozen ts_head parameters bit-unchanged: {not changed}; "
+                 f"{len(moved)} of {len(state.params) - len(ts)} others moved; "
+                 f"{ms:.3f} ms/step (phase 7 {phase7[1]:.3f}, ratio {ms / phase7[1]:.4f}), "
+                 f"peak {peak:.2f} GiB (phase 7 {phase7[2]:.2f})")
+    if changed or not moved:
+        raise RuntimeError(f"FREEZE: ts_head parameters changed {changed}, others moved "
+                           f"{len(moved)}")
+    return counts
+
+
+def registry_card_vs_cpu(dev):
+    """Every registry type, OPT_STEPS optimizer steps on the flagship model's
+    f32 parameters on the card against a CPU copy fed the same gradients, per
+    parameter within OPT_TOL x max(1, max|p|); then each type's ms per
+    optimizer step on the card (a side line, no limit)."""
+    from catre_tpu_torch.entry import flagship_config
+    from catre_tpu_torch.models.catre import init_model
+    from catre_tpu_torch.solver.build import OPTIMIZER_TYPES, build_optimizer
+
+    card, cpu = init_model(flagship_config(), seed=2, device=dev), init_model(flagship_config(),
+                                                                             seed=2)
+    initial = {k: v.clone() for k, v in cpu.state_dict().items()}
+    gen = torch.Generator().manual_seed(7)
+    grads = [{n: torch.randn(p.shape, generator=gen) * 1e-2 for n, p in cpu.named_parameters()}
+             for _ in range(OPT_STEPS)]
+    card_grads = [{n: g.to(dev) for n, g in step.items()} for step in grads]
+    times, worst = {}, (0.0, "")
+    for typ in OPTIMIZER_TYPES:
+        solver = {"OPTIMIZER_CFG": {"type": typ, "lr": 1e-3}}
+        opts = []
+        for model, seq in ((cpu, grads), (card, card_grads)):
+            model.load_state_dict(initial)
+            opt = build_optimizer(solver, model.named_parameters())
+            named = dict(model.named_parameters())
+            for step in seq:
+                for n, g in step.items():
+                    named[n].grad = g.clone()
+                opt.step()
+            opts.append(opt)
+        want = dict(cpu.named_parameters())
+        for n, p in card.named_parameters():
+            err = (p.detach().cpu() - want[n].detach()).abs().max().item()
+            scale = max(1.0, want[n].detach().abs().max().item())
+            if not err <= OPT_TOL * scale:
+                raise RuntimeError(f"{typ}: {n} card vs CPU max abs err {err:.3e} over "
+                                   f"{OPT_TOL:.0e} x {scale:.3f}")
+            worst = max(worst, (err / scale, f"{typ} {n}"))
+        times[typ] = time_ms(opts[1].step, iters=OPT_TIMED, warmup=0)
+    log("solver", f"{len(OPTIMIZER_TYPES)} registry types, {OPT_STEPS} steps on the flagship "
+                  f"model's {sum(p.numel() for p in cpu.parameters())} f32 parameters: card vs "
+                  f"CPU worst max abs err / max(1, max|p|) {worst[0]:.3e} ({worst[1]}; limit "
+                  f"{OPT_TOL:.0e})")
+    log("solver", "ms per optimizer step on the card: " + ", ".join(
+        f"{typ} {ms:.3f}" for typ, ms in times.items()))
+
+
+def adamw_kernel_vs_plain(dev):
+    """One B = 8 f32 train step with adamw, clipping and LR_MULT on the card
+    (K3-K6) against the same step on a CPU copy (the kernels' plain versions),
+    with phase 7's tolerances, at lr ADAMW_LR; and each parameter's change
+    within ADAMW_CHANGE_RTOL of the CPU's in norm."""
+    from catre_tpu_torch.engine.train import init_train_state, make_train_step, prepare_train_batch
+    from catre_tpu_torch.entry import flagship_trainer, solver_example_config
+    from catre_tpu_torch.solver.build import optimizer_from_config
+
+    cfg = solver_example_config()
+    cfg.SOLVER.OPTIMIZER_CFG = {"type": "AdamW", "lr": ADAMW_LR, "weight_decay": 0.01}
+    cfg.MODEL.CATRE.TS_HEAD.FREEZE = False
+    t = flagship_trainer(dev, batch_size=8, seed=1, cfg=cfg, dtype=None)
+    model, opt = t.step.model, t.step.optimizer
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_opt = optimizer_from_config(cfg, cpu_model)
+    cpu_step = make_train_step(cpu_model, t.step.loss_cfg, t.step.noise_cfg, cpu_opt,
+                               t.step.sym_bank.cpu(), t.step.n_iter)
+    before = {n: p.detach().cpu().clone() for n, p in cpu_model.named_parameters()}
+    (g_card, h_card), (g_cpu, h_cpu) = first_grads(model, opt), first_grads(cpu_model, cpu_opt)
+    prepared = prepare_train_batch(t.generator, t.batch, t.step.noise_cfg)
+    _, m_card = t.step.step_on_prepared(t.state, prepared, t.lr)
+    _, m_cpu = cpu_step.step_on_prepared(init_train_state(cpu_model, cpu_opt),
+                                         {k: v.cpu() for k, v in prepared.items()}, t.lr)
+    torch.cuda.synchronize()
+    h_card.remove()
+    h_cpu.remove()
+    loss_err = max(((m_card[k].cpu() - m_cpu[k]).abs() / m_cpu[k].abs().clamp(min=1e-12)).max()
+                   .item() for k in m_cpu)
+    card_params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    param_err = max((card_params[n] - p.detach()).abs().max().item()
+                    for n, p in cpu_model.named_parameters())
+    change = {n: ((card_params[n] - p.detach()).norm()
+                  / (p.detach() - before[n]).norm().clamp(min=1e-30)).item()
+              for n, p in cpu_model.named_parameters()}
+    change_worst = max(change, key=change.get)
+    grad_err, grad_worst = grad_error(g_card, g_cpu)
+    log("train", f"B=8 f32 adamw + clipping + LR_MULT kernel step vs plain step at lr "
+                 f"{ADAMW_LR:.0e}: metrics max rel err {loss_err:.3e} (rtol "
+                 f"{TRAIN_LOSS_RTOL:.0e}), parameters max abs err {param_err:.3e} (limit "
+                 f"{TRAIN_PARAM_TOL:.0e}), change vs the CPU's in norm {change[change_worst]:.3e} "
+                 f"({change_worst}; limit {ADAMW_CHANGE_RTOL:.0e}), first backward's gradients "
+                 f"max rel err {grad_err:.3e} ({grad_worst}; limit {TRAIN_GRAD_RTOL:.0e})")
+    if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_TOL
+            and change[change_worst] <= ADAMW_CHANGE_RTOL and grad_err <= TRAIN_GRAD_RTOL):
+        raise RuntimeError("the adamw kernel train step disagrees with the plain train step")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -1814,11 +1965,20 @@ def main():
                            "dense_relu_max_train_bwd": 2 * N_ITER,
                            "dense_relu_dense_max_train_fwd": N_ITER,
                            "dense_relu_dense_max_train_bwd": N_ITER})
-    for counts in (train_phase(dev, train_per_step),
-                   train_phase(dev, plain_per_step, steps=1, fused_encoder_train=False)):
+    phase7 = train_phase(dev, train_per_step)
+    for counts in (phase7[0],
+                   train_phase(dev, plain_per_step, steps=1, fused_encoder_train=False)[0]):
         for k in launches:
             launches[k] += counts[k]
     train_kernel_vs_plain(dev)
+
+    # ---- 7b. the solver: the train step under a config with clipping, LR_MULT, FREEZE,
+    # three init modes and the schedule's lr; every registry type card vs CPU; an adamw step
+    counts = solver_train_phase(dev, train_per_step, phase7)
+    for k in launches:
+        launches[k] += counts[k]
+    registry_card_vs_cpu(dev)
+    adamw_kernel_vs_plain(dev)
 
     # bounds of K1-K4 at the shapes they were timed at, bf16: their dense products
     # (K3 once forward, K4 the forward again and two products per forward product)

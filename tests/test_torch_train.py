@@ -12,7 +12,11 @@
     `tests/test_fused_train.py`; and the port's fused-encoder trajectory
     against its own plain-encoder trajectory at the same tolerances;
   - the config bridge's loss and noise configs, and the guards of the
-    training path.
+    training path;
+  - the optimizer a whole config builds (`optimizer_from_config`): each of
+    CLIP_GRADIENTS, a head's LR_MULT and FREEZE reaches the optimizer and
+    changes the first step as JAX `build_optimizer` with the runner's
+    `lr_mults` / `frozen` does (1e-6); the shipped config builds Ranger.
 """
 
 import copy
@@ -49,7 +53,7 @@ from catre_tpu_torch.losses import LossConfig
 from catre_tpu_torch.models.catre import CATREConfig, init_model
 from catre_tpu_torch.models.heads import ConvOutPerRotHead
 from catre_tpu_torch.ops import rot_head_train as train_ops
-from catre_tpu_torch.solver.build import build_optimizer, refuse_unported_training_keys
+from catre_tpu_torch.solver.build import build_optimizer, optimizer_from_config
 from catre_tpu_torch.solver.ranger import Ranger
 from catre_tpu_torch.utils.convert import params_from_jax
 
@@ -146,22 +150,38 @@ def test_ranger_matches_jax(grads):
 
 
 def test_build_optimizer_is_ranger_only():
+    """The shipped type builds Ranger; Adam, which the registry now has,
+    builds; an unknown type raises JAX's message."""
     model = init_model(CATREConfig(num_pcl=P, num_kps=K), seed=0)
     opt = build_optimizer({"OPTIMIZER_CFG": {"type": "Ranger", "lr": 4e-4}},
                           model.named_parameters())
     assert isinstance(opt, Ranger) and opt.param_groups[0]["lr"] == 4e-4
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_optimizer({"OPTIMIZER_CFG": {"type": "Adam"}}, model.named_parameters())
+    adam = build_optimizer({"OPTIMIZER_CFG": {"type": "Adam"}}, model.named_parameters())
+    assert not isinstance(adam, Ranger) and adam.param_groups[0]["lr"] == 1e-4
+    with pytest.raises(NotImplementedError) as want:
+        jax_build_optimizer({"OPTIMIZER_CFG": {"type": "Adamax"}})
+    with pytest.raises(NotImplementedError) as got:
+        build_optimizer({"OPTIMIZER_CFG": {"type": "Adamax"}}, model.named_parameters())
+    assert str(got.value) == str(want.value) == "optimizer type Adamax"
 
 
-def _flagship_with(path, value):
-    """The shipped config with the key at `path` (a tuple of names) set."""
-    cfg = copy.deepcopy(load_config(str(FLAGSHIP_CONFIG)))
+def _flagship_with(path, value, loader=load_config):
+    """The shipped config, read by `loader`, with the key at `path` (a tuple
+    of names) set."""
+    cfg = copy.deepcopy(loader(str(FLAGSHIP_CONFIG)))
     node = cfg
     for name in path[:-1]:
         node = node[name]
-    node[path[-1]] = value
+    if path:
+        node[path[-1]] = value
     return cfg
+
+
+def _first_step(opt, named, grads):
+    for name, prm in named:
+        prm.grad = grads[name].clone()
+    opt.step()
+    return {name: prm.detach().clone() for name, prm in named}
 
 
 @pytest.mark.parametrize("path,value", [
@@ -174,22 +194,54 @@ def _flagship_with(path, value):
     ((), None),
 ], ids=lambda v: ".".join(v) if isinstance(v, tuple) and v else ("shipped" if v == () else None))
 def test_unported_training_keys_raise(path, value):
-    """JAX applies gradient clipping (`solver/build.py:197-204`), per-head
-    LR multipliers and FREEZE (`engine/runner.py:197-205`); the port does not
-    yet, so a config that sets one raises and names the key. The shipped
-    config sets none and passes."""
-    model = init_model(CATREConfig(num_pcl=P, num_kps=K), seed=0)
+    """Gradient clipping (JAX `solver/build.py:197-204`), the heads' LR
+    multipliers and FREEZE (`engine/runner.py:197-205`) now reach the port's
+    optimizer: the first step of `optimizer_from_config` on seeded gradients
+    (x50, so that clipping by value bites) equals JAX `build_optimizer`'s with
+    the runner's lr_mults / frozen, and differs from the shipped config's
+    where the key acts. The shipped config builds Ranger."""
+    jcfg_m, params, model = _port_pair()
+    named = list(model.named_parameters())
+    rng = np.random.default_rng(6)
+    gtree = jax.tree_util.tree_map(
+        lambda a: (rng.normal(size=a.shape) * 50).astype(np.float32), _np_tree(params))
+    grads = params_from_jax(gtree, model)
+    initial = {n: p.detach().clone() for n, p in named}
 
-    def build(cfg):
-        refuse_unported_training_keys(cfg)
-        return build_optimizer(cfg.SOLVER, model.named_parameters())
+    def port_step(cfg):
+        for n, p in named:
+            p.data.copy_(initial[n])
+        return _first_step(optimizer_from_config(cfg, model), named, grads)
 
+    shipped = port_step(load_config(str(FLAGSHIP_CONFIG)))
     if not path:
-        assert isinstance(build(load_config(str(FLAGSHIP_CONFIG))), Ranger)
-        return
-    with pytest.raises(NotImplementedError, match="items 11") as e:
-        build(_flagship_with(path, value))
-    assert ".".join(path[-2:]) in str(e.value)
+        assert isinstance(optimizer_from_config(load_config(str(FLAGSHIP_CONFIG)), model), Ranger)
+    got = port_step(_flagship_with(path, value))
+    jcfg = _flagship_with(path, value, jax_load_config)
+    net = jcfg.MODEL.CATRE
+    lr_mults = {"rot_head": float(net.ROT_HEAD.get("LR_MULT", 1.0)),
+                "ts_head": float(net.TS_HEAD.get("LR_MULT", 1.0))}
+    frozen = tuple(k for k, sub in (("pcl_net", net.PCLNET), ("rot_head", net.ROT_HEAD),
+                                    ("ts_head", net.TS_HEAD)) if sub.get("FREEZE", False))
+    tx = jax_build_optimizer(dict(jcfg.SOLVER), lr_mults=lr_mults, frozen=frozen)
+    upd, _ = jax.jit(tx.update)(jax.tree_util.tree_map(jnp.asarray, gtree), tx.init(params),
+                                params)
+    want = params_from_jax(_np_tree(jax.tree_util.tree_map(lambda p, u: p + u, params, upd)),
+                           model)
+    changed = set()
+    for name, value_ in got.items():
+        np.testing.assert_allclose(value_.numpy(), want[name].numpy(), atol=1e-6, rtol=0,
+                                   err_msg=name)
+        if not torch.equal(value_, shipped[name]):
+            changed.add(name.split(".", 1)[0])
+    if path and path[-1] == "FREEZE":
+        module = {"PCLNET": "pcl_net", "ROT_HEAD": "rot_head", "TS_HEAD": "ts_head"}[path[-2]]
+        assert changed == {module}
+        assert all(torch.equal(got[n], initial[n]) for n in got if n.startswith(module + "."))
+    elif path and path[-1] == "LR_MULT":
+        assert changed == {"rot_head" if path[-2] == "ROT_HEAD" else "ts_head"}
+    else:
+        assert changed == (set() if not path else {"pcl_net", "rot_head", "ts_head"})
 
 
 def _to_torch(batch):
@@ -252,9 +304,13 @@ def test_prepare_train_batch_draws_from_the_generator():
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
     assert not torch.equal(a["pcl"], batch["pcl"])               # both coins came up
     assert (a["obj_pose_est"][:, :3, 3] - a["obj_pose"][:, :3, 3]).abs().max() < 0.2
-    with pytest.raises(NotImplementedError, match="item 12"):
-        prepare_train_batch(torch.Generator(), batch,
-                            dataclasses.replace(noise, init_pose_types=("random",)))
+    # the random init mode, which the port now has, draws from the same generator
+    rand = dataclasses.replace(noise, init_pose_types=("random",))
+    c = prepare_train_batch(torch.Generator().manual_seed(5), batch, rand)
+    d = prepare_train_batch(torch.Generator().manual_seed(5), batch, rand)
+    torch.testing.assert_close(c["obj_pose_est"], d["obj_pose_est"], rtol=0, atol=0)
+    t = c["obj_pose_est"][:, :3, 3]
+    assert (t[:, 2] >= 0.5).all() and (t[:, 2] <= 1.3).all() and (t[:, :2].abs() <= 0.35).all()
 
 
 @pytest.mark.parametrize("name", ["", "_initspd", "_tpu"])
