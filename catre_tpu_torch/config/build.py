@@ -4,7 +4,10 @@ Counterpart of `catre_tpu/config/build.py`: `validate_config` (:39) with
 `_unknown_key_paths` (:23), `model_config_from` (:93) with `_fused_ok` (:61)
 and `_enc_train_ok` (:73), `loss_config_from` (:143), `noise_config_from`
 (:167, every field) and `loader_config_from` (:203) with
-`_mean_table_matches` (:189), for the fields the test-phase loader reads.
+`_mean_table_matches` (:189), for the fields the loader reads in either
+phase (JAX's test-init fields, `sample_depth_from_ball`, which nothing reads,
+and `bbox_type_test` etc., which `engine.runner.do_test` reads from the config
+itself, are not carried).
 
 `model_config_from` also checks the kernels' shape limits before any weight
 is built (`ops.limits.check_model_limits`): a config whose fused flags ask
@@ -195,9 +198,6 @@ def noise_config_from(cfg) -> InputNoiseConfig:
     )
 
 
-_LOADER_LATER = "ROADMAP.md items 11 + 12a, the loader's train phase (the part still open)"
-
-
 def _mean_table_matches(num_kps: int) -> bool:
     """True when the mean-shape asset exists with `num_kps` points: only
     then may a test loader leave the per-batch mean points out (its consumer
@@ -211,19 +211,18 @@ def _mean_table_matches(num_kps: int) -> bool:
 
 
 def loader_config_from(cfg, phase: str = "train") -> LoaderConfig:
-    """The loader's LoaderConfig, with the JAX defaults. A config that asks
-    for a loader feature the port lacks raises and names its item."""
+    """The loader's LoaderConfig, with the JAX defaults. A train config that
+    asks for colour augmentation or background replacement raises: the port
+    has neither (ROADMAP item 12c). As in the JAX package no key sets
+    `with_nocs` (WITH_NOCS is not in the base schema, which warns about it):
+    the NOCS path is asked for on the LoaderConfig itself."""
     inp = cfg.INPUT
-    for key, feature in (("PCL_WITH_COLOR", "aligned RGB per point"),
-                         ("WITH_NOCS", "aligned NOCS coordinates per point")):
-        if inp.get(key, False):
-            raise NotImplementedError(f"INPUT.{key} is set: the port's loader has no "
-                                      f"{feature} yet (colour or coordinate images and per-point "
-                                      f"pixel indices); it is {_LOADER_LATER}")
-    if "last_frame" in tuple(inp.get("INIT_POSE_TYPE_TRAIN", ())) \
-            and inp.get("INIT_POSE_TRAIN_PATH", ""):
-        raise NotImplementedError("INPUT.INIT_POSE_TRAIN_PATH with the last_frame init: the "
-                                  f"port's loader ships no previous-frame poses; {_LOADER_LATER}")
+    color_aug = float(inp.get("COLOR_AUG_PROB", 0.0))
+    change_bg = float(inp.get("CHANGE_BG_PROB", 0.0))
+    if phase == "train" and (color_aug > 0 or change_bg > 0):
+        raise NotImplementedError(f"INPUT.COLOR_AUG_PROB = {color_aug}, CHANGE_BG_PROB = "
+                                  f"{change_bg}: the port's loader has no colour augmentation "
+                                  "or background replacement; ROADMAP.md item 12c")
     kps_type = str(inp.get("KPS_TYPE", "mean_shape"))
     num_kps = int(inp.get("NUM_KPS", 1024))
     use_cmra_model = bool(inp.get("USE_CMRA_MODEL", True))
@@ -248,6 +247,12 @@ def loader_config_from(cfg, phase: str = "train") -> LoaderConfig:
         num_kps=num_kps,
         use_cmra_model=use_cmra_model,
         cache_decoded=str(cfg.DATALOADER.get("CACHE_DECODED", "")),
+        pcl_with_color=bool(inp.get("PCL_WITH_COLOR", False)),
+        sampler_train=str(cfg.DATALOADER.get("SAMPLER_TRAIN", "TrainingSampler")),
+        repeat_threshold=float(cfg.DATALOADER.get("REPEAT_THRESHOLD", 0.0)),
+        init_pose_train_path=(inp.get("INIT_POSE_TRAIN_PATH", "")
+                              if "last_frame" in tuple(inp.get("INIT_POSE_TYPE_TRAIN", ()))
+                              else ""),
         # fps keypoints never read mean points; cmra per-instance priors must ship
         ship_mean_points=(
             False if kps_type.lower() == "fps" else

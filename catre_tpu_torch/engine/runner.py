@@ -1,9 +1,10 @@
 """The test runner wired from a config tree.
 
-Counterpart of the test half of `catre_tpu/engine/runner.py`: `build_model`
-(:82), `filter_invalid_dicts` (:100), `do_test` (:454), `_save_visualizations`
-(:637, on `utils/vis.py`), `_save_results_pkl` (:707), `_add_canonical_init`
-(:723) and `_add_gt_noise_init` (:743).
+Counterpart of the test half of `catre_tpu/engine/runner.py` and the train
+step's input glue: `build_model` (:82), `filter_invalid_dicts` (:100),
+`get_train_dicts` (:124), `batch_to_device` (:133), `do_test` (:454),
+`_save_visualizations` (:637, on `utils/vis.py`), `_save_results_pkl` (:707),
+`_add_canonical_init` (:723) and `_add_gt_noise_init` (:743).
 Behavioural reference: `core/catre/engine/engine.py::do_test` (:131).
 
 A test run goes config -> dataset registry -> init poses -> `CATRELoader`
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from ..config.build import loader_config_from, model_config_from
+from ..data.kps import select_kps
 from ..data.loader import CATRELoader
 from ..data.nocs import get_dataset_dicts, load_init_poses_into_dataset
 from ..engine.refiner import make_refine_fn
@@ -111,6 +113,60 @@ def filter_invalid_dicts(dicts: list, visib_thr: float = 0.0) -> list:
     return out
 
 
+def get_train_dicts(cfg, names) -> list:
+    """The records of the registered splits `names`, with the instances at
+    or under DATALOADER.FILTER_VISIB_THR and the images left empty dropped."""
+    dicts = []
+    for name in names:
+        dicts.extend(get_dataset_dicts(name))
+    return filter_invalid_dicts(dicts, visib_thr=float(cfg.DATALOADER.get("FILTER_VISIB_THR",
+                                                                          0.0)))
+
+
+# the loader batch fields the train step reads
+_TRAIN_KEYS = ("pcl", "obj_cls", "obj_pose", "obj_scale", "sym_flag", "valid", "obj_mean_points",
+               "obj_mean_scales", "K")
+
+
+def batch_to_device(batch: dict, device, max_objs: int | None = None,
+                    kps_type: str = "mean_shape", num_kps: int = 1024,
+                    with_neg_axis: bool = False) -> dict:
+    """A train loader batch -> the train step's tensors on `device`: the
+    fields it reads (and `last_frame_poses`, `obj_fps_points` where the
+    batch has them), the first `max_objs` rows (DATALOADER.MAX_OBJS_TRAIN;
+    a warning names the valid objects the cap drops), and `obj_kps` of
+    `kps_type` at the gt scale. Under KPS_TYPE "fps" there is no `obj_kps`:
+    the step divides `obj_fps_points` by its first scale estimate."""
+    keep = list(_TRAIN_KEYS)
+    if "last_frame_poses" in batch:
+        keep.append("last_frame_poses")
+    fps = kps_type.lower() == "fps"
+    if fps:
+        if "obj_fps_points" not in batch:
+            raise ValueError("INPUT.KPS_TYPE='fps' but the batch carries no obj_fps_points: the "
+                             "loader ships them only when its LoaderConfig.kps_type is 'fps' "
+                             "(set by config.build.loader_config_from)")
+        keep.append("obj_fps_points")
+        if "obj_mean_points" not in batch:
+            keep.remove("obj_mean_points")
+    rows = batch["pcl"].shape[0]
+    if max_objs is not None and rows > max_objs:
+        dropped = int(np.sum(np.asarray(batch["valid"][max_objs:])))
+        if dropped > 0:
+            logger.warning("MAX_OBJS_TRAIN cap %d dropped %d valid instances (batch had %d "
+                           "rows)", max_objs, dropped, rows)
+    out = {}
+    for k in keep:
+        v = batch[k][:max_objs] if max_objs is not None else batch[k]
+        out[k] = torch.as_tensor(np.ascontiguousarray(v) if isinstance(v, np.ndarray)
+                                 else v).to(device)
+    if not fps:
+        out["obj_kps"] = select_kps(kps_type, mean_points=out.get("obj_mean_points"),
+                                    scale_est=out["obj_scale"], num_kps=num_kps,
+                                    with_neg_axis=with_neg_axis)
+    return out
+
+
 def do_train(cfg, resume: bool = False, device="cuda"):
     raise NotImplementedError("training from a config (do_train: the loader's train phase, "
                               "schedules, periodic checkpoints and evaluation, --resume) is not "
@@ -188,8 +244,10 @@ def do_test(cfg, params_override=None, ctx: dict | None = None, device="cuda") -
             loader = ctx[lkey]
             loader.reset_stream()
         else:
+            # the aligned NOCS / RGB paths read host pixel indices: no device batches
+            devb = not (loader_cfg.with_nocs or loader_cfg.pcl_with_color)
             loader = CATRELoader(dicts, loader_cfg, phase="test", ims_per_batch=ims_per_batch,
-                                 num_workers=num_workers, device_batches=True, device=dev)
+                                 num_workers=num_workers, device_batches=devb, device=dev)
             if ctx is not None:
                 ctx[lkey] = loader
         if ctx is not None and ("refine", n_iter) in ctx:

@@ -11,7 +11,9 @@ clouds the refine takes in place of `example_batch`'s; `write_example_split`
 writes such frames to disk as a split (the counterpart of
 `bench.py::_write_synthetic_frames`), `shipped_test_loader` reads a split
 through the shipped config's test loader, and `evaluate_split` refines and
-scores it with the fixed-IoU NOCS protocol.
+scores it with the fixed-IoU NOCS protocol; `shipped_train_loader` reads it
+through the shipped config's train loader, and `train_from_split` trains the
+flagship step on its batches.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .config.build import (FLAGSHIP_CONFIG, loader_config_from, loss_config_from,
                            model_config_from, noise_config_from)
@@ -32,6 +35,7 @@ from .data import png
 from .data.loader import CATRELoader, LoaderConfig, mask_bbox_rows, pack_masks
 from .data.rle import binary_mask_to_rle
 from .engine.refiner import make_refine_fn
+from .engine.runner import batch_to_device
 from .engine.train import TrainState, TrainStep, init_train_state, make_train_step
 from .eval.evaluator import CATREEvaluator, pack_host, run_inference, unpack_refine_args
 from .geom.rotations import euler_to_mat
@@ -132,7 +136,8 @@ def example_frames(g: int, h: int = 480, w: int = 640, m: int = 8, seed: int = 0
     return out
 
 
-def _write_example_frame(root: str, f: int, h: int, w: int, m: int, seed: int) -> dict:
+def _write_example_frame(root: str, f: int, h: int, w: int, m: int, seed: int,
+                         images: bool) -> dict:
     """Frame f of `write_example_split`, from its own seed."""
     frame_seed = int(np.random.SeedSequence((seed, f)).generate_state(1)[0])
     fr = example_frames(1, h, w, m=m, seed=frame_seed, objs=(min(2, m), m),
@@ -147,21 +152,44 @@ def _write_example_frame(root: str, f: int, h: int, w: int, m: int, seed: int) -
                       "bbox": list(anno["bbox_est"]), "bbox_est": list(anno["bbox_est"]),
                       "segmentation": binary_mask_to_rle(fr["masks"][0, j]),
                       "score": 1.0, "mug_handle": 1})
-    return {"scene_im_id": f"example/{f:04d}", "depth_file": path, "height": h, "width": w,
-            "cam": fr["K"][0], "annotations": annos, "gt_annotations": annos}
+    rec = {"scene_im_id": f"example/{f:04d}", "depth_file": path, "height": h, "width": w,
+           "cam": fr["K"][0], "annotations": annos, "gt_annotations": annos}
+    if images:
+        rng = np.random.default_rng(frame_seed)
+        # colour: a random 8-bit image; coordinates: each instance's pixels
+        # by their column (R) and row (G) in its mask's bounds and one random
+        # B of its own, the background 255
+        bgr = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+        coord = np.full((h, w, 3), 255, np.uint8)
+        rows, cols = np.mgrid[0:h, 0:w]
+        for j in range(len(annos)):
+            mask = fr["masks"][0, j]
+            if not mask.any():
+                continue
+            r, c = rows[mask], cols[mask]
+            coord[mask, 2] = (255 * (c - c.min()) / max(1, c.max() - c.min())).astype(np.uint8)
+            coord[mask, 1] = (255 * (r - r.min()) / max(1, r.max() - r.min())).astype(np.uint8)
+            coord[mask, 0] = rng.integers(0, 256, dtype=np.uint8)
+        rec["file_name"] = os.path.join(root, f"{f:04d}_color.png")
+        rec["coord_file"] = os.path.join(root, f"{f:04d}_coord.png")
+        png.write_png(rec["file_name"], bgr, level=1)
+        png.write_png(rec["coord_file"], coord, level=1)
+    return rec
 
 
 def write_example_split(root: str, n_frames: int, h: int = 480, w: int = 640, m: int = 8,
-                        seed: int = 0) -> list:
-    """Write `n_frames` of `example_frames` under `root` as a test split:
-    16-bit depth PNGs through `data.png`, each instance's mask as an RLE
+                        seed: int = 0, images: bool = False) -> list:
+    """Write `n_frames` of `example_frames` under `root` as a split: 16-bit
+    depth PNGs through `data.png`, each instance's mask as an RLE
     `segmentation`, its pose, scale, init estimate (the same), bbox, score
     and a category (slot % 6), as `bench.py::_write_synthetic_frames` writes
-    its records. Frames hold 2 to m objects of 40-200 px at 480 rows, scaled
-    with h. Frame f depends on (seed, f) only, so a shorter split is a prefix
-    of a longer one. Returns the records."""
+    its records. With `images`, also an 8-bit colour PNG (`file_name`) and a
+    NOCS-style coordinate PNG (`coord_file`), both written from BGR arrays as
+    OpenCV writes them. Frames hold 2 to m objects of 40-200 px at 480 rows,
+    scaled with h. Frame f depends on (seed, f) only, so a shorter split is a
+    prefix of a longer one. Returns the records."""
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
-        return list(pool.map(lambda f: _write_example_frame(root, f, h, w, m, seed),
+        return list(pool.map(lambda f: _write_example_frame(root, f, h, w, m, seed, images),
                              range(n_frames)))
 
 
@@ -179,6 +207,25 @@ def shipped_test_loader(records: list, device="cuda", **kw) -> CATRELoader:
             "num_workers": int(cfg.DATALOADER.get("NUM_WORKERS", 0)), "device_batches": True}
     args.update(kw)
     return CATRELoader(records, lcfg, phase="test", device=device, **args)
+
+
+def shipped_train_loader(records: list, device="cuda", **kw) -> CATRELoader:
+    """The shipped config's train loader over `records`, as a single-process
+    JAX `do_train` builds it (`catre_tpu/engine/runner.py:235-248`):
+    SOLVER.IMS_PER_BATCH images a group (64: B = 512 slots), SEED (at least
+    0), DATALOADER.NUM_WORKERS and CACHE_DECODED, the auto window, AUG_DEPTH,
+    device batches. Keywords that name a `LoaderConfig` field replace it; the
+    rest go to `CATRELoader` (`mean_points`, `draws`, `aug_draws`, `seed`,
+    ...). `cfg=` reads another config tree."""
+    cfg = kw.pop("cfg", None) or load_config(str(FLAGSHIP_CONFIG))
+    fields = {f.name for f in dataclasses.fields(LoaderConfig)}
+    lcfg = dataclasses.replace(loader_config_from(cfg, "train"),
+                               **{k: kw.pop(k) for k in list(kw) if k in fields})
+    args = {"ims_per_batch": int(cfg.SOLVER.IMS_PER_BATCH), "seed": max(int(cfg.get("SEED", 0)), 0),
+            "num_workers": int(cfg.DATALOADER.get("NUM_WORKERS", 0)),
+            "device_batches": not (lcfg.with_nocs or lcfg.pcl_with_color)}
+    args.update(kw)
+    return CATRELoader(records, lcfg, phase="train", device=device, **args)
 
 
 def loader_refine_args(batch: dict, mean_table: torch.Tensor) -> tuple:
@@ -332,18 +379,50 @@ def flagship_trainer(device="cuda", batch_size: int = 512, seed: int = 0, cfg=No
 
 
 def train_entry(device="cuda", batch_size: int = 512, steps: int = 3, seed: int = 0,
-                callback=None, cfg=None, lr_fn=None, **model_overrides):
+                callback=None, cfg=None, lr_fn=None, batches=None, **model_overrides):
     """`steps` flagship training steps (N_ITER_TRAIN = 4 inner iterations
     each) on `device`; `callback(i, metrics)` runs after step i. `cfg` as in
     `flagship_trainer`; `lr_fn(i)` gives step i's lr (e.g.
-    `solver.schedule.build_lr_fn`), else the base lr throughout. Returns
-    (state, [metrics of each step]); the state names the trained parameters."""
+    `solver.schedule.build_lr_fn`), else the base lr throughout. `batches`
+    (an iterator of step batches on `device`) feeds step i its i-th batch,
+    else every step takes the synthetic one. Returns (state, [metrics of each
+    step]); the state names the trained parameters."""
     t = flagship_trainer(device, batch_size, seed, cfg, **model_overrides)
     history = []
     for i in range(steps):
+        batch = t.batch if batches is None else next(batches)
         lr = t.lr if lr_fn is None else lr_fn(i)
-        t.state, metrics = t.step(t.state, t.batch, t.generator, lr)
+        t.state, metrics = t.step(t.state, batch, t.generator, lr)
         history.append(metrics)
         if callback is not None:
             callback(i, metrics)
     return t.state, history
+
+
+def train_from_split(records: list, steps: int, device="cuda", cfg=None, callback=None,
+                     loader=None, **loader_kw):
+    """`steps` flagship training steps on batches read from a split: the
+    train loader (`shipped_train_loader` over `records` with `loader_kw`, or
+    `loader`) -> `engine.runner.batch_to_device` (MAX_OBJS_TRAIN, KPS_TYPE)
+    -> `train_entry` (`cfg` defaults to the shipped config). The model's
+    point counts follow the loader's (with KPS_TYPE mean_shape the table of
+    `mean_points` has `num_kps` points). The loader's part of a step is the
+    `torch.profiler` range train.loader. Returns (state, [metrics of each
+    step])."""
+    cfg = load_config(str(FLAGSHIP_CONFIG)) if cfg is None else cfg
+    if loader is None:
+        loader = shipped_train_loader(records, device, cfg=cfg, **loader_kw)
+    lcfg = loader.cfg
+
+    def batches():
+        raw = iter(loader)                      # a train loader has no end
+        while True:
+            with record_function("train.loader"):
+                batch = batch_to_device(
+                    next(raw), device, max_objs=int(cfg.DATALOADER.get("MAX_OBJS_TRAIN", 120)),
+                    kps_type=lcfg.kps_type, num_kps=lcfg.num_kps,
+                    with_neg_axis=bool(cfg.INPUT.get("WITH_NEG_AXIS", False)))
+            yield batch
+
+    return train_entry(device, steps=steps, callback=callback, cfg=cfg, batches=batches(),
+                       num_pcl=lcfg.num_pcl, num_kps=lcfg.num_kps)

@@ -1,7 +1,7 @@
 """Where the time of one flagship training step goes, on one CUDA card.
 
     python -m catre_tpu_torch.tools.profile_train [--batch 512] [--plain-encoder]
-        [--solver-config] [--trace PATH]
+        [--solver-config] [--frames N] [--trace PATH]
 
 Builds the flagship trainer (`entry.flagship_trainer`: bf16, K3 forward and
 K4 backward in the rotation head, K5/K6 encoder tails; `--plain-encoder`
@@ -24,21 +24,31 @@ counts the copy kernels right after each: none, since both write dx in x's
 dtype.
 `--solver-config` trains under `entry.solver_example_config()` (clipping,
 LR_MULT, FREEZE, three init modes: `chip_smoke.py` phase 7b's config) in
-place of the shipped config. `--trace` writes the Chrome trace of the first
-step.
+place of the shipped config. `--frames N` trains from a split on disk
+instead of the synthetic batch: N frames of 480 x 640
+(`entry.write_example_split`, seed 0) in a temporary directory, read by the
+shipped train loader (`entry.shipped_train_loader`: 64 frames a step, B =
+512, device cache, depth augmentation on the card; a seeded mean-shape
+table) through `entry.train_from_split`; it prints the split's writing and
+the loader's cold seconds, and the train.loader range (the next group's
+draws and sampler, the batch's upload) beside the step's. `--batch` is then
+the loader's (64 frames x 8 slots). `--trace` writes the Chrome trace of
+the first profiled step.
 """
 
 from __future__ import annotations
 
 import argparse
 import subprocess
+import tempfile
 import time
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ..entry import flagship_trainer, solver_example_config
+from ..entry import (flagship_trainer, shipped_train_loader, solver_example_config,
+                     train_from_split, write_example_split)
 from ..ops import launch_counts, reset_launch_counts
 
 UNPROFILED_STEPS = 2      # timed by the host clock before the profiled step
@@ -126,10 +136,14 @@ def main(argv=None) -> int:
                     help="train the encoder as plain layers under autograd")
     ap.add_argument("--solver-config", action="store_true",
                     help="train under phase 7b's solver config instead of the shipped one")
+    ap.add_argument("--frames", type=int, default=0,
+                    help="train from a written split of this many 480 x 640 frames")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
     card = card_line()
+    if args.frames:
+        return profile_from_disk(args, card)
     overrides = {"fused_encoder_train": False} if args.plain_encoder else {}
     cfg = solver_example_config() if args.solver_config else None
     t = flagship_trainer("cuda", batch_size=args.batch, seed=0, cfg=cfg, **overrides)
@@ -177,6 +191,67 @@ def main(argv=None) -> int:
         t.state, _ = t.step(t.state, t.batch, t.generator, t.lr)
         torch.cuda.synchronize()
     print_products(prof, args.top)
+    return 0
+
+
+def profile_from_disk(args, card: str) -> int:
+    """`--frames N`: one warm-up step, UNPROFILED_STEPS timed, one profiled,
+    each on the loader's next group."""
+    import numpy as np
+
+    marks = {}
+
+    def on_step(i, metrics):
+        if i == 0:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            marks["t0"] = time.perf_counter()
+        elif i == UNPROFILED_STEPS:
+            torch.cuda.synchronize()
+            marks["step_ms"] = (time.perf_counter() - marks["t0"]) * 1e3 / UNPROFILED_STEPS
+            marks["peak"] = torch.cuda.max_memory_allocated() / 2**30
+            reset_launch_counts()
+            prof.start()
+            marks["t1"] = time.perf_counter()
+        elif i == UNPROFILED_STEPS + 1:
+            torch.cuda.synchronize()
+            marks["wall_ms"] = (time.perf_counter() - marks["t1"]) * 1e3
+            prof.stop()
+
+    table = np.random.default_rng(0).normal(size=(6, 1024, 3)).astype(np.float32) * 0.1
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with tempfile.TemporaryDirectory(prefix="catre_train_split_") as root:
+        t0 = time.perf_counter()
+        records = write_example_split(root, args.frames)
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loader = shipped_train_loader(records, "cuda", mean_points=table)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        train_from_split(records, UNPROFILED_STEPS + 2, "cuda", callback=on_step, loader=loader)
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+    events = prof.key_averages()
+    kernels = device_kernels(events)
+    device_ms = sum(device_us(e) for e in kernels) / 1e3
+    b = loader.ims_per_batch * loader.cfg.max_objs_per_image
+    print(f"card: {card}")
+    print(f"{args.frames} frames 480x640 written in {write_s:.1f} s; loader cold (decode in "
+          f"{loader.num_workers} threads + device cache {loader.device_cache_gb():.3f} GB) "
+          f"{cold_s:.3f} s; {loader.ims_per_batch} frames a step, B={b}, window "
+          f"{loader.cfg.sample_window}")
+    print(f"B={b} from disk, launches in the step {launch_counts()}")
+    print(f"B={b} from disk, {UNPROFILED_STEPS} steps without the profiler: {marks['step_ms']:.3f} "
+          f"ms a step (host clock), peak memory {marks['peak']:.2f} GiB")
+    print(f"B={b} from disk, one train step: wall {marks['wall_ms']:.3f} ms, device kernels "
+          f"{device_ms:.3f} ms, idle share {1 - device_ms / marks['wall_ms']:.4f}")
+    for e in events:
+        if e.key.startswith(("train.", "Optimizer.step")):
+            side = "device span" if e.device_type == DeviceType.CUDA else "host"
+            ms = (device_us(e) if e.device_type == DeviceType.CUDA else e.cpu_time_total) / 1e3
+            print(f"range {e.key}: calls {e.count}, {side} {ms:.3f} ms")
+    print_kernels(kernels, args.top)
     return 0
 
 

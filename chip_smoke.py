@@ -147,7 +147,28 @@ code is non-zero):
                type's ms per step on the card; one B = 8 f32 step with adamw,
                clipping and LR_MULT, card (kernels) vs CPU (plain versions),
                at phase 7's tolerances and each parameter's change within 3e-2
-               of the CPU's in norm.
+               of the CPU's in norm;
+  7c. train from disk: phase 5d's split (records with gt pose, scale and
+               bbox) -> the shipped config's train loader
+               (`entry.shipped_train_loader`: 64 frames a group, B = 512,
+               device cache, device batches, auto window, depth augmentation
+               on the card, 4 decode threads) -> `engine.runner.
+               batch_to_device` -> the B = 512 bf16 train step
+               (`entry.train_from_split`): one warm-up and 3 timed steps,
+               finite losses and parameters, phase 7's launches per step
+               (K5 = 8 + 8, K6 = 4 + 4, K3 = K4 = 4, K1 = K2 = 0), ms per step
+               and train obj/s beside phase 7's, the loader's cold seconds
+               (decode and device cache), its ms a group through its own
+               iterator (5 groups after one, synced; and a group's draws
+               alone, CUDA events) and peak memory; the card's first 2 groups
+               against the CPU loader's under the loader's own draws: record
+               order, host fields, priorities and uniform augmentation fields
+               bit-equal, the normal fields within 1 ulp, the clouds within
+               2 ulp of each point's depth (the CPU tests' bound) and
+               bit-equal where the CPU sampler is handed the card's
+               augmented depth; skip(64) then one group
+               bit-equal to group 2 of a fresh loader; one step under
+               INIT_POSE_TYPE_TRAIN ["last_frame"] from a written pickle.
 Then one JSON line of per-kernel results (each with its time, its plain
 version's time and its bound: the larger of its bytes over 3.35 TB/s and its
 operations over the card's peak for their type), the card's name and power
@@ -229,6 +250,10 @@ LOADER_WARM_PASSES = 2       # timed passes of the shipped test loader after the
 LOADER_WORKERS = 4           # decode threads of the uncached pass
 LOADER_DECODE_FRAMES = 32    # frames decoded one by one for the host decode time
 LOADER_CPU_GROUPS = 2        # groups held card against CPU
+TRAIN_CPU_GROUPS = 2         # phase 7c: train groups held card against CPU
+LOADER_TIME_GROUPS = 5       # phase 7c: train groups timed through the loader's iterator
+NORMAL_ULPS = 1              # the loader's normal fields, card vs CPU (float64 log / cos)
+DEPTH_ULPS = 2               # the loader's clouds, card vs CPU, in ulp of each point's depth
 LOADER_SERIAL_GROUPS = 4     # groups of the pipelined-vs-serial check (the pinned slots reused)
 EVAL_PATH_GROUPS = 2         # groups on which the packed and the host select_kps paths agree
 EVAL_NOISY_FRAMES = 64       # frames of the perturbed-init split that must score below 100
@@ -1003,6 +1028,205 @@ def train_phase(dev, per_step, steps=TRAIN_STEPS, cfg=None, lr_fn=None, **model_
     return total, ms, peak, state
 
 
+def same_bits(tag, a, b):
+    """Two tensors (on any devices) bit-equal."""
+    a, b = a.cpu(), b.cpu()
+    if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+        raise RuntimeError(f"{tag}: not bit-equal")
+
+
+def within_ulp(tag, a, b, ulps):
+    """f32 tensors within `ulps` of b's spacing; -> (elements that differ,
+    the largest distance in ulp)."""
+    import numpy as np
+
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    ulp = np.abs(a - b) / np.spacing(np.abs(b))
+    if a.shape != b.shape or not (ulp <= ulps).all():
+        raise RuntimeError(f"{tag}: {float(ulp.max())} ulp apart, limit {ulps}")
+    return int((a != b).sum()), float(ulp.max())
+
+
+def within_depth_ulp(tag, a, b, ulps):
+    """(N, P, 3) clouds within `ulps` of the spacing of b's depth at each
+    point; -> (elements that differ, the largest distance in those ulp)."""
+    import numpy as np
+
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    ulp = np.abs(a - b) / np.spacing(np.abs(b[..., 2:3]))
+    if a.shape != b.shape or not (ulp <= ulps).all():
+        raise RuntimeError(f"{tag}: {float(ulp.max())} ulp of the depth apart, limit {ulps}")
+    return int((a != b).sum()), float(ulp.max())
+
+
+def train_from_disk_phase(dev, card, records, per_step, phase7, root):
+    """Phase 7c: the split on disk -> the shipped train loader -> the flagship
+    train step (see 7c in the module docstring); -> the launch counts."""
+    import itertools
+    import pickle
+
+    import numpy as np
+
+    from catre_tpu_torch import ops
+    from catre_tpu_torch.config.build import FLAGSHIP_CONFIG
+    from catre_tpu_torch.config.loader import load_config
+    from catre_tpu_torch.data import loader as dl
+    from catre_tpu_torch.entry import shipped_train_loader, train_from_split
+    from catre_tpu_torch.ops.sampling import depth_metres
+
+    table = np.random.default_rng(0).normal(size=(6, 1024, 3)).astype(np.float32) * 0.1
+    kw = dict(mean_points=table)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loader = shipped_train_loader(records, dev, **kw)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    cfg, ims = loader.cfg, loader.ims_per_batch
+    h, w = records[0]["height"], records[0]["width"]
+
+    # the loader's time a group: groups through its own iterator after one,
+    # synced; then the stream is rewound for the steps. A group's draws alone.
+    groups = iter(loader)
+    next(groups)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LOADER_TIME_GROUPS):
+        next(groups)
+    torch.cuda.synchronize()
+    group_ms = (time.perf_counter() - t0) * 1e3 / LOADER_TIME_GROUPS
+    groups.close()
+    loader.reset_stream()
+    draws_ms = time_ms(lambda: loader._group_draws(list(range(ims)), ims, h, w),
+                       LOADER_TIME_GROUPS)
+
+    # the train steps: one warm-up, TRAIN_STEPS timed, the loader's next group in each
+    events, counts = [], []
+
+    def on_step(i, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        counts.append(ops.launch_counts())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, history = train_from_split(records, 1 + TRAIN_STEPS, dev, callback=on_step,
+                                      loader=loader)
+    torch.cuda.synchronize()
+    total = ops.launch_counts()
+    ms = events[0].elapsed_time(events[-1]) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prev = dict.fromkeys(per_step, 0)
+    for i, c in enumerate(counts):
+        step_counts = {k: c[k] - prev[k] for k in per_step}
+        if step_counts != per_step:
+            raise RuntimeError(f"train from disk, step {i}: launches {step_counts}, want "
+                               f"{per_step}")
+        prev = c
+    if not all(torch.isfinite(v).all() for m in history for v in m.values()):
+        raise RuntimeError("train from disk: non-finite metrics")
+    if not all(torch.isfinite(p).all() for p in state.params.values()):
+        raise RuntimeError("train from disk: non-finite parameters")
+    b = ims * cfg.max_objs_per_image
+    loss = [round(m["loss_total"][-1].item(), 5) for m in history]
+    log("train", f"phase 7c from disk B={b} ({ims} frames {h}x{w} a step, window "
+                 f"{cfg.sample_window}, aug_depth {cfg.aug_depth}): {ms:.3f} ms/step (phase 7 "
+                 f"{phase7[1]:.3f}, ratio {ms / phase7[1]:.4f}), {b / ms * 1e3:.1f} train obj/s "
+                 f"(phase 7 {TRAIN_B / phase7[1] * 1e3:.1f}), peak {peak:.2f} GiB (phase 7 "
+                 f"{phase7[2]:.2f}); loader: cold {cold_s:.3f} s (decode in "
+                 f"{loader.num_workers} threads + device cache {loader.device_cache_gb():.3f} "
+                 f"GB), {group_ms:.4f} ms a group through its iterator (a group's draws "
+                 f"{draws_ms:.4f}); "
+                 f"launches per step {per_step}, last-iteration loss per step {loss} | {card}")
+
+    # the card against the CPU loader on the first groups, the loader's own draws
+    fresh = shipped_train_loader(records, dev, **kw)
+    card_batches = [dict(x, pcl=x["pcl"].clone())
+                    for x in itertools.islice(iter(fresh), TRAIN_CPU_GROUPS)]
+    cpu = shipped_train_loader(records, "cpu", cache_decoded="", num_workers=LOADER_WORKERS,
+                               sample_window=cfg.sample_window, **kw)
+    cpu_batches = list(itertools.islice(iter(cpu), TRAIN_CPU_GROUPS))
+    d = fresh._dev
+    n_diff, worst, pcl_diff, pcl_worst = 0, 0.0, 0, 0.0
+    for k, (a, c) in enumerate(zip(card_batches, cpu_batches)):
+        if a["scene_im_ids"] != c["scene_im_ids"] or set(a) != set(c):
+            raise RuntimeError(f"train loader card vs CPU: group {k} holds other images or "
+                               "fields")
+        for key in set(a) - {"pcl", "scene_im_ids", "file_names"}:
+            if a[key].dtype != c[key].dtype or not (a[key] == c[key]).all():
+                raise RuntimeError(f"train loader card vs CPU: group {k} field {key} differs")
+        n, u = within_depth_ulp(f"group {k} clouds", a["pcl"], c["pcl"], DEPTH_ULPS)
+        pcl_diff, pcl_worst = pcl_diff + n, max(pcl_worst, u)
+        gs = list(range(k * ims, (k + 1) * ims))
+        on_card, on_cpu = fresh._group_draws(gs, ims, h, w), cpu._group_draws(gs, ims, h, w)
+        same_bits(f"group {k} priorities", on_card["priorities"], on_cpu["priorities"])
+        for name, field in on_card["aug_draws"].items():
+            if name in ("fill_draw", "noise_draw"):
+                n, u = within_ulp(f"group {k} {name}", field, on_cpu["aug_draws"][name],
+                                  NORMAL_ULPS)
+                n_diff, worst = n_diff + n, max(worst, u)
+            else:
+                same_bits(f"group {k} {name}", field, on_cpu["aug_draws"][name])
+        # the CPU sampler on the card's augmented depth gives the card's clouds
+        rows = fresh._rows([(g, fresh._index_at(g), None) for g in gs], ims)
+        rows_t = torch.from_numpy(rows).to(dev)
+        aug = dl.augment_depth(cfg, depth_metres(d["depth"][rows_t]), on_card["aug_draws"])
+        host = [d[key][rows_t].cpu() for key in ("K", "packed", "pose", "scale")]
+        pcl = dl.sample_group_from_cloud(cfg, False, aug.cpu(), *host,
+                                         priorities=on_cpu["priorities"])[0]
+        same_bits(f"group {k} clouds (CPU sampler on the card's augmented depth)",
+                  pcl.reshape(a["pcl"].shape), a["pcl"])
+    log("train", f"train loader card = CPU on the first {TRAIN_CPU_GROUPS} groups: record order, "
+                 f"host fields, priorities and uniform fields bit for bit; normal fields "
+                 f"{n_diff} elements apart, at most {worst:.1f} ulp (limit {NORMAL_ULPS}); "
+                 f"clouds {pcl_diff} elements apart, at most {pcl_worst:.1f} ulp of the depth "
+                 f"(limit {DEPTH_ULPS}), and bit-equal from the card's augmented depth")
+
+    # skip(ims) then one group = the second group of the loader that did not skip
+    skipped = shipped_train_loader(records, dev, **kw)
+    skipped.skip(ims)
+    got = next(iter(skipped))
+    if got["scene_im_ids"] != card_batches[1]["scene_im_ids"]:
+        raise RuntimeError("skip: other records")
+    for key in set(got) - {"scene_im_ids", "file_names"}:
+        same_bits(f"skip({ims}) field {key}", torch.as_tensor(got[key]),
+                  torch.as_tensor(card_batches[1][key]))
+    log("train", f"skip({ims}) then one group = group 2 of a fresh loader, bit for bit on the "
+                 "card")
+
+    # one step under the last_frame init, its poses from a pickle
+    rng = np.random.default_rng(0)
+    prev = {r["scene_im_id"]: np.stack([np.concatenate([a["pose"], a["scale"][:, None]], 1)
+                                        for a in r["annotations"]]).astype(np.float32)
+            + rng.normal(0, 0.005, (len(r["annotations"]), 3, 5)).astype(np.float32)
+            for r in records}
+    path = os.path.join(root, "last_frame.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(prev, f)
+    lf_cfg = load_config(str(FLAGSHIP_CONFIG))
+    lf_cfg.INPUT.INIT_POSE_TYPE_TRAIN = ["last_frame"]
+    lf_cfg.INPUT.INIT_POSE_TRAIN_PATH = path
+    ops.reset_launch_counts()
+    state, history = train_from_split(records, 1, dev, cfg=lf_cfg, **kw)
+    torch.cuda.synchronize()
+    lf_counts = ops.launch_counts()
+    if {k: lf_counts[k] for k in per_step} != per_step:
+        raise RuntimeError(f"last_frame step: launches {lf_counts}, want {per_step}")
+    if not (all(torch.isfinite(v).all() for v in history[0].values())
+            and all(torch.isfinite(p).all() for p in state.params.values())):
+        raise RuntimeError("last_frame step: non-finite metrics or parameters")
+    log("train", f"one step under INIT_POSE_TYPE_TRAIN ['last_frame'] from a pickle: "
+                 f"last-iteration loss {history[0]['loss_total'][-1].item():.5f}, launches "
+                 f"{per_step}")
+    del loader, fresh, cpu, skipped
+    dl.clear_decoded_caches()
+    torch.cuda.empty_cache()
+    for k in total:
+        total[k] += lf_counts[k]
+    return total
+
+
 def refine_phase(dev, B, calls, per_call, **overrides):
     """The flagship refine through `entry.entry` at batch B, bf16: one warm-up
     and `calls` timed calls with exactly `per_call` launches each; returns the
@@ -1206,111 +1430,118 @@ def same_batches(tag, card, ref):
         same_outputs(f"{tag} batch {i}", [a["pcl"]], [b["pcl"]])
 
 
-def loader_phase(dev, card, model_seed=0):
-    """A split on disk -> the shipped test loader -> the shipped refine (see
+def write_split(root):
+    """Phase 5d's split of LOADER_FRAMES frames of 480 x 640 under `root`,
+    which phases 5e-5f and 7c read too; -> the records."""
+    from catre_tpu_torch.data import loader as dl
+    from catre_tpu_torch.entry import write_example_split
+
+    t0 = time.perf_counter()
+    records = write_example_split(root, LOADER_FRAMES)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for r in records[:LOADER_DECODE_FRAMES]:
+        dl.load_depth(r["depth_file"])
+    decode_ms = (time.perf_counter() - t0) / LOADER_DECODE_FRAMES * 1e3
+    n_objs = sum(len(r["annotations"]) for r in records)
+    log("loader", f"wrote {LOADER_FRAMES} frames 480x640 ({n_objs} objects) in {write_s:.1f} s; "
+                  f"png.py decode {decode_ms:.3f} ms a depth frame (one thread)")
+    return records
+
+
+def loader_phase(dev, card, records, model_seed=0):
+    """The split on disk -> the shipped test loader -> the shipped refine (see
     5d in the module docstring); returns the refine's launch counts over the
     warm passes."""
     import numpy as np
 
     from catre_tpu_torch import ops
     from catre_tpu_torch.data import loader as dl
-    from catre_tpu_torch.entry import (N_ITER, entry, loader_refine_args, shipped_test_loader,
-                                       write_example_split)
+    from catre_tpu_torch.entry import N_ITER, entry, loader_refine_args, shipped_test_loader
 
     table = np.random.default_rng(model_seed).normal(size=(6, 1024, 3)).astype(np.float32) * 0.1
     table_dev = torch.from_numpy(table).to(dev)
-    with tempfile.TemporaryDirectory(prefix="catre_split_") as root:
-        t0 = time.perf_counter()
-        records = write_example_split(root, LOADER_FRAMES)
-        write_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        for r in records[:LOADER_DECODE_FRAMES]:
-            dl.load_depth(r["depth_file"])
-        decode_ms = (time.perf_counter() - t0) / LOADER_DECODE_FRAMES * 1e3
-        n_objs = sum(len(r["annotations"]) for r in records)
-        log("loader", f"wrote {LOADER_FRAMES} frames 480x640 ({n_objs} objects) in {write_s:.1f} s; "
-                      f"png.py decode {decode_ms:.3f} ms a depth frame (one thread)")
+    n_objs = sum(len(r["annotations"]) for r in records)
+    # the shipped path: device cache, frozen plan, presampled candidates
+    kw = dict(mean_points=table, ship_mean_points=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loader = shipped_test_loader(records, dev, **kw)
+    build_s = time.perf_counter() - t0
+    ims, m = loader.ims_per_batch, loader.cfg.max_objs_per_image
+    b = ims * m
+    refine, _ = entry(dev, batch_size=b, seed=model_seed)
 
-        # the shipped path: device cache, frozen plan, presampled candidates
-        kw = dict(mean_points=table, ship_mean_points=False)
+    def run_pass(ld, keep=0):
+        """Every batch through the refine; -> (s, batches, the first `keep` batches)."""
+        kept, n = [], 0
+        start = time.perf_counter()
+        for batch in ld:
+            poses, scales = refine(*loader_refine_args(batch, table_dev))
+            if poses.shape != (N_ITER + 1, b, 3, 4) or not (torch.isfinite(poses).all()
+                                                           and torch.isfinite(scales).all()):
+                raise RuntimeError("loader + refine: poses or scales not finite, or of a "
+                                   "wrong shape")
+            if len(kept) < keep:
+                kept.append(dict(batch, pcl=batch["pcl"].clone()))
+            n += 1
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loader = shipped_test_loader(records, dev, **kw)
-        build_s = time.perf_counter() - t0
-        ims, m = loader.ims_per_batch, loader.cfg.max_objs_per_image
-        b = ims * m
-        refine, _ = entry(dev, batch_size=b, seed=model_seed)
+        return time.perf_counter() - start, n, kept
 
-        def run_pass(ld, keep=0):
-            """Every batch through the refine; -> (s, batches, the first `keep` batches)."""
-            kept, n = [], 0
-            start = time.perf_counter()
-            for batch in ld:
-                poses, scales = refine(*loader_refine_args(batch, table_dev))
-                if poses.shape != (N_ITER + 1, b, 3, 4) or not (torch.isfinite(poses).all()
-                                                               and torch.isfinite(scales).all()):
-                    raise RuntimeError("loader + refine: poses or scales not finite, or of a "
-                                       "wrong shape")
-                if len(kept) < keep:
-                    kept.append(dict(batch, pcl=batch["pcl"].clone()))
-                n += 1
-            torch.cuda.synchronize()
-            return time.perf_counter() - start, n, kept
+    cold_s, n_batches, _ = run_pass(loader)
+    if ims not in loader._plan_store or not loader._cand_store:
+        raise RuntimeError("loader: the shipped path did not take the frozen plan and the "
+                           "presampled candidates")
+    want_batches = -(-LOADER_FRAMES // ims)
+    if n_batches != want_batches:
+        raise RuntimeError(f"loader: {n_batches} batches, want {want_batches}")
+    log("loader", f"cold: device cache {build_s:.3f} s (decode in {loader.num_workers} "
+                  f"threads, {loader.device_cache_gb():.3f} GB), first pass (plan, "
+                  f"candidates {loader.candidates_gb():.3f} GB, {n_batches} batches of "
+                  f"B={b}) {cold_s:.3f} s; window {loader.cfg.sample_window}")
+    ops.reset_launch_counts()
+    warm = []
+    for _ in range(LOADER_WARM_PASSES):
+        loader.reset_stream()
+        s, _, kept = run_pass(loader, keep=LOADER_CPU_GROUPS)
+        warm.append(s)
+    counts = ops.launch_counts()
+    calls = LOADER_WARM_PASSES * n_batches
+    want = {**dict.fromkeys(counts, 0), "dense_relu_dense_max": N_ITER * calls,
+            "dense_relu_max": 2 * N_ITER * calls, "rot_head": N_ITER * calls}
+    if counts != want:
+        raise RuntimeError(f"loader + refine: launches {counts}, want {want}")
+    for i, s in enumerate(warm):
+        log("loader", f"warm pass {i + 1} (frozen, presampled, own draws) + shipped refine: "
+                      f"{s:.4f} s, {LOADER_FRAMES * m / s:.1f} obj/s ({n_objs / s:.1f} "
+                      f"real objects/s) | {card}")
 
-        cold_s, n_batches, _ = run_pass(loader)
-        if ims not in loader._plan_store or not loader._cand_store:
-            raise RuntimeError("loader: the shipped path did not take the frozen plan and the "
-                               "presampled candidates")
-        want_batches = -(-LOADER_FRAMES // ims)
-        if n_batches != want_batches:
-            raise RuntimeError(f"loader: {n_batches} batches, want {want_batches}")
-        log("loader", f"cold: device cache {build_s:.3f} s (decode in {loader.num_workers} "
-                      f"threads, {loader.device_cache_gb():.3f} GB), first pass (plan, "
-                      f"candidates {loader.candidates_gb():.3f} GB, {n_batches} batches of "
-                      f"B={b}) {cold_s:.3f} s; window {loader.cfg.sample_window}")
-        ops.reset_launch_counts()
-        warm = []
-        for _ in range(LOADER_WARM_PASSES):
-            loader.reset_stream()
-            s, _, kept = run_pass(loader, keep=LOADER_CPU_GROUPS)
-            warm.append(s)
-        counts = ops.launch_counts()
-        calls = LOADER_WARM_PASSES * n_batches
-        want = {**dict.fromkeys(counts, 0), "dense_relu_dense_max": N_ITER * calls,
-                "dense_relu_max": 2 * N_ITER * calls, "rot_head": N_ITER * calls}
-        if counts != want:
-            raise RuntimeError(f"loader + refine: launches {counts}, want {want}")
-        for i, s in enumerate(warm):
-            log("loader", f"warm pass {i + 1} (frozen, presampled, own draws) + shipped refine: "
-                          f"{s:.4f} s, {LOADER_FRAMES * m / s:.1f} obj/s ({n_objs / s:.1f} "
-                          f"real objects/s) | {card}")
+    # the card against the CPU loader on the first groups, the loader's own draws
+    cpu = shipped_test_loader(records[:LOADER_CPU_GROUPS * ims], "cpu", cache_decoded="",
+                              sample_window=loader.cfg.sample_window, **kw)
+    same_batches("card vs CPU", kept, list(cpu))
+    log("loader", f"card = CPU on the first {LOADER_CPU_GROUPS} groups (host fields, "
+                  "indices, clouds bit for bit)")
 
-        # the card against the CPU loader on the first groups, the loader's own draws
-        cpu = shipped_test_loader(records[:LOADER_CPU_GROUPS * ims], "cpu", cache_decoded="",
-                                  sample_window=loader.cfg.sample_window, **kw)
-        same_batches("card vs CPU", kept, list(cpu))
-        log("loader", f"card = CPU on the first {LOADER_CPU_GROUPS} groups (host fields, "
-                      "indices, clouds bit for bit)")
-
-        # uncached: decode threads, pinned buffers on a side stream, two groups in flight
-        unc = shipped_test_loader(records, dev, cache_decoded="", num_workers=LOADER_WORKERS,
-                                  sample_window=loader.cfg.sample_window, **kw)
-        run_pass(unc)                                       # warm the uploader's buffers
-        unc.reset_stream()
-        unc_s, _, _ = run_pass(unc)
-        log("loader", f"uncached pass ({LOADER_WORKERS} threads, pinned, side stream) + shipped "
-                      f"refine: {unc_s:.4f} s, {LOADER_FRAMES * m / unc_s:.1f} obj/s | {card}")
-        sub = records[:LOADER_SERIAL_GROUPS * ims]
-        piped = shipped_test_loader(sub, dev, cache_decoded="", num_workers=LOADER_WORKERS,
-                                    sample_window=loader.cfg.sample_window, **kw)
-        piped_batches = [dict(x, pcl=x["pcl"].clone()) for x in piped]
-        piped.reset_stream()
-        same_batches("pipelined vs serial", piped_batches, list(piped.iter_serial()))
-        log("loader", f"pipelined = serial over {LOADER_SERIAL_GROUPS} groups (pinned slots "
-                      "reused from the third)")
-        del loader, unc, piped
-        counts_eval = evaluate_phase(dev, card, records, table, model_seed)
-        counts_test = do_test_phase(dev, card, records, table, model_seed)
+    # uncached: decode threads, pinned buffers on a side stream, two groups in flight
+    unc = shipped_test_loader(records, dev, cache_decoded="", num_workers=LOADER_WORKERS,
+                              sample_window=loader.cfg.sample_window, **kw)
+    run_pass(unc)                                       # warm the uploader's buffers
+    unc.reset_stream()
+    unc_s, _, _ = run_pass(unc)
+    log("loader", f"uncached pass ({LOADER_WORKERS} threads, pinned, side stream) + shipped "
+                  f"refine: {unc_s:.4f} s, {LOADER_FRAMES * m / unc_s:.1f} obj/s | {card}")
+    sub = records[:LOADER_SERIAL_GROUPS * ims]
+    piped = shipped_test_loader(sub, dev, cache_decoded="", num_workers=LOADER_WORKERS,
+                                sample_window=loader.cfg.sample_window, **kw)
+    piped_batches = [dict(x, pcl=x["pcl"].clone()) for x in piped]
+    piped.reset_stream()
+    same_batches("pipelined vs serial", piped_batches, list(piped.iter_serial()))
+    log("loader", f"pipelined = serial over {LOADER_SERIAL_GROUPS} groups (pinned slots "
+                  "reused from the third)")
+    del loader, unc, piped
+    counts_eval = evaluate_phase(dev, card, records, table, model_seed)
+    counts_test = do_test_phase(dev, card, records, table, model_seed)
     # the registry holds the device caches and the candidates (1.5 GB each): later phases
     # measure peaks
     del table_dev
@@ -1942,7 +2173,9 @@ def main():
         launches[k] += counts[k]
 
     # ---- 5d. split from disk -> test loader -> shipped refine; 5e. the same split scored
-    for counts in loader_phase(dev, card):
+    split_dir = tempfile.TemporaryDirectory(prefix="catre_split_")
+    records = write_split(split_dir.name)
+    for counts in loader_phase(dev, card, records):
         for k in launches:
             launches[k] += counts[k]
 
@@ -1979,6 +2212,12 @@ def main():
         launches[k] += counts[k]
     registry_card_vs_cpu(dev)
     adamw_kernel_vs_plain(dev)
+
+    # ---- 7c. the split on disk -> the shipped train loader -> the train step
+    counts = train_from_disk_phase(dev, card, records, train_per_step, phase7, split_dir.name)
+    for k in launches:
+        launches[k] += counts[k]
+    split_dir.cleanup()
 
     # bounds of K1-K4 at the shapes they were timed at, bf16: their dense products
     # (K3 once forward, K4 the forward again and two products per forward product)

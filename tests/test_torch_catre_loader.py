@@ -264,8 +264,11 @@ def test_counter_draws_are_positional_and_uniform():
 
 def test_loader_refuses_what_it_does_not_do(split, tmp_path, monkeypatch):
     cfg = tl.LoaderConfig(**_fields())
-    with pytest.raises(NotImplementedError, match="11 \\+ 12a"):
-        tl.CATRELoader(split, cfg, phase="train", device="cpu", mean_points=TABLE)
+    with pytest.raises(ValueError, match="unknown SAMPLER_TRAIN"):
+        tl.CATRELoader(split, tl.LoaderConfig(**_fields(sampler_train="Bogus")), phase="train",
+                       device="cpu", mean_points=TABLE)
+    with pytest.raises(ValueError, match="unknown phase"):
+        tl.CATRELoader(split, cfg, phase="val", device="cpu", mean_points=TABLE)
     with pytest.raises(NotImplementedError, match="item 15"):
         tl.CATRELoader(split, cfg, device="cpu", mean_points=TABLE, defer_selection=True)
     with pytest.raises(ValueError, match="OCCLUDE_MASK_TEST"):

@@ -263,15 +263,12 @@ def test_loader_config_from_the_shipped_config(phase):
 @pytest.mark.parametrize("key,value", [("PCL_WITH_COLOR", True), ("OCCLUDE_MASK_TEST", True),
                                        ("WITH_NOCS", True), ("KPS_TYPE", "fps")])
 def test_loader_config_refuses_features_the_port_lacks(key, value):
-    """The aligned RGB and NOCS paths raise and name their item; the test
-    occlusion and the FPS keypoints, which the test loader now has, are
-    carried as the JAX bridge carries them."""
+    """The aligned RGB path, the test occlusion and the FPS keypoints are
+    carried as the JAX bridge carries them (no key sets the NOCS path, in
+    either package); what the port lacks, colour augmentation and background
+    replacement at train, raises and names its item."""
     cfg = load_config(str(FLAGSHIP_CONFIG))
     cfg.INPUT[key] = value
-    if key in ("PCL_WITH_COLOR", "WITH_NOCS"):
-        with pytest.raises(NotImplementedError, match="items 11 \\+ 12a"):
-            loader_config_from(cfg, "test")
-        return
     from catre_tpu.config.loader import load_config as j_load_config
 
     jcfg = j_load_config(str(FLAGSHIP_CONFIG))
@@ -281,4 +278,11 @@ def test_loader_config_refuses_features_the_port_lacks(key, value):
         assert getattr(port, field.name) == getattr(ref, field.name), field.name
     assert port.occlude_mask_test == (key == "OCCLUDE_MASK_TEST")
     assert (port.kps_type == "fps") == (key == "KPS_TYPE")
+    assert port.pcl_with_color == (key == "PCL_WITH_COLOR") and not port.with_nocs
+    for lacking in ("COLOR_AUG_PROB", "CHANGE_BG_PROB"):
+        cfg.INPUT[lacking] = 0.5
+        with pytest.raises(NotImplementedError, match="item 12c"):
+            loader_config_from(cfg, "train")
+        loader_config_from(cfg, "test")            # the test phase reads neither, as JAX's
+        cfg.INPUT[lacking] = 0.0
     assert key != "KPS_TYPE" or not port.ship_mean_points      # FPS keypoints read no mean points
