@@ -1,57 +1,75 @@
-"""The test runner wired from a config tree.
+"""The train and test runners wired from a config tree.
 
-Counterpart of the test half of `catre_tpu/engine/runner.py` and the train
-step's input glue: `build_model` (:82), `filter_invalid_dicts` (:100),
-`get_train_dicts` (:124), `batch_to_device` (:133), `do_test` (:454),
-`_save_visualizations` (:637, on `utils/vis.py`), `_save_results_pkl` (:707),
-`_add_canonical_init` (:723) and `_add_gt_noise_init` (:743).
-Behavioural reference: `core/catre/engine/engine.py::do_test` (:131).
+Counterpart of `catre_tpu/engine/runner.py`: `_update_bad_iter` (:73),
+`build_model` (:82), `filter_invalid_dicts` (:100), `get_train_dicts` (:124),
+`batch_to_device` (:133), `do_train` (:191), `do_test` (:454),
+`_log_train_vis` (:598), `_save_visualizations` (:637, on `utils/vis.py`),
+`_save_results_pkl` (:707), `_add_canonical_init` (:723) and
+`_add_gt_noise_init` (:743). Behavioural reference:
+`core/catre/engine/engine.py` (`do_train` :164, `do_test` :131).
 
-A test run goes config -> dataset registry -> init poses -> `CATRELoader`
--> the refine -> `CATREEvaluator` -> `predictions.pkl` and the tables, on
-the card unless the caller asks for the CPU. What the port does not do yet
-raises and names its ROADMAP item: training (`do_train`, item 13b), more
-than one device or process (`NUM_CHIPS` > 1, a process group of world > 1:
-item 14). The JAX package's `CATRE_EVAL_SLAB_GROUPS` is dropped (item 15).
+A training run goes config -> the model (MODEL.WEIGHTS) and its optimizer
+(SOLVER, LR_MULT, FREEZE) -> the train loader over DATASETS.TRAIN (and
+TRAIN2) -> per iteration the train step at the warm-up's refine count, with
+the lr of the schedule -> the writers, periodic checkpoints under
+OUTPUT_DIR/ckpt and periodic `do_test`. A test run goes config -> dataset
+registry -> init poses -> `CATRELoader` -> the refine -> `CATREEvaluator`
+-> `predictions.pkl` and the tables. Both run on the card unless the caller
+asks for the CPU. More than one device or process (`NUM_CHIPS` > 1, a
+process group of world > 1) raises and names ROADMAP item 14. The JAX
+package's `CATRE_EVAL_SLAB_GROUPS` is dropped (item 15).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import os.path as osp
 import pickle
+import shutil
 import time
 
 import numpy as np
 import torch
 
-from ..config.build import loader_config_from, model_config_from
+from ..config.build import (loader_config_from, loss_config_from, model_config_from,
+                            noise_config_from)
+from ..data import meta
 from ..data.kps import select_kps
 from ..data.loader import CATRELoader
 from ..data.nocs import get_dataset_dicts, load_init_poses_into_dataset
 from ..engine.refiner import make_refine_fn
+from ..engine.train import init_train_state, make_train_step
 from ..eval.evaluator import CATREEvaluator, run_inference
+from ..geom.symmetry import axis_symmetry_rotation_bank
 from ..models.catre import init_model
+from ..solver.build import optimizer_from_config
+from ..solver.schedule import build_lr_fn
 from ..utils import checkpoint as ckpt
+from ..utils import profiler
+from ..utils.events import EventStorage, JSONWriter, MetricPrinter, TensorboardWriter
 
 logger = logging.getLogger(__name__)
 
 GT_NOISE_SEED = 2025     # the CPU generator of the gt_noise test init (JAX: PRNGKey(2025))
+STEP_SEED = 1000         # the train steps' generators: (STEP_SEED + SEED, iteration)
+TRAIN2_STREAM = 5        # the TRAIN2 coin's stream: (SEED, TRAIN2_STREAM, iteration)
+PROFILE_SKIP = 2         # iterations run before a TRAIN.PROFILE_ITERS trace, where there are
 
 
-def _check_single_device(cfg, device: torch.device) -> None:
+def _check_single_device(cfg, device: torch.device, what: str = "evaluation") -> None:
     """One device and one process: anything more is ROADMAP item 14."""
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError("do_test over a process group of world > 1 (each process a "
-                                  "shard, predictions gathered) is not ported: ROADMAP item 14")
+        raise NotImplementedError(f"{what} over a process group of world > 1 (each process a "
+                                  "shard) is not ported: ROADMAP item 14")
     n = int(cfg.get("NUM_CHIPS", 1))
     if n == 0:   # 0 = every device, as in the JAX package
         n = torch.cuda.device_count() if device.type == "cuda" else 1
     if n > 1:
-        raise NotImplementedError(f"NUM_CHIPS={n}: evaluation sharded over several devices is "
-                                  "not ported (ROADMAP item 14); set NUM_CHIPS=1 (--num-chips 1)")
+        raise NotImplementedError(f"NUM_CHIPS={n}: {what} over several devices is not ported "
+                                  "(ROADMAP item 14); set NUM_CHIPS=1 (--num-chips 1)")
 
 
 def _device(device) -> torch.device:
@@ -167,10 +185,216 @@ def batch_to_device(batch: dict, device, max_objs: int | None = None,
     return out
 
 
+def _update_bad_iter(bad_iter: torch.Tensor, loss_vec: torch.Tensor, it: int) -> torch.Tensor:
+    """The first iteration whose losses were not all finite, -1 while there
+    is none: an int32 on the losses' device, updated each step without a
+    host sync and read at the metric sync (the reference asserts every
+    iteration, `engine.py:322`)."""
+    return torch.where(~torch.isfinite(loss_vec).all() & (bad_iter < 0), it, bad_iter)
+
+
+def step_generator(seed: int, iteration: int) -> torch.Generator:
+    """The CPU generator of one iteration's init and augmentation draws,
+    seeded from (STEP_SEED + seed, iteration) alone, as the JAX package folds
+    the iteration into PRNGKey(1000 + seed): a resumed run draws what an
+    uninterrupted one draws."""
+    hi, lo = np.random.SeedSequence((STEP_SEED + seed, iteration)).generate_state(2)
+    return torch.Generator().manual_seed(int(hi) << 32 | int(lo))
+
+
+def pick_train2(seed: int, iteration: int, ratio: float) -> bool:
+    """Whether `iteration` reads the TRAIN2 loader: a coin drawn from (seed,
+    5, iteration) alone (the reference draws from a stateful generator,
+    `engine.py:280-283`; this one makes the stream positional for resume)."""
+    return np.random.default_rng(
+        np.random.SeedSequence((seed, TRAIN2_STREAM, iteration))).random() < ratio
+
+
 def do_train(cfg, resume: bool = False, device="cuda"):
-    raise NotImplementedError("training from a config (do_train: the loader's train phase, "
-                              "schedules, periodic checkpoints and evaluation, --resume) is not "
-                              "ported: ROADMAP item 13b; run with --eval-only")
+    """Train the model of `cfg` on DATASETS.TRAIN (mixed with TRAIN2 at
+    TRAIN2_RATIO) for SOLVER.TOTAL_EPOCHS, on `device`. -> the final
+    `TrainState` (its parameters are the model's).
+
+    Per iteration: the epoch; the refine count n of the warm-up (1 up to
+    N_ITER_TRAIN over the first N_ITER_TRAIN_WARM_EPOCH epochs); a loader
+    batch capped at MAX_OBJS_TRAIN rows; the train step at n with the
+    schedule's lr and `step_generator(SEED, iteration)`. Every PRINT_FREQ
+    iterations and at the last the metrics are read from the device once
+    (`iter{i}/<name>` for i < n, `loss_total` of the last inner iteration),
+    a non-finite loss since the last read raises FloatingPointError, and the
+    writers (log, OUTPUT_DIR/metrics.json, OUTPUT_DIR/tb) take them.
+    OUTPUT_DIR/ckpt/step_<i>.pt holds the model and the optimizer every
+    CHECKPOINT_PERIOD epochs (iterations without CHECKPOINT_BY_EPOCH) and at
+    the last iteration; TEST.EVAL_PERIOD runs `do_test` on a copy of the
+    weights, its model, loaders and refine kept from one evaluation to the
+    next. `resume` restarts after the latest checkpoint there, the loaders
+    moved on to where an uninterrupted run would read. TRAIN.PROFILE_ITERS =
+    k traces k iterations into OUTPUT_DIR/profile; TRAIN.VIS_IMG queues the
+    first valid object's keypoints on its image for tensorboard."""
+    dev = _device(device)
+    _check_single_device(cfg, dev, "training")
+    output_dir = cfg.OUTPUT_DIR
+    os.makedirs(output_dir, exist_ok=True)
+
+    model, mcfg, _ = build_model(cfg, dev)
+    optimizer = optimizer_from_config(cfg, model)
+    state = init_train_state(model, optimizer)
+
+    # data
+    ims_per_batch = int(cfg.SOLVER.IMS_PER_BATCH)
+    if ims_per_batch < 1:
+        raise ValueError(f"SOLVER.IMS_PER_BATCH={ims_per_batch}: at least one image a step")
+    train_dicts = get_train_dicts(cfg, cfg.DATASETS.TRAIN)
+    if not train_dicts:
+        raise FileNotFoundError(f"no training data found for {cfg.DATASETS.TRAIN} under "
+                                f"{meta.NOCS_ROOT}")
+    seed = max(int(cfg.get("SEED", 0)), 0)
+    loader_cfg = loader_config_from(cfg, "train")
+    # the aligned NOCS / RGB paths read host pixel indices: no device batches
+    # (JAX's single-process do_train asks for them there, and its loader refuses)
+    devb = not (loader_cfg.with_nocs or loader_cfg.pcl_with_color)
+
+    def train_loader(dicts, loader_seed):
+        return CATRELoader(dicts, loader_cfg, phase="train", ims_per_batch=ims_per_batch,
+                           seed=loader_seed, num_workers=int(cfg.DATALOADER.get("NUM_WORKERS", 0)),
+                           device_batches=devb, device=dev)
+
+    loader = train_loader(train_dicts, seed)
+    ratio = float(cfg.DATASETS.get("TRAIN2_RATIO", 0.0))
+    loader2 = None
+    if cfg.DATASETS.get("TRAIN2", ()) and ratio > 0:
+        loader2 = train_loader(get_train_dicts(cfg, cfg.DATASETS.TRAIN2), 1 + seed)
+
+    def use_train2(it: int) -> bool:
+        return loader2 is not None and pick_train2(seed, it, ratio)
+
+    iters_per_epoch = max(len(train_dicts) // ims_per_batch, 1)
+    max_iter = int(cfg.SOLVER.TOTAL_EPOCHS) * iters_per_epoch
+    lr_fn = build_lr_fn(dict(cfg.SOLVER), max_iter)
+    logger.info("dataset %d images; %d iters/epoch; %d total iters", len(train_dicts),
+                iters_per_epoch, max_iter)
+
+    # one train step per refine count of the warm-up; n changes nothing else
+    loss_cfg, noise_cfg = loss_config_from(cfg), noise_config_from(cfg)
+    sym_bank = axis_symmetry_rotation_bank(
+        max_sym_disc_step=float(cfg.INPUT.get("MAX_SYM_DISC_STEP", 0.01)))
+    n_iter_train = max(1, int(cfg.MODEL.CATRE.N_ITER_TRAIN))
+    warm_epochs = int(cfg.MODEL.CATRE.N_ITER_TRAIN_WARM_EPOCH)
+    with_vis = bool(cfg.TRAIN.get("VIS_IMG", False))
+    steps = {}
+
+    def step_at(n: int):
+        if n not in steps:
+            steps[n] = make_train_step(model, loss_cfg, noise_cfg, optimizer, sym_bank, n,
+                                       with_vis=with_vis)
+        return steps[n]
+
+    # resume: the model, the optimizer and the step; the loaders fast-forwarded
+    start_iter = 0
+    ckpt_dir = osp.join(output_dir, "ckpt")
+    if resume:
+        latest = ckpt.latest_step(ckpt_dir)
+        if latest is not None:
+            saved = ckpt.load_checkpoint(ckpt_dir, latest)
+            model.load_state_dict(saved["model"])
+            optimizer.load_state_dict(saved["optimizer"])
+            start_iter = latest + 1
+            state = state._replace(step=start_iter)
+            n2 = sum(use_train2(i) for i in range(start_iter))
+            loader.skip((start_iter - n2) * ims_per_batch)
+            if loader2 is not None:
+                loader2.skip(n2 * ims_per_batch)
+            logger.info("resumed from iteration %d (loader fast-forward: %d + %d batches)",
+                        start_iter, start_iter - n2, n2)
+    batches = iter(loader)
+    batches2 = iter(loader2) if loader2 is not None else None
+
+    ckpt_period = int(cfg.SOLVER.CHECKPOINT_PERIOD) * (
+        iters_per_epoch if cfg.SOLVER.get("CHECKPOINT_BY_EPOCH", True) else 1)
+    keep = int(cfg.SOLVER.get("MAX_TO_KEEP", 5))
+    eval_period = int(cfg.TEST.get("EVAL_PERIOD", 0))
+    # the evaluation's own model, loaders and refine, kept across evaluations
+    eval_ctx = {"model": init_model(mcfg, device=dev)} if eval_period > 0 else None
+    print_freq = int(cfg.TRAIN.get("PRINT_FREQ", 100))
+    max_objs = int(cfg.DATALOADER.get("MAX_OBJS_TRAIN", 120))
+    kps_kw = dict(kps_type=cfg.INPUT.get("KPS_TYPE", "mean_shape"),
+                  num_kps=int(cfg.INPUT.get("NUM_KPS", 1024)),
+                  with_neg_axis=bool(cfg.INPUT.get("WITH_NEG_AXIS", False)))
+
+    tb_dir = osp.join(output_dir, "tb")
+    if not resume and osp.isdir(tb_dir):
+        # a fresh run: the old tensorboard directory moved aside (`engine.py:152-161`)
+        shutil.move(tb_dir, f"{tb_dir}_old_{int(time.time())}")
+    storage = EventStorage(start_iter)
+    writers = [MetricPrinter(max_iter), JSONWriter(osp.join(output_dir, "metrics.json")),
+               TensorboardWriter(tb_dir)]
+
+    # TRAIN.PROFILE_ITERS = k: iterations [start + skip, start + skip + k) traced
+    profile_iters = int(cfg.TRAIN.get("PROFILE_ITERS", 0))
+    profile_dir = osp.join(output_dir, "profile")
+    profile_start = start_iter + min(PROFILE_SKIP, max(0, max_iter - start_iter - profile_iters))
+    tracing = contextlib.ExitStack()
+
+    bad_iter = torch.full((), -1, dtype=torch.int32, device=dev)
+    iter_t0 = None
+    try:
+        for iteration in range(start_iter, max_iter):
+            if profile_iters > 0 and iteration == profile_start:
+                tracing.callback(logger.info, "profiler trace written to %s", profile_dir)
+                tracing.enter_context(profiler.trace(profile_dir, cuda=dev.type == "cuda"))
+            elif profile_iters > 0 and iteration == profile_start + profile_iters:
+                tracing.close()
+            storage.iter = iteration
+            epoch = iteration // iters_per_epoch + 1
+            storage.put_scalar("epoch", epoch)
+            n = n_iter_train
+            if warm_epochs > 0:
+                n = min(n, max(1, int(n_iter_train * epoch / warm_epochs)))
+
+            raw = next(batches2 if use_train2(iteration) else batches)
+            batch = batch_to_device(raw, dev, max_objs=max_objs, **kps_kw)
+            if iter_t0 is not None:
+                storage.put_scalar("time", time.perf_counter() - iter_t0)
+            iter_t0 = time.perf_counter()
+
+            lr = lr_fn(iteration)
+            state, metrics = step_at(n)(state, batch, step_generator(seed, iteration), lr)
+            bad_iter = _update_bad_iter(bad_iter, metrics["loss_total"], iteration)
+            storage.put_scalar("lr", lr)
+
+            if (iteration + 1) % print_freq == 0 or iteration == max_iter - 1:
+                vis = metrics.pop("_vis", None)
+                names = list(metrics)
+                host = torch.cat([torch.stack([metrics[k] for k in names]).double().flatten(),
+                                  bad_iter.double()[None]]).cpu().numpy()
+                bad = int(host[-1])
+                if bad >= 0:
+                    raise FloatingPointError(f"non-finite loss first observed at iteration {bad} "
+                                             f"(detected at iteration {iteration})")
+                values = dict(zip(names, host[:-1].reshape(len(names), n)))
+                for i in range(n):
+                    for k, v in values.items():
+                        storage.put_scalar(f"iter{i}/{k}", v[i])
+                storage.put_scalar("loss_total", values["loss_total"][-1])
+                if vis is not None:
+                    try:
+                        _log_train_vis(storage, raw, batch, vis)
+                    except Exception as e:       # the vis never stops training
+                        logger.warning("train vis failed: %s", e)
+                for w in writers:
+                    w.write(storage)
+
+            if (iteration + 1) % ckpt_period == 0 or iteration == max_iter - 1:
+                ckpt.save_checkpoint(ckpt_dir, iteration, {"model": model, "optimizer": optimizer},
+                                     keep=keep)
+            if eval_period > 0 and (iteration + 1) % eval_period == 0:
+                do_test(cfg, params_override=model.state_dict(), ctx=eval_ctx, device=dev)
+    finally:
+        for w in writers:
+            w.close()
+        tracing.close()          # a run shorter than the trace: it ends with the loop
+    logger.info("training done: %d iterations", max_iter)
+    return state
 
 
 def do_test(cfg, params_override=None, ctx: dict | None = None, device="cuda") -> dict:
@@ -277,6 +501,40 @@ def do_test(cfg, params_override=None, ctx: dict | None = None, device="cuda") -
             results = evaluator.evaluate()
         results_all[dset_name] = {"stats": stats, "results": results}
     return results_all
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _log_train_vis(storage, batch_np: dict, batch: dict, vis: dict) -> None:
+    """TRAIN.VIS_IMG (`engine.py:370-422`): the first valid object's image,
+    read as the loader reads colour (a missing file gives 480 x 640 of
+    zeros), queued as input_image, and with its keypoints (times the gt
+    scale under the gt pose, then times the last refine iteration's scale
+    under its pose) drawn as red dots, as image_with_gt_kps and
+    image_with_est_kps."""
+    from ..data.loader import _read_colour
+    from ..utils.vis import draw_projected_kps
+
+    valid = _host(vis["valid"])
+    if not valid.any():
+        return
+    idx = int(np.argmax(valid))
+    im_id = int(_host(batch_np["im_id"])[idx]) if "im_id" in batch_np else 0
+    file_names = batch_np.get("file_names", [])
+    bgr = None
+    if im_id < len(file_names) and file_names[im_id]:
+        bgr = _read_colour(file_names[im_id])
+    img = np.zeros((480, 640, 3), np.uint8) if bgr is None else np.ascontiguousarray(bgr[:, :, ::-1])
+    kps, K = _host(batch["obj_kps"][idx]), _host(batch["K"][idx])
+    gt_pose, gt_scale = _host(vis["gt_pose"][idx])[:3, :4], _host(vis["gt_scale"][idx])
+    est_pose, est_scale = _host(vis["pose"][-1, idx])[:3, :4], _host(vis["scale"][-1, idx])
+    storage.put_image("input_image", img)
+    storage.put_image("image_with_gt_kps",
+                      draw_projected_kps(img, kps, gt_scale, gt_pose, K, color=(255, 0, 0)))
+    storage.put_image("image_with_est_kps",
+                      draw_projected_kps(img, kps, est_scale, est_pose, K, color=(255, 0, 0)))
 
 
 def _save_visualizations(dicts: list, evaluator: CATREEvaluator, output_dir: str,

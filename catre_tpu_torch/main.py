@@ -1,4 +1,4 @@
-"""Command line of the port: evaluate a config from a checkpoint.
+"""Command line of the port: train a config, or evaluate it from a checkpoint.
 
 Counterpart of `catre_tpu/main.py`: `my_default_argument_parser` (:22),
 `setup` (:47) and `main` (:104), with `--device` (default cuda). Behavioural
@@ -6,14 +6,19 @@ reference: `core/catre/main_catre.py:44-193` (config load and merge, the
 OUTPUT_DIR from the config's name, the seed, the config dump, the train /
 test dispatch).
 
-  python -m catre_tpu_torch.main --config-file catre_tpu/configs/nocs_real/...py \\
+  python -m catre_tpu_torch.main --config-file catre_tpu/configs/nocs_real/...py
+  python -m catre_tpu_torch.main --config-file ... --resume OUTPUT_DIR=<the run's directory>
+  python -m catre_tpu_torch.main --config-file ... \\
       --eval-only MODEL.WEIGHTS=model_final.pth
   python -m catre_tpu_torch.main ... --eval-only --device cpu MODEL.WEIGHTS=ckpt_dir/
 
-MODEL.WEIGHTS is a reference checkpoint (.pth / .pkl) or a directory of the
-port's checkpoints (`tools/convert_checkpoint.py` writes one from a .pth).
-Training (no --eval-only) is ROADMAP item 13b; a multi-process launch
-(--num-machines > 1, --dist-url) item 14; both raise.
+Without --eval-only the config trains (`engine/runner.py::do_train`):
+OUTPUT_DIR gets log.txt, config_dump.py, metrics.json, tb/ and ckpt/step_*.pt;
+--resume goes on after the latest of those checkpoints. MODEL.WEIGHTS is a
+reference checkpoint (.pth / .pkl) or a directory of the port's checkpoints
+(`tools/convert_checkpoint.py` writes one from a .pth). A multi-process
+launch (--num-machines > 1, --dist-url) or --num-chips above 1 is ROADMAP
+item 14 and raises.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ def my_default_argument_parser():
     p.add_argument("--resume", action="store_true")
     p.add_argument("--eval-only", action="store_true")
     p.add_argument("--num-chips", type=int, default=1,
-                   help="devices to evaluate on (the port runs on one; 0 = all, "
+                   help="devices to train or evaluate on (the port runs on one; 0 = all, "
                         "or above 1, is ROADMAP item 14)")
     p.add_argument("--num-machines", type=int, default=1,
                    help="processes of a multi-process job (ROADMAP item 14 beyond 1)")

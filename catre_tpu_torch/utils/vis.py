@@ -2,12 +2,12 @@
 into one image.
 
 Counterpart of `catre_tpu/utils/vis.py` (`draw_projected_box3d` :23,
-`heatmap` :66, `grid_show` :79; `draw_projected_kps` :42 serves the training
-vis of ROADMAP item 13b), which draws with
+`draw_projected_kps` :42, `heatmap` :66, `grid_show` :79), which draws with
 OpenCV and tiles with matplotlib; the card's host has neither, so this is
 numpy: lines are sampled at every pixel step and widened to `thickness`,
-the JET map is the piecewise-linear one OpenCV tabulates (within 1 level of
-`cv2.COLORMAP_JET`), and `grid_show` writes the tiled panels with
+keypoints are the five-pixel dot that `cv2.circle(img, (u, v), 0, color, 2)`
+paints, the JET map is the piecewise-linear one OpenCV tabulates (within 1
+level of `cv2.COLORMAP_JET`), and `grid_show` writes the tiled panels with
 `data/png.py`. Panel titles are not rendered.
 """
 
@@ -86,6 +86,32 @@ def draw_projected_box3d(image: np.ndarray, scale, pose, K, color=(0, 255, 0),
     img = np.array(image, copy=True)
     for a, b in _EDGES:
         draw_line(img, uv[a], uv[b], color, thickness)
+    return img
+
+
+# the pixels of `cv2.circle(img, (u, v), 0, color, 2)` around (u, v): a plus
+_DOT = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
+
+
+def draw_projected_kps(image: np.ndarray, kps: np.ndarray, scale, pose, K,
+                       color=(0, 0, 255)) -> np.ndarray:
+    """Normalized keypoints (N, 3) times scale (3,), under pose (3, 4) and
+    projected through K, drawn as dots onto a copy of image (H, W, 3) uint8
+    (the training vis, `engine.py:388-422`). A dot whose centre rounds to a
+    pixel of the image is painted, clipped to it; the JAX package draws into
+    the image it is given, the port into a copy."""
+    pts = np.asarray(kps, np.float32) * np.asarray(scale, np.float32)[None]
+    uv = project(pts, K, pose)
+    img = np.array(image, copy=True)
+    h, w = img.shape[:2]
+    ok = np.all(np.isfinite(uv), axis=1)
+    us, vs = np.round(uv[ok]).astype(np.int64).T
+    inside = (us >= 0) & (us < w) & (vs >= 0) & (vs < h)
+    us, vs = us[inside], vs[inside]
+    for du, dv in _DOT:
+        u, v = us + du, vs + dv
+        keep = (u >= 0) & (u < w) & (v >= 0) & (v < h)
+        img[v[keep], u[keep]] = color
     return img
 
 

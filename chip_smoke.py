@@ -168,7 +168,28 @@ code is non-zero):
                bit-equal where the CPU sampler is handed the card's
                augmented depth; skip(64) then one group
                bit-equal to group 2 of a fresh loader; one step under
-               INIT_POSE_TYPE_TRAIN ["last_frame"] from a written pickle.
+               INIT_POSE_TYPE_TRAIN ["last_frame"] from a written pickle;
+  7d. do_train from the command line: phase 5d's split through
+               `catre_tpu_torch.main.main([...])` without --eval-only, in
+               process, on the shipped ..._120e_tpu.py at full width (bf16,
+               1024 + 1024 points, 64 frames a step, MAX_OBJS_TRAIN 512,
+               depth augmentation on the card), the split registered under
+               its DATASETS.TRAIN and DATASETS.TEST names, the mean-shape
+               table as a pickle under a temporary data root and the init
+               JSON for evaluation, as in 5f: 10 epochs of 4 iterations,
+               WARMUP_ITERS 4, a checkpoint an epoch (10 kept), TEST.EVAL_PERIOD
+               20, PRINT_FREQ 1. Finite metrics and parameters; launches over
+               the run equal to the warm-up's schedule (an iteration at
+               refine count n = min(4, epoch): K3 = K4 = n, K5 = 2n + 2n, K6 =
+               n + n) and each evaluation's K1 = 4, K2 = 8, K3 = 4 a refine
+               batch; 10 checkpoints; the median iter0/loss_total of the last
+               8 iterations below that of the first 8; then the checkpoint of
+               iteration 19 alone in a fresh OUTPUT_DIR with --resume runs
+               iterations 20-39, its losses within TRAIN_LOSS_RTOL of the
+               straight run's (and whether bit-equal). ms an iteration at n =
+               4 without a checkpoint or an evaluation beside phase 7c's step,
+               seconds a checkpoint save and an evaluation, the train loader's
+               cold seconds and peak memory.
 Then one JSON line of per-kernel results (each with its time, its plain
 version's time and its bound: the larger of its bytes over 3.35 TB/s and its
 operations over the card's peak for their type), the card's name and power
@@ -259,6 +280,11 @@ EVAL_PATH_GROUPS = 2         # groups on which the packed and the host select_kp
 EVAL_NOISY_FRAMES = 64       # frames of the perturbed-init split that must score below 100
 EVAL_NOISE_M = 0.1           # its translation noise, metres a component (numpy seed 0)
 AP_EXACT = 1e-9              # an AP of 1 summed from float32 recall steps
+TRAIN_CLI_EPOCHS = 10        # phase 7d: epochs of the split (4 iterations each), checkpoints kept
+TRAIN_CLI_WARMUP = 4         # its SOLVER.WARMUP_ITERS
+TRAIN_CLI_EVAL = 20          # its TEST.EVAL_PERIOD
+TRAIN_CLI_RESUME = 19        # the checkpoint its resumed run starts after
+TRAIN_CLI_LOSS_WINDOW = 8    # iterations of the median iter0/loss_total, first vs last
 
 
 def log(phase, msg):
@@ -1224,7 +1250,7 @@ def train_from_disk_phase(dev, card, records, per_step, phase7, root):
     torch.cuda.empty_cache()
     for k in total:
         total[k] += lf_counts[k]
-    return total
+    return total, ms
 
 
 def refine_phase(dev, B, calls, per_call, **overrides):
@@ -1691,6 +1717,31 @@ def reference_layout(sd):
     return out
 
 
+def cli_workspace(work, records, table):
+    """A data root under `work` holding the mean-shape table as its pickle,
+    and the records' init estimates as an init-pose JSON; -> the JSON's path."""
+    import pickle
+
+    import numpy as np
+
+    from catre_tpu_torch.data import meta
+
+    meta.set_data_root(os.path.join(work, "data"))
+    os.makedirs(meta.MODEL_DIR)
+    with open(meta.CR_MEAN_MODEL_PATH, "wb") as f:
+        pickle.dump({meta.ID2OBJ[i + 1]: table[i] for i in range(6)}, f)
+    init_file = os.path.join(work, "init_poses.json")
+    with open(init_file, "w") as f:
+        json.dump({r["scene_im_id"]: [
+            {"obj_id": a["category_id"] + 1, "pose_est": np.asarray(a["pose_est"]).tolist(),
+             "scale_est": np.asarray(a["scale_est"]).tolist(), "score": a["score"],
+             "bbox_est": [float(x) for x in a["bbox_est"]],
+             "segmentation": {"counts": [int(c) for c in a["segmentation"]["counts"]],
+                              "size": list(a["segmentation"]["size"])}}
+            for a in r["annotations"]] for r in records}, f)
+    return init_file
+
+
 def do_test_phase(dev, card, records, table, model_seed=0):
     """The split of 5d through `main --eval-only` (see 5f in the module
     docstring); returns the launch counts of its three runs."""
@@ -1713,19 +1764,7 @@ def do_test_phase(dev, card, records, table, model_seed=0):
     old_root = meta.DATA_ROOT
     total = None
     with tempfile.TemporaryDirectory(prefix="catre_do_test_") as work:
-        meta.set_data_root(os.path.join(work, "data"))
-        os.makedirs(meta.MODEL_DIR)
-        with open(meta.CR_MEAN_MODEL_PATH, "wb") as f:
-            pickle.dump({meta.ID2OBJ[i + 1]: table[i] for i in range(6)}, f)
-        init_file = os.path.join(work, "init_poses.json")
-        with open(init_file, "w") as f:
-            json.dump({r["scene_im_id"]: [
-                {"obj_id": a["category_id"] + 1, "pose_est": np.asarray(a["pose_est"]).tolist(),
-                 "scale_est": np.asarray(a["scale_est"]).tolist(), "score": a["score"],
-                 "bbox_est": [float(x) for x in a["bbox_est"]],
-                 "segmentation": {"counts": [int(c) for c in a["segmentation"]["counts"]],
-                                  "size": list(a["segmentation"]["size"])}}
-                for a in r["annotations"]] for r in records}, f)
+        init_file = cli_workspace(work, records, table)
         nocs.register_dataset(name, lambda: [dict(r) for r in records])
 
         # the reference: evaluate_split on the records with the same init poses (the
@@ -1792,6 +1831,194 @@ def do_test_phase(dev, card, records, table, model_seed=0):
         nocs._DATASET_REGISTRY.pop(name)
         meta.set_data_root(old_root)
     return total
+
+
+def do_train_phase(card, records, per_step, ms_7c):
+    """Phase 7d: the split of 5d trained through `main` without --eval-only,
+    then resumed from a middle checkpoint (see 7d in the module docstring);
+    -> the launch counts of both runs."""
+    import shutil
+    import statistics
+
+    import numpy as np
+
+    from catre_tpu_torch import main as cli
+    from catre_tpu_torch import ops
+    from catre_tpu_torch.config.build import FLAGSHIP_CONFIG
+    from catre_tpu_torch.config.loader import load_config
+    from catre_tpu_torch.data import meta, nocs
+    from catre_tpu_torch.engine import runner
+    from catre_tpu_torch.entry import N_ITER
+    from catre_tpu_torch.utils import checkpoint as ckpt
+
+    shipped = load_config(str(FLAGSHIP_CONFIG))
+    per_epoch = len(records) // int(shipped.SOLVER.IMS_PER_BATCH)
+    n_iters = TRAIN_CLI_EPOCHS * per_epoch
+    n_train = int(shipped.MODEL.CATRE.N_ITER_TRAIN)
+    warm = int(shipped.MODEL.CATRE.N_ITER_TRAIN_WARM_EPOCH)
+
+    def n_at(it):             # the warm-up's refine count at iteration it
+        return min(n_train, max(1, int(n_train * (it // per_epoch + 1) / warm)))
+
+    calls = -(-len(records) // int(shipped.TEST.IMS_PER_BATCH))
+    per_eval = {"dense_relu_dense_max": N_ITER * calls, "dense_relu_max": 2 * N_ITER * calls,
+                "rot_head": N_ITER * calls}
+
+    def want(iters, n_evals):
+        total = dict.fromkeys(ops.launch_counts(), 0)
+        for it in iters:
+            for k, v in per_step.items():
+                total[k] += v * n_at(it) // N_ITER
+        for k, v in per_eval.items():
+            total[k] += n_evals * v
+        return total
+
+    # measurement only: the seconds of each checkpoint save, periodic evaluation
+    # (and its launches) and train loader build
+    seconds = {"save": [], "eval": [], "cold": []}
+    save, do_test, loader_cls = ckpt.save_checkpoint, runner.do_test, runner.CATRELoader
+
+    def timed_save(*a, **k):
+        t0 = time.perf_counter()
+        out = save(*a, **k)
+        seconds["save"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_test(*a, **k):
+        torch.cuda.synchronize()
+        before, t0 = ops.launch_counts(), time.perf_counter()
+        out = do_test(*a, **k)
+        torch.cuda.synchronize()
+        seconds["eval"].append(time.perf_counter() - t0)
+        got = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+        if got != per_eval:
+            raise RuntimeError(f"do_train: a periodic evaluation launched {got}, want {per_eval}")
+        return out
+
+    def timed_loader(*a, **k):
+        if k.get("phase") != "train":
+            return loader_cls(*a, **k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = loader_cls(*a, **k)
+        torch.cuda.synchronize()
+        seconds["cold"].append(time.perf_counter() - t0)
+        return out
+
+    table = np.random.default_rng(0).normal(size=(6, 1024, 3)).astype(np.float32) * 0.1
+    old_root = meta.DATA_ROOT
+    names = (shipped.DATASETS.TRAIN[0], shipped.DATASETS.TEST[0])
+    with tempfile.TemporaryDirectory(prefix="catre_do_train_") as work:
+        init_file = cli_workspace(work, records, table)
+        for name in names:
+            nocs.register_dataset(name, lambda: [dict(r) for r in records])
+        common = [f"SOLVER.TOTAL_EPOCHS={TRAIN_CLI_EPOCHS}",
+                  f"SOLVER.WARMUP_ITERS={TRAIN_CLI_WARMUP}", "SOLVER.CHECKPOINT_PERIOD=1",
+                  f"SOLVER.MAX_TO_KEEP={TRAIN_CLI_EPOCHS}", f"TEST.EVAL_PERIOD={TRAIN_CLI_EVAL}",
+                  "TRAIN.PRINT_FREQ=1", "SEED=0", "MODEL.LOAD_POSES_TEST=True",
+                  f"DATASETS.INIT_POSE_FILES_TEST=('{init_file}',)"]
+
+        def run(out_dir, resume):
+            quiet = logging.StreamHandler(open(out_dir + ".log", "w"))   # main's INFO lines
+            logging.getLogger().addHandler(quiet)
+            ckpt.save_checkpoint, runner.do_test, runner.CATRELoader = \
+                timed_save, timed_test, timed_loader
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                state = cli.main(["--config-file", str(FLAGSHIP_CONFIG),
+                                  *(["--resume"] if resume else []), f"OUTPUT_DIR={out_dir}",
+                                  *common])
+            finally:
+                ckpt.save_checkpoint, runner.do_test, runner.CATRELoader = \
+                    save, do_test, loader_cls
+                for h in [quiet, *cli._HANDLERS]:
+                    logging.getLogger().removeHandler(h)
+                    h.close()
+                cli._HANDLERS.clear()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with open(os.path.join(out_dir, "metrics.json")) as f:
+                lines = {r["iteration"]: r for r in map(json.loads, f)}
+            if not all(np.isfinite(v) for r in lines.values() for v in r.values()) or not all(
+                    torch.isfinite(p).all() for p in state.params.values()):
+                raise RuntimeError(f"do_train {out_dir}: non-finite metrics or parameters")
+            return state, lines, ops.launch_counts(), wall, torch.cuda.max_memory_allocated()
+
+        out = os.path.join(work, "straight")
+        state, lines, counts, wall, peak = run(out, False)
+        evals = n_iters // TRAIN_CLI_EVAL
+        if sorted(lines) != list(range(n_iters)) or counts != want(range(n_iters), evals):
+            raise RuntimeError(f"do_train: iterations {sorted(lines)}, launches {counts}, want "
+                               f"{want(range(n_iters), evals)}")
+        steps = sorted(ckpt._step_files(os.path.join(out, "ckpt")))
+        if steps != list(range(per_epoch - 1, n_iters, per_epoch)):
+            raise RuntimeError(f"do_train: checkpoints of steps {steps}")
+        # "time" at iteration i + 1 is iteration i's wall; those at the warm-up's full
+        # count without a checkpoint (and so without an evaluation) are the steady ones
+        steady = [lines[i + 1]["time"] * 1e3 for i in range(n_iters - 1)
+                  if n_at(i) == n_train and (i + 1) % per_epoch]
+        loss0 = [lines[i]["iter0/loss_total"] for i in range(n_iters)]
+        first = statistics.median(loss0[:TRAIN_CLI_LOSS_WINDOW])
+        last = statistics.median(loss0[-TRAIN_CLI_LOSS_WINDOW:])
+        mb = os.path.getsize(ckpt._step_files(os.path.join(out, "ckpt"))[steps[-1]]) / 2**20
+        log("do_train", f"main without --eval-only on the shipped config, {len(records)} frames, "
+                        f"{n_iters} iterations (n by epoch "
+                        f"{[n_at(i) for i in range(0, n_iters, per_epoch)]}), {len(steps)} checkpoints, {evals} evaluations: "
+                        f"{statistics.median(steady):.3f} ms an iteration at n = {n_train} "
+                        f"(median of {len(steady)} without a checkpoint or an evaluation, "
+                        f"{min(steady):.3f}-{max(steady):.3f}; phase 7c's step from disk "
+                        f"{ms_7c:.3f}), checkpoint save {statistics.median(seconds['save']):.4f} s "
+                        f"(median of {len(seconds['save'])}, {mb:.1f} MiB each), evaluations "
+                        f"{[round(x, 3) for x in seconds['eval']]} s, train loader cold "
+                        f"{seconds['cold'][0]:.3f} s, the whole run {wall:.2f} s, peak "
+                        f"{peak / 2**30:.2f} GiB; launches "
+                        f"{ {k: v for k, v in counts.items() if v} } (the warm-up's schedule "
+                        f"and {evals} x {per_eval}) | {card}")
+        fell = last < first
+        log("do_train", f"iter0/loss_total median of the first {TRAIN_CLI_LOSS_WINDOW} "
+                        f"iterations {first:.5f}, of the last {last:.5f}: "
+                        f"{'falls' if fell else 'does NOT fall'}")
+        if not fell:
+            raise RuntimeError("do_train: iter0/loss_total did not fall")
+
+        # the checkpoint of iteration TRAIN_CLI_RESUME alone in a fresh OUTPUT_DIR, --resume
+        again = os.path.join(work, "resumed")
+        os.makedirs(os.path.join(again, "ckpt"))
+        shutil.copy(ckpt._step_files(os.path.join(out, "ckpt"))[TRAIN_CLI_RESUME],
+                    os.path.join(again, "ckpt"))
+        seconds["eval"].clear()
+        state2, lines2, counts2, wall2, _ = run(again, True)
+        resumed = range(TRAIN_CLI_RESUME + 1, n_iters)
+        n_evals2 = n_iters // TRAIN_CLI_EVAL - (TRAIN_CLI_RESUME + 1) // TRAIN_CLI_EVAL
+        if sorted(lines2) != list(resumed) or counts2 != want(resumed, n_evals2):
+            raise RuntimeError(f"do_train --resume: iterations {sorted(lines2)}, launches "
+                               f"{counts2}, want {want(resumed, n_evals2)}")
+        rel, n_vals, bit_equal = 0.0, 0, True
+        for i in resumed:
+            for k, v in lines2[i].items():
+                if "loss" in k:
+                    ref = lines[i][k]
+                    rel = max(rel, abs(v - ref) / max(abs(ref), 1e-12))
+                    bit_equal &= v == ref
+                    n_vals += 1
+        p_err = max((state2.params[k] - p).abs().max().item() for k, p in state.params.items())
+        log("do_train", f"--resume after iteration {TRAIN_CLI_RESUME} in a fresh OUTPUT_DIR: "
+                        f"iterations {resumed.start}-{resumed.stop - 1} in {wall2:.2f} s, "
+                        f"{n_vals} losses within rtol {rel:.3e} of the straight run's (limit "
+                        f"{TRAIN_LOSS_RTOL:.0e}), bit-equal: {'yes' if bit_equal else 'no'}; final "
+                        f"parameters {p_err:.3e} apart; launches "
+                        f"{ {k: v for k, v in counts2.items() if v} }")
+        if not rel <= TRAIN_LOSS_RTOL:
+            raise RuntimeError("do_train --resume: the losses disagree with the straight run's")
+        for name in names:
+            nocs._DATASET_REGISTRY.pop(name)
+        meta.set_data_root(old_root)
+    del state, state2
+    torch.cuda.empty_cache()
+    return {k: counts[k] + counts2[k] for k in counts}
 
 
 def first_grads(model, optimizer):
@@ -2214,7 +2441,13 @@ def main():
     adamw_kernel_vs_plain(dev)
 
     # ---- 7c. the split on disk -> the shipped train loader -> the train step
-    counts = train_from_disk_phase(dev, card, records, train_per_step, phase7, split_dir.name)
+    counts, ms_7c = train_from_disk_phase(dev, card, records, train_per_step, phase7,
+                                          split_dir.name)
+    for k in launches:
+        launches[k] += counts[k]
+
+    # ---- 7d. the same split trained from the command line, then resumed
+    counts = do_train_phase(card, records, train_per_step, ms_7c)
     for k in launches:
         launches[k] += counts[k]
     split_dir.cleanup()

@@ -7,8 +7,8 @@
   (`tests/test_cli.py`, `tests/test_config_surface.py`).
 - `main([... "--eval-only", "--device", "cpu", ...])` scores a written split
   from a checkpoint of the port and writes `config_dump.py`, `log.txt` and
-  `predictions.pkl`; without --eval-only, with --num-machines 2 or
-  --num-chips 2 it raises and names the ROADMAP item; on a host without a
+  `predictions.pkl`; with --num-machines 2 or --num-chips 2, training or
+  not, it raises and names the ROADMAP item; on a host without a
   card the default device raises; on a host with four, the default command
   line runs on one and --num-chips 0 raises.
 - The kernels' shape limits: a config whose fused flags ask for a width the
@@ -156,7 +156,8 @@ def test_cli_eval_only_scores_the_split(cli_env):
 
 
 @pytest.mark.parametrize("extra, eval_only, match", [
-    ((), False, "item 13b"),
+    # training on several devices (the case keeps its id)
+    pytest.param(("--num-chips", "2"), False, "item 14", id="extra0-False-item 13b"),
     (("--num-machines", "2"), True, "item 14"),
     (("--dist-url", "tcp://localhost:23456"), True, "item 14"),
     (("--num-chips", "2"), True, "item 14"),

@@ -230,6 +230,58 @@ def test_cli_and_checkpoints_run_with_jax_blocked():
     assert "cli ok" in proc.stdout
 
 
+def test_cli_trains_with_jax_blocked():
+    """`main.main` without --eval-only (do_train: the train loader, the
+    step, checkpoints, a periodic evaluation, the writers) on a written split
+    with jax, flax, cv2 and PIL blocked, and TensorFlow too (the tensorboard
+    writer then takes tensorboard's own stub); no module of `catre_tpu` is
+    loaded."""
+    code = (
+        "import sys\n"
+        "BLOCKED = ('jax', 'flax', 'cv2', 'PIL', 'tensorflow')\n"
+        "for blocked in BLOCKED:\n"
+        "    sys.modules[blocked] = None\n"
+        "import json, os, pickle, tempfile\n"
+        "import numpy as np\n"
+        "from catre_tpu_torch import main\n"
+        "from catre_tpu_torch.config.build import FLAGSHIP_CONFIG\n"
+        "from catre_tpu_torch.data import meta, nocs\n"
+        "from catre_tpu_torch.entry import write_example_split\n"
+        "with tempfile.TemporaryDirectory() as root:\n"
+        "    meta.set_data_root(root)\n"
+        "    os.makedirs(meta.MODEL_DIR)\n"
+        "    rng = np.random.default_rng(0)\n"
+        "    shapes = {o: rng.normal(size=(32, 3)).astype(np.float32) * 0.1\n"
+        "              for o in meta.OBJECTS}\n"
+        "    pickle.dump(shapes, open(meta.CR_MEAN_MODEL_PATH, 'wb'))\n"
+        "    recs = write_example_split(root, 4, 96, 128, m=4)\n"
+        "    for name in ('nocs_train_real', 'nocs_test_real'):\n"
+        "        nocs.register_dataset(name, lambda: [dict(r) for r in recs])\n"
+        "    out = root + '/out'\n"
+        "    state = main.main(['--config-file', str(FLAGSHIP_CONFIG), '--device', 'cpu',\n"
+        "                       'OUTPUT_DIR=' + out, 'SEED=0', 'INPUT.NUM_PCL=32',\n"
+        "                       'INPUT.NUM_KPS=32', 'SOLVER.IMS_PER_BATCH=2',\n"
+        "                       'SOLVER.TOTAL_EPOCHS=2', 'MODEL.CATRE.N_ITER_TRAIN=2',\n"
+        "                       'MODEL.CATRE.N_ITER_TRAIN_WARM_EPOCH=2', 'SOLVER.WARMUP_ITERS=1',\n"
+        "                       'TRAIN.PRINT_FREQ=1', 'SOLVER.CHECKPOINT_PERIOD=1',\n"
+        "                       'TEST.EVAL_PERIOD=4', 'MODEL.LOAD_POSES_TEST=False',\n"
+        "                       'TEST.IMS_PER_BATCH=2', 'MODEL.CATRE.N_ITER_TEST=1',\n"
+        "                       'DATALOADER.MAX_OBJS_PER_IMAGE=4', 'DATALOADER.NUM_WORKERS=0'])\n"
+        "    assert state.step == 4\n"
+        "    assert sorted(os.listdir(out + '/ckpt')) == ['step_00000001.pt', 'step_00000003.pt']\n"
+        "    lines = [json.loads(x) for x in open(out + '/metrics.json')]\n"
+        "    assert [x['iteration'] for x in lines] == [0, 1, 2, 3]\n"
+        "    assert 'iter1/loss_total' in lines[3] and 'iter1/loss_total' not in lines[1]\n"
+        "    assert os.path.exists(out + '/predictions.pkl')\n"
+        "assert not any(m == 'catre_tpu' or m.startswith('catre_tpu.') for m in sys.modules)\n"
+        "assert not any(sys.modules.get(m) for m in BLOCKED)\n"
+        "print('train cli ok')\n"
+    )
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "train cli ok" in proc.stdout
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")

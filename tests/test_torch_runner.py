@@ -334,8 +334,8 @@ def test_what_the_port_refuses(tmp_path, weights):
     cfg = _port_cfg(tmp_path, weights)
     with pytest.raises(NotImplementedError, match="item 14"):
         runner.do_test(apply_overrides(cfg, ["NUM_CHIPS=2"]), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        runner.do_train(cfg)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        runner.do_train(apply_overrides(cfg, ["NUM_CHIPS=2"]), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA card"):
             runner.do_test(_port_cfg(tmp_path, weights))
