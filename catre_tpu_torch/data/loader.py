@@ -70,6 +70,7 @@ from ..geom.transforms import backproject
 from ..ops.sampling import (batch_ball_crop, batch_ball_crop_candidates,
                             batch_ball_crop_from_depth, batch_select_from_candidates,
                             depth_metres, unpack_masks)
+from ..parallel.comm import inference_slice
 from . import assets, meta, png
 from .aug import aug_depth
 from .rle import rle_to_binary_mask
@@ -749,7 +750,11 @@ class CATRELoader:
     `last_frame_poses`, `nocs`, `pcl_rgb` where asked for).
 
     Test (`phase="test"`): one pass over the split, the trailing group padded
-    with invalid slots; the ball is centred on the init estimate. Train: an
+    with invalid slots; the ball is centred on the init estimate. With
+    `world_size` > 1 the pass reads rank `rank`'s contiguous share
+    (`parallel.comm.inference_slice`), each record drawn at its position in
+    the whole split and the window resolved over the whole split, so the
+    shares' batches hold what a pass of world 1 gives those records. Train: an
     infinite stream of full groups over this rank's share (`rank`,
     `world_size`) of one permutation per epoch (`cfg.sampler_train`), the
     ball centred on the gt pose, the depth augmented on the device
@@ -793,6 +798,10 @@ class CATRELoader:
         if cfg.sample_window == -1:
             cfg = replace(cfg, sample_window=auto_sample_window(dataset_dicts, phase))
             logger.info("SAMPLE_WINDOW=-1 resolved to %d", cfg.sample_window)
+        self._g0 = 0          # the split position of record 0 (a test share's first)
+        if phase == "test" and int(world_size) > 1:
+            share = inference_slice(len(dataset_dicts), int(rank), int(world_size))
+            dataset_dicts, self._g0 = dataset_dicts[share], share.start
         self.dicts = dataset_dicts
         self.cfg = cfg
         self.phase = phase
@@ -958,7 +967,7 @@ class CATRELoader:
     def _test_records(self):
         for didx in range(self._pos, len(self.dicts)):
             self._pos = didx + 1
-            yield didx, didx, self.dicts[didx]
+            yield self._g0 + didx, didx, self.dicts[didx]
 
     def _host_part(self, g: int, didx: int, record: dict) -> dict | None:
         """Decode and per-instance fields, memoized per record in a cache
@@ -1139,7 +1148,7 @@ class CATRELoader:
         n = len(self.dicts)
 
         def work(i):
-            return self._host_part(i, i, self.dicts[i])
+            return self._host_part(self._g0 + i, i, self.dicts[i])
 
         if self.num_workers > 0:
             with ThreadPoolExecutor(max_workers=self.num_workers) as pool:

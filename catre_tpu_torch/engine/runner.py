@@ -15,9 +15,19 @@ the lr of the schedule -> the writers, periodic checkpoints under
 OUTPUT_DIR/ckpt and periodic `do_test`. A test run goes config -> dataset
 registry -> init poses -> `CATRELoader` -> the refine -> `CATREEvaluator`
 -> `predictions.pkl` and the tables. Both run on the card unless the caller
-asks for the CPU. More than one device or process (`NUM_CHIPS` > 1, a
-process group of world > 1) raises and names ROADMAP item 14. The JAX
-package's `CATRE_EVAL_SLAB_GROUPS` is dropped (item 15).
+asks for the CPU. The JAX package's `CATRE_EVAL_SLAB_GROUPS` is dropped
+(item 15).
+
+Over a process group (`parallel/launch.py`, one process per card) both run
+on every process, as JAX's do over the processes of a mesh: SOLVER.IMS_PER_BATCH
+and MAX_OBJS_TRAIN are global and split evenly, each process's train loader
+reads its rank's stride of the stream, the train step sums over the group
+(`engine/train.py`), the main process alone writes the metrics, tensorboard
+and the checkpoints, and a periodic `do_test` runs on every process; in
+`do_test` each process refines its contiguous share of the records
+(`comm.inference_slice`) and the main process scores the gathered
+predictions. NUM_CHIPS counts the processes a machine: a value the group
+does not match raises.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from ..engine.train import init_train_state, make_train_step
 from ..eval.evaluator import CATREEvaluator, run_inference
 from ..geom.symmetry import axis_symmetry_rotation_bank
 from ..models.catre import init_model
+from ..parallel import comm
 from ..solver.build import optimizer_from_config
 from ..solver.schedule import build_lr_fn
 from ..utils import checkpoint as ckpt
@@ -58,18 +69,19 @@ TRAIN2_STREAM = 5        # the TRAIN2 coin's stream: (SEED, TRAIN2_STREAM, itera
 PROFILE_SKIP = 2         # iterations run before a TRAIN.PROFILE_ITERS trace, where there are
 
 
-def _check_single_device(cfg, device: torch.device, what: str = "evaluation") -> None:
-    """One device and one process: anything more is ROADMAP item 14."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(f"{what} over a process group of world > 1 (each process a "
-                                  "shard) is not ported: ROADMAP item 14")
+def _check_world(cfg, device: torch.device) -> None:
+    """NUM_CHIPS processes a machine (0: one a card) must match the process
+    group: one process drives one card, so N > 1 in a process without a
+    group of N or more raises rather than run on one."""
     n = int(cfg.get("NUM_CHIPS", 1))
-    if n == 0:   # 0 = every device, as in the JAX package
+    if n == 0:   # 0 = every card, as in the JAX package
         n = torch.cuda.device_count() if device.type == "cuda" else 1
-    if n > 1:
-        raise NotImplementedError(f"NUM_CHIPS={n}: {what} over several devices is not ported "
-                                  "(ROADMAP item 14); set NUM_CHIPS=1 (--num-chips 1)")
+    world = comm.get_world_size()
+    if n > 1 and world % n:
+        raise ValueError(f"NUM_CHIPS={n} processes a machine, and this process is in a group of "
+                         f"{world}: start one process per card with `python -m "
+                         f"catre_tpu_torch.main --num-chips {n}` (parallel/launch.py), or set "
+                         "NUM_CHIPS=1")
 
 
 def _device(device) -> torch.device:
@@ -230,9 +242,11 @@ def do_train(cfg, resume: bool = False, device="cuda"):
     next. `resume` restarts after the latest checkpoint there, the loaders
     moved on to where an uninterrupted run would read. TRAIN.PROFILE_ITERS =
     k traces k iterations into OUTPUT_DIR/profile; TRAIN.VIS_IMG queues the
-    first valid object's keypoints on its image for tensorboard."""
+    first valid object's keypoints on its image for tensorboard (at world 1).
+    Over a process group every process calls it (see the module's
+    docstring); each returns its state, the same on every process."""
     dev = _device(device)
-    _check_single_device(cfg, dev, "training")
+    _check_world(cfg, dev)
     output_dir = cfg.OUTPUT_DIR
     os.makedirs(output_dir, exist_ok=True)
 
@@ -240,10 +254,15 @@ def do_train(cfg, resume: bool = False, device="cuda"):
     optimizer = optimizer_from_config(cfg, model)
     state = init_train_state(model, optimizer)
 
-    # data
+    # data: IMS_PER_BATCH is the global batch, ims_local images on each process
+    world, rank = comm.get_world_size(), comm.get_rank()
     ims_per_batch = int(cfg.SOLVER.IMS_PER_BATCH)
     if ims_per_batch < 1:
         raise ValueError(f"SOLVER.IMS_PER_BATCH={ims_per_batch}: at least one image a step")
+    if ims_per_batch % world:
+        raise ValueError(f"SOLVER.IMS_PER_BATCH={ims_per_batch} does not split over {world} "
+                         "processes")
+    ims_local = ims_per_batch // world
     train_dicts = get_train_dicts(cfg, cfg.DATASETS.TRAIN)
     if not train_dicts:
         raise FileNotFoundError(f"no training data found for {cfg.DATASETS.TRAIN} under "
@@ -255,9 +274,9 @@ def do_train(cfg, resume: bool = False, device="cuda"):
     devb = not (loader_cfg.with_nocs or loader_cfg.pcl_with_color)
 
     def train_loader(dicts, loader_seed):
-        return CATRELoader(dicts, loader_cfg, phase="train", ims_per_batch=ims_per_batch,
+        return CATRELoader(dicts, loader_cfg, phase="train", ims_per_batch=ims_local,
                            seed=loader_seed, num_workers=int(cfg.DATALOADER.get("NUM_WORKERS", 0)),
-                           device_batches=devb, device=dev)
+                           rank=rank, world_size=world, device_batches=devb, device=dev)
 
     loader = train_loader(train_dicts, seed)
     ratio = float(cfg.DATASETS.get("TRAIN2_RATIO", 0.0))
@@ -280,7 +299,8 @@ def do_train(cfg, resume: bool = False, device="cuda"):
         max_sym_disc_step=float(cfg.INPUT.get("MAX_SYM_DISC_STEP", 0.01)))
     n_iter_train = max(1, int(cfg.MODEL.CATRE.N_ITER_TRAIN))
     warm_epochs = int(cfg.MODEL.CATRE.N_ITER_TRAIN_WARM_EPOCH)
-    with_vis = bool(cfg.TRAIN.get("VIS_IMG", False))
+    # the vis payload holds this process's rows: world 1 only, as in JAX
+    with_vis = bool(cfg.TRAIN.get("VIS_IMG", False)) and world == 1
     steps = {}
 
     def step_at(n: int):
@@ -301,9 +321,9 @@ def do_train(cfg, resume: bool = False, device="cuda"):
             start_iter = latest + 1
             state = state._replace(step=start_iter)
             n2 = sum(use_train2(i) for i in range(start_iter))
-            loader.skip((start_iter - n2) * ims_per_batch)
+            loader.skip((start_iter - n2) * ims_local)
             if loader2 is not None:
-                loader2.skip(n2 * ims_per_batch)
+                loader2.skip(n2 * ims_local)
             logger.info("resumed from iteration %d (loader fast-forward: %d + %d batches)",
                         start_iter, start_iter - n2, n2)
     batches = iter(loader)
@@ -316,18 +336,20 @@ def do_train(cfg, resume: bool = False, device="cuda"):
     # the evaluation's own model, loaders and refine, kept across evaluations
     eval_ctx = {"model": init_model(mcfg, device=dev)} if eval_period > 0 else None
     print_freq = int(cfg.TRAIN.get("PRINT_FREQ", 100))
-    max_objs = int(cfg.DATALOADER.get("MAX_OBJS_TRAIN", 120))
+    max_objs = int(cfg.DATALOADER.get("MAX_OBJS_TRAIN", 120)) // world    # a global cap
     kps_kw = dict(kps_type=cfg.INPUT.get("KPS_TYPE", "mean_shape"),
                   num_kps=int(cfg.INPUT.get("NUM_KPS", 1024)),
                   with_neg_axis=bool(cfg.INPUT.get("WITH_NEG_AXIS", False)))
 
     tb_dir = osp.join(output_dir, "tb")
-    if not resume and osp.isdir(tb_dir):
+    is_main = comm.is_main_process()
+    if not resume and osp.isdir(tb_dir) and is_main:
         # a fresh run: the old tensorboard directory moved aside (`engine.py:152-161`)
         shutil.move(tb_dir, f"{tb_dir}_old_{int(time.time())}")
     storage = EventStorage(start_iter)
+    # the writers are the main process's (`my_writer.py`); the metrics are global
     writers = [MetricPrinter(max_iter), JSONWriter(osp.join(output_dir, "metrics.json")),
-               TensorboardWriter(tb_dir)]
+               TensorboardWriter(tb_dir)] if is_main else []
 
     # TRAIN.PROFILE_ITERS = k: iterations [start + skip, start + skip + k) traced
     profile_iters = int(cfg.TRAIN.get("PROFILE_ITERS", 0))
@@ -407,9 +429,14 @@ def do_test(cfg, params_override=None, ctx: dict | None = None, device="cuda") -
     loader (rewound with `reset_stream`, its decoded caches kept) and the
     refine survive from one call to the next, as periodic evaluation in
     training will reuse them; a call with a cached model needs
-    `params_override`."""
+    `params_override`.
+
+    Over a process group every process calls it: each refines its share of
+    each dataset's records, and the main process scores them all and writes
+    the files; the others return their statistics with empty results, as
+    JAX's do."""
     dev = _device(device)
-    _check_single_device(cfg, dev)
+    _check_world(cfg, dev)
     output_dir = cfg.OUTPUT_DIR
     os.makedirs(output_dir, exist_ok=True)
 
@@ -470,8 +497,11 @@ def do_test(cfg, params_override=None, ctx: dict | None = None, device="cuda") -
         else:
             # the aligned NOCS / RGB paths read host pixel indices: no device batches
             devb = not (loader_cfg.with_nocs or loader_cfg.pcl_with_color)
+            # this process's contiguous share (InferenceSampler,
+            # `my_distributed_sampler.py:172-200`), drawn as world 1 draws it
             loader = CATRELoader(dicts, loader_cfg, phase="test", ims_per_batch=ims_per_batch,
-                                 num_workers=num_workers, device_batches=devb, device=dev)
+                                 num_workers=num_workers, device_batches=devb, device=dev,
+                                 rank=comm.get_rank(), world_size=comm.get_world_size())
             if ctx is not None:
                 ctx[lkey] = loader
         if ctx is not None and ("refine", n_iter) in ctx:
@@ -490,12 +520,15 @@ def do_test(cfg, params_override=None, ctx: dict | None = None, device="cuda") -
                                 and "cmra" in dset_name),
             device=dev)
         stats["load_s"] = load_s
+        # the gathers are collective; the main process alone writes
         if cfg.TEST.get("VIS", False):
             evaluator.gather_predictions()
-            _save_visualizations(dicts, evaluator, output_dir)
+            if comm.is_main_process():
+                _save_visualizations(dicts, evaluator, output_dir)
         if cfg.TEST.get("SAVE_RESULTS_ONLY", False):
             evaluator.gather_predictions()
-            _save_results_pkl(evaluator, osp.join(output_dir, f"results_{dset_name}.pkl"))
+            if comm.is_main_process():
+                _save_results_pkl(evaluator, osp.join(output_dir, f"results_{dset_name}.pkl"))
             results = {}
         else:
             results = evaluator.evaluate()

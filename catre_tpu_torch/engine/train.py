@@ -30,6 +30,17 @@ translation uniforms (B, 3); then the scale: its mode's index (several modes
 only), then gt_noise's std row and normals (B, 3), or random's uniforms
 (B, 3). `_sample_init_pose` / `_sample_init_scale` take draws handed in
 (`draws`), so a test drives both packages with the same numbers.
+
+Over a process group of world W (`parallel/comm.py`) each process holds B of
+the W x B rows of a global batch, rank r rows [r B, (r + 1) B), as JAX's
+GSPMD step holds them on a mesh. Every process draws what the global batch
+draws, from the same generator, and keeps its rows' draws
+(`prepare_global_rows`); each loss term divides by its mask's count over the
+group; the gradients are summed over the group, in one bucket, after the
+backward and before the nan scrub, so clipping, Lookahead, LR_MULT and FREEZE
+see the same gradients on every process; the metrics are summed once a step.
+So W processes take world 1's step on the global batch, up to the order of
+f32 sums.
 """
 
 from __future__ import annotations
@@ -44,8 +55,10 @@ from ..data.aug import aug_3d_bbox, aug_poses_normal, aug_rt, aug_scale_normal, 
 from ..geom.errors import rotation_error_deg, translation_error
 from ..geom.rotations import quat_to_mat, rot_from_axangle_chain
 from ..losses import LossConfig, catre_loss
+from ..losses.catre_loss import loss_masks
 from ..losses.common import masked_mean
 from ..models.catre import CATREDisRShared, refine_forward
+from ..parallel import comm
 from ..solver.optimizer import PortOptimizer
 
 INIT_MODES = ("gt_noise", "random", "canonical", "last_frame")
@@ -195,6 +208,21 @@ def prepare_train_batch(generator: torch.Generator, batch: dict,
     return batch
 
 
+def prepare_global_rows(generator: torch.Generator, batch: dict, noise_cfg: InputNoiseConfig,
+                        rank: int, world: int) -> dict:
+    """`prepare_train_batch` for rank `rank`'s rows of a global batch of
+    `world` equal shares: the draws of the whole global batch (each row's
+    from its place in it), this rank's rows kept. The other ranks' places
+    hold copies of these rows: every draw is per row or per batch, and no
+    row's result reads another row."""
+    if world == 1:
+        return prepare_train_batch(generator, batch, noise_cfg)
+    n = batch["pcl"].shape[0]
+    tiled = {k: v.repeat(world, *([1] * (v.dim() - 1))) for k, v in batch.items()}
+    prepared = prepare_train_batch(generator, tiled, noise_cfg)
+    return {k: v[rank * n:(rank + 1) * n] for k, v in prepared.items()}
+
+
 class TrainStep:
     """step(state, batch, generator, lr) -> (state, metrics): n_iter inner
     iterations of forward, `catre_loss`, backward, nan-scrubbed gradients and
@@ -202,7 +230,9 @@ class TrainStep:
     pre-update prediction, detached. metrics: name -> (n_iter,) tensor; with
     `with_vis` also "_vis" (TRAIN.VIS_IMG): each iteration's predicted
     "pose" (n_iter, B, 3, 4) and "scale" (n_iter, B, 3), and the gt the loss
-    saw ("gt_pose", "gt_scale"), "init_pose" and "valid"."""
+    saw ("gt_pose", "gt_scale"), "init_pose" and "valid". Over a process
+    group the batch is this process's rows, every process gives the same
+    generator and lr, and the metrics are the global batch's."""
 
     def __init__(self, model: CATREDisRShared, loss_cfg: LossConfig,
                  noise_cfg: InputNoiseConfig, optimizer: PortOptimizer, sym_bank: torch.Tensor,
@@ -212,8 +242,8 @@ class TrainStep:
         self.with_vis = with_vis
 
     def __call__(self, state: TrainState, batch: dict, generator: torch.Generator, lr: float):
-        return self.step_on_prepared(state, prepare_train_batch(generator, batch, self.noise_cfg),
-                                     lr)
+        return self.step_on_prepared(state, prepare_global_rows(
+            generator, batch, self.noise_cfg, comm.get_rank(), comm.get_world_size()), lr)
 
     def step_on_prepared(self, state: TrainState, batch: dict, lr: float):
         cfg = self.model.cfg
@@ -235,6 +265,7 @@ class TrainStep:
             group["lr"] = float(lr)
         valid = batch.get("valid")
         w = None if valid is None else valid.float()
+        counts = self._group_counts(batch["sym_flag"], valid)
         gt_rot, gt_t = batch["obj_pose"][:, :3, :3], batch["obj_pose"][:, :3, 3]
         pose_est, scale_est = batch["obj_pose_est"], batch["obj_scale_est"]
         per_iter, vis = [], []
@@ -248,10 +279,11 @@ class TrainStep:
                     self.loss_cfg, out_rot=pose[:, :3, :3], out_trans=pose[:, :3, 3],
                     out_scale=scale, gt_rot=gt_rot, gt_trans=gt_t, gt_scale=batch["obj_scale"],
                     obj_kps=batch["obj_kps"], sym_flags=batch["sym_flag"],
-                    sym_bank=self.sym_bank, valid_mask=valid)
+                    sym_bank=self.sym_bank, valid_mask=valid, counts=counts)
                 total = sum(loss_dict.values())
             with record_function("train.backward"):
                 total.backward()
+                comm.all_reduce_grads_(params)
             with record_function("train.optimizer"):
                 for p in params:
                     if p.grad is not None:
@@ -260,12 +292,19 @@ class TrainStep:
             pose_est, scale_est = pose.detach(), scale.detach()
             metrics = {k: v.detach() for k, v in loss_dict.items()}
             metrics["loss_total"] = total.detach()
-            metrics["error_R"] = masked_mean(rotation_error_deg(pose_est[:, :3, :3], gt_rot), w)
-            metrics["error_t"] = masked_mean(translation_error(pose_est[:, :3, 3], gt_t), w)
+            n_valid = counts.get("valid")
+            metrics["error_R"] = masked_mean(rotation_error_deg(pose_est[:, :3, :3], gt_rot), w,
+                                             n_valid)
+            metrics["error_t"] = masked_mean(translation_error(pose_est[:, :3, 3], gt_t), w,
+                                             n_valid)
             per_iter.append(metrics)
             if self.with_vis:
                 vis.append((pose_est, scale_est))
         stacked = {k: torch.stack([m[k] for m in per_iter]) for k in per_iter[0]}
+        if counts:          # the processes' shares summed: the global batch's metrics
+            names = list(stacked)
+            summed = comm.all_reduce_(torch.stack([stacked[k] for k in names]))
+            stacked = dict(zip(names, summed.unbind(0)))
         if self.with_vis:
             stacked["_vis"] = {
                 "pose": torch.stack([v[0] for v in vis]), "scale": torch.stack([v[1] for v in vis]),
@@ -274,6 +313,25 @@ class TrainStep:
                 "valid": valid if valid is not None else torch.ones(
                     batch["pcl"].shape[0], dtype=torch.bool, device=batch["pcl"].device)}
         return state._replace(step=state.step + 1), stacked
+
+    @staticmethod
+    def _group_counts(sym_flag: torch.Tensor, valid) -> dict:
+        """The sums over the process group of the loss's masks
+        (`losses.catre_loss.loss_masks`); {} at world 1. Refuses processes
+        that hold different numbers of rows: the global batch's draws would
+        not line up."""
+        world = comm.get_world_size()
+        if world == 1:
+            return {}
+        masks = loss_masks(sym_flag, valid)
+        rows = sym_flag.shape[0]
+        sums = comm.all_reduce_(torch.stack([m.sum() for m in masks.values()]
+                                            + [masks["valid"].new_tensor(float(rows))]))
+        if sums[-1].item() != world * rows:
+            raise ValueError(f"the processes hold {int(sums[-1].item())} rows between them, not "
+                             f"{world} x this one's {rows}: a global batch is split in equal "
+                             "shares")
+        return dict(zip(masks, sums[:-1].unbind(0)))
 
 
 def make_train_step(model: CATREDisRShared, loss_cfg: LossConfig, noise_cfg: InputNoiseConfig,

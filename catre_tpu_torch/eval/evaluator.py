@@ -27,6 +27,7 @@ import torch
 from ..data import assets, meta
 from ..data.kps import select_kps
 from ..geom.transforms import pose_3x4_to_4x4_np
+from ..parallel import comm
 from .nocs_eval import SYNSET_NAMES, compute_independent_mAP
 
 logger = logging.getLogger(__name__)
@@ -38,12 +39,6 @@ _SUMMARY = (("IoU25", "iou", (-1, 1)), ("IoU50", "iou", (-1, 2)), ("IoU75", "iou
             ("re10te10", "pose", (-1, 1, 2)), ("re5", "pose", (-1, 0, -1)),
             ("re10", "pose", (-1, 1, -1)), ("te2", "pose", (-1, -1, 0)),
             ("te5", "pose", (-1, -1, 1)))
-
-
-def _distributed_world() -> int:
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_world_size()
-    return 1
 
 
 class CATREEvaluator:
@@ -83,12 +78,15 @@ class CATREEvaluator:
     def reset(self) -> None:
         # refine_i -> scene_im_id -> prediction dict
         self._preds = [dict() for _ in range(self.n_iters + 1)]
+        self._gathered = False
 
     def process(self, scene_im_id: str, refine_i: int, poses_4x4: np.ndarray,
                 scales: np.ndarray, class_ids_1based: np.ndarray,
                 scores: np.ndarray, bboxes_yxyx: np.ndarray) -> None:
         """Store one image's predictions for one refine iteration
         (`catre_custom_evaluator.py:121-176`)."""
+        # new local predictions make a later gather exchange them again
+        self._gathered = False
         self._preds[refine_i][scene_im_id] = {
             "pred_RTs": np.asarray(poses_4x4),
             "pred_scales": np.asarray(scales),
@@ -98,17 +96,28 @@ class CATREEvaluator:
         }
 
     def gather_predictions(self) -> None:
-        """No-op in one process. Merging the shards of several processes
-        (`catre_custom_evaluator.py:200-213`) is ROADMAP item 14."""
-        if _distributed_world() > 1:
-            raise NotImplementedError("CATREEvaluator.gather_predictions over several processes "
-                                      "is not ported (ROADMAP item 14)")
+        """Merge every process's predictions into each process's
+        (`catre_custom_evaluator.py:200-213`). Collective over a process
+        group (every process calls it); a no-op at world 1; a second call
+        without new predictions exchanges nothing."""
+        if comm.get_world_size() == 1 or self._gathered:
+            return
+        merged = [dict() for _ in range(self.n_iters + 1)]
+        for proc_preds in comm.all_gather(self._preds):
+            for refine_i, preds in enumerate(proc_preds):
+                merged[refine_i].update(preds)
+        self._preds = merged
+        self._gathered = True
 
     def evaluate(self, dump: bool = True) -> dict:
         """Per-iteration mAP tables: {iter_i: {"iou_aps", "pose_aps",
         "summary"}}; with `dump` and an output_dir also `predictions.pkl` and
-        one table a iteration."""
+        one table a iteration. Over a process group the predictions are
+        gathered (collective) and the main process alone scores and writes;
+        the others return {}."""
         self.gather_predictions()
+        if not comm.is_main_process():
+            return {}
         # threshold lists of the reference evaluator (`catre_custom_evaluator.py:248-251`)
         iou_thres_list = [0.1, 0.25, 0.50, 0.75]
         degree_thres_list = [5, 10]
@@ -229,12 +238,14 @@ def run_inference(refine_fn, loader, evaluator: CATREEvaluator, n_iters: int, wa
     overlapped dispatch-to-fetch attribution, `process_s_per_img` the host
     bookkeeping. 0 turns probing off.
 
-    Not ported: `mesh` (instance rows sharded over devices, ROADMAP item 14)
-    raises; `slab_groups` (several loader groups a dispatch) and batches
-    carrying `_presampled` (the loader's `defer_selection`) are item 15, and
-    such a batch raises."""
+    Not ported: `mesh` (instance rows sharded over the devices of one
+    process, ROADMAP item 15: one process per card replaces it, each with its
+    share of the records) raises; `slab_groups` (several loader groups a
+    dispatch) and batches carrying `_presampled` (the loader's
+    `defer_selection`) are item 15, and such a batch raises."""
     if mesh is not None:
-        raise NotImplementedError("run_inference(mesh=...) is not ported (ROADMAP item 14)")
+        raise NotImplementedError("run_inference(mesh=...) is not ported (ROADMAP item 15): "
+                                  "one process per card, each with its share of the records")
     loader_dev = getattr(loader, "device", None)
     if device is None and loader_dev is None:
         raise ValueError("run_inference: a loader without a device needs device=")

@@ -3,7 +3,9 @@
 Counterpart of `catre_tpu/losses/catre_loss.py`: `LossConfig` (:21),
 `angular_distance_rot` (:44) and `catre_loss` (:52), every loss-type branch.
 The symmetric / non-symmetric split is a pair of masked means; an empty
-subset contributes 0.
+subset contributes 0. Over several processes each mean divides by its mask's
+count over the group (`counts`, of the masks of `loss_masks`), so that the
+processes' losses and gradients sum to the global batch's.
 """
 
 from __future__ import annotations
@@ -46,11 +48,24 @@ def angular_distance_rot(m1: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
     return (1.0 - cos) / 2.0
 
 
+def loss_masks(sym_flags: torch.Tensor, valid_mask=None) -> dict:
+    """The masks of the loss's batch means, as floats: "valid" (every row
+    without a valid_mask), and the non-symmetric ("nonsym") and symmetric
+    ("sym") rows among them."""
+    valid = (torch.ones(sym_flags.shape[0], dtype=torch.float32, device=sym_flags.device)
+             if valid_mask is None else valid_mask.float())
+    sym = sym_flags.float()
+    return {"valid": valid, "nonsym": valid * (1.0 - sym), "sym": valid * sym}
+
+
 def catre_loss(cfg: LossConfig, out_rot, out_trans, out_scale, gt_rot, gt_trans, gt_scale,
-               obj_kps, sym_flags, sym_bank, valid_mask=None) -> dict:
+               obj_kps, sym_flags, sym_bank, valid_mask=None, counts: dict | None = None) -> dict:
     """Loss terms by name: rotations (B, 3, 3), translations and scales
     (B, 3), obj_kps (B, K, 3), sym_flags (B,) bool, sym_bank (S, 3, 3),
-    valid_mask (B,) or None."""
+    valid_mask (B,) or None. `counts`: the sums of `loss_masks`' masks over
+    the whole batch where these rows are one process's share of it (each
+    term is then this process's share of the term)."""
+    counts = counts or {}
     loss_dict = {}
     if cfg.pm_lw > 0:
         loss_dict.update(pm_loss(
@@ -61,19 +76,18 @@ def catre_loss(cfg: LossConfig, out_rot, out_trans, out_scale, gt_rot, gt_trans,
             symmetric=cfg.pm_loss_sym, r_only=cfg.pm_r_only, with_scale=cfg.pm_with_scale,
             disentangle_t=cfg.pm_disentangle_t, disentangle_z=cfg.pm_disentangle_z,
             t_loss_use_points=cfg.pm_t_use_points, norm_by_extent=cfg.pm_norm_by_extent,
-            extents=gt_scale))
+            extents=gt_scale, count=counts.get("valid")))
 
     if cfg.rot_lw > 0:
-        valid = (torch.ones(out_rot.shape[0], dtype=torch.float32, device=out_rot.device)
-                 if valid_mask is None else valid_mask.float())
-        sym = sym_flags.float()
+        masks = loss_masks(sym_flags, valid_mask)
         if cfg.rot_loss_type == "angular":
             per = angular_distance_rot(out_rot, gt_rot)
         elif cfg.rot_loss_type == "L2":
             per = torch.square(out_rot - gt_rot).mean(dim=(1, 2))
         else:
             raise ValueError(f"Unknown rot loss type: {cfg.rot_loss_type}")
-        loss_dict["loss_rot"] = masked_mean(per, valid * (1.0 - sym)) * cfg.rot_lw
+        loss_dict["loss_rot"] = masked_mean(per, masks["nonsym"],
+                                                counts.get("nonsym")) * cfg.rot_lw
 
         # symmetric objects: only the y column
         y_est, y_gt = out_rot[:, :, 1], gt_rot[:, :, 1]
@@ -91,7 +105,8 @@ def catre_loss(cfg: LossConfig, out_rot, out_trans, out_scale, gt_rot, gt_trans,
             per_y = (1.0 - cos) / 2.0
         else:
             raise ValueError(f"Unknown rot yaxis loss type: {yt}")
-        loss_dict["loss_yaxis_rot"] = masked_mean(per_y, valid * sym) * cfg.rot_lw
+        loss_dict["loss_yaxis_rot"] = masked_mean(per_y, masks["sym"],
+                                                      counts.get("sym")) * cfg.rot_lw
 
     if cfg.trans_lw > 0:
         fn = elementwise(cfg.trans_loss_type if cfg.trans_loss_type != "L2" else "mse")
@@ -102,11 +117,14 @@ def catre_loss(cfg: LossConfig, out_rot, out_trans, out_scale, gt_rot, gt_trans,
             per_xy = fn(out_trans[:, :2], gt_trans[:, :2]).mean(dim=1)
             per_z = fn(out_trans[:, 2], gt_trans[:, 2])
         if cfg.trans_loss_disentangle:
-            loss_dict["loss_trans_xy"] = masked_mean(per_xy, valid_mask) * cfg.trans_lw
-            loss_dict["loss_trans_z"] = masked_mean(per_z, valid_mask) * cfg.trans_lw
+            loss_dict["loss_trans_xy"] = masked_mean(per_xy, valid_mask,
+                                                       counts.get("valid")) * cfg.trans_lw
+            loss_dict["loss_trans_z"] = masked_mean(per_z, valid_mask,
+                                                       counts.get("valid")) * cfg.trans_lw
         else:
             per = fn(out_trans, gt_trans).mean(dim=1)
-            loss_dict["loss_trans_LPnP"] = masked_mean(per, valid_mask) * cfg.trans_lw
+            loss_dict["loss_trans_LPnP"] = masked_mean(per, valid_mask,
+                                                         counts.get("valid")) * cfg.trans_lw
 
     if cfg.scale_lw > 0:
         fn = elementwise(cfg.scale_loss_type if cfg.scale_loss_type != "L2" else "mse")
@@ -114,5 +132,6 @@ def catre_loss(cfg: LossConfig, out_rot, out_trans, out_scale, gt_rot, gt_trans,
             per = l2_norm_per_sample(out_scale, gt_scale)
         else:
             per = fn(out_scale, gt_scale).mean(dim=1)
-        loss_dict["loss_scale"] = masked_mean(per, valid_mask) * cfg.scale_lw
+        loss_dict["loss_scale"] = masked_mean(per, valid_mask, counts.get("valid")) \
+            * cfg.scale_lw
     return loss_dict

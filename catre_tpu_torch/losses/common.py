@@ -1,7 +1,11 @@
 """Elementwise loss primitives and the masked batch mean.
 
 Counterpart of `catre_tpu/losses/common.py`: every batch reduction is a mean
-over the valid samples, so padded rows never count.
+over the valid samples, so padded rows never count. Where the batch is split
+over processes, JAX's mean is over the global batch (GSPMD makes its sums
+psums); here each process divides its own sum by the mask's count over the
+group (`count`), and the processes' shares, like their gradients, sum to the
+global mean.
 """
 
 from __future__ import annotations
@@ -9,12 +13,16 @@ from __future__ import annotations
 import torch
 
 
-def masked_mean(per_sample: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
-    """Mean of per-sample values over the entries where mask (B,) is set."""
+def masked_mean(per_sample: torch.Tensor, mask: torch.Tensor | None,
+                count: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean of per-sample values over the entries where mask (B,) is set (all
+    of them without a mask). `count`: the mask's sum over the whole batch of
+    which these rows are one process's share; the result is then that share
+    of the whole batch's mean."""
     if mask is None:
-        return per_sample.mean()
+        return per_sample.mean() if count is None else per_sample.sum() / count.clamp(min=1.0)
     m = mask.to(per_sample.dtype)
-    return (per_sample * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (per_sample * m).sum() / torch.clamp(m.sum() if count is None else count, min=1.0)
 
 
 def l1(pred, target):

@@ -22,9 +22,10 @@ def pm_loss(pred_rots, gt_rots, points, pred_transes=None, gt_transes=None, pred
             symmetric: bool = True, r_only: bool = True, with_scale: bool = True,
             disentangle_t: bool = False, disentangle_z: bool = False,
             t_loss_use_points: bool = True, norm_by_extent: bool = False,
-            extents=None) -> dict:
+            extents=None, count=None) -> dict:
     """{'loss_PM_R': ...} in the shipped config; see the JAX docstring for
-    each branch."""
+    each branch. `count`: valid_mask's sum over the whole batch where these
+    rows are one process's share (`losses.common.masked_mean`)."""
     if loss_type.lower() == "l2":
         def pair(a, b):
             return l2_norm_per_sample(a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1))
@@ -52,7 +53,7 @@ def pm_loss(pred_rots, gt_rots, points, pred_transes=None, gt_transes=None, pred
                                       scale=gt_scales if with_scale else None)
 
     def pm_mean(a, b):
-        return masked_mean(pair(a, b), valid_mask)
+        return masked_mean(pair(a, b), valid_mask, count)
 
     if r_only:
         return {"loss_PM_R": 3.0 * pm_mean(points_est, points_tgt) * loss_weight}
@@ -73,9 +74,9 @@ def pm_loss(pred_rots, gt_rots, points, pred_transes=None, gt_transes=None, pred
         return {
             "loss_PM_R": 3.0 * pm_mean(points_est, points_tgt) * loss_weight,
             "loss_PM_xy_noP": masked_mean(pair(pred_transes[:, :2], gt_transes[:, :2]),
-                                          valid_mask),
+                                          valid_mask, count),
             "loss_PM_z_noP": masked_mean(pair(pred_transes[:, 2:3], gt_transes[:, 2:3]),
-                                         valid_mask),
+                                         valid_mask, count),
         }
     if disentangle_t:
         if t_loss_use_points:
@@ -88,7 +89,7 @@ def pm_loss(pred_rots, gt_rots, points, pred_transes=None, gt_transes=None, pred
             }
         return {
             "loss_PM_R": 3.0 * pm_mean(points_est, points_tgt) * loss_weight,
-            "loss_PM_T_noP": masked_mean(pair(pred_transes, gt_transes), valid_mask),
+            "loss_PM_T_noP": masked_mean(pair(pred_transes, gt_transes), valid_mask, count),
         }
     tgt_rt = points_tgt + gt_transes[:, None, :]
     est_rt = points_est + pred_transes[:, None, :]

@@ -24,7 +24,9 @@ going through flax:
 `load_torch_state_dict` (:118) reads every container the reference's
 checkpointer reads. The native half (`save_checkpoint`, `load_checkpoint`,
 `latest_step`) stands where the JAX package uses orbax (:175-206): one file
-a step in a directory.
+a step in a directory. Over a process group the main process writes it and
+every process waits for it (`save_checkpoint` is collective); every process
+reads it.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from ..parallel import comm
 
 logger = logging.getLogger(__name__)
 
@@ -207,17 +211,21 @@ def save_checkpoint(ckpt_dir: str, step: int, state: Mapping[str, Any], keep: in
     moments, counts, Lookahead slow copies and the Lookahead layers' own, a
     registry transform's state of a rotation head's layer-0 pair under
     `layer0_global_weight`), "generator" (a CPU `torch.Generator` or its
-    state) and any other picklable entry. -> the file's path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    payload = {"format": FORMAT, "step": int(step)}
-    payload.update({k: _state_of(v) for k, v in state.items()})
+    state) and any other picklable entry. Over a process group only the main
+    process writes, and every process returns once the file is there. ->
+    the file's path."""
     path = osp.join(ckpt_dir, f"step_{int(step):08d}.pt")
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    files = _step_files(ckpt_dir)
-    for old in sorted(files)[:-keep] if keep > 0 else []:
-        os.remove(files[old])
+    if comm.is_main_process():
+        os.makedirs(ckpt_dir, exist_ok=True)
+        payload = {"format": FORMAT, "step": int(step)}
+        payload.update({k: _state_of(v) for k, v in state.items()})
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        files = _step_files(ckpt_dir)
+        for old in sorted(files)[:-keep] if keep > 0 else []:
+            os.remove(files[old])
+    comm.synchronize()
     return path
 
 
@@ -236,7 +244,7 @@ def load_checkpoint(ckpt_dir: str, step: int | None = None) -> dict:
     if not steps:
         other = sorted(os.listdir(ckpt_dir)) if osp.isdir(ckpt_dir) else []
         hint = (f"; it holds {other[:5]}: an orbax checkpoint of the JAX package is not read "
-                f"here, converting it is ROADMAP item 14") if other else ""
+                f"here, converting it is ROADMAP item 14b") if other else ""
         raise FileNotFoundError(f"no checkpoint of the port in {ckpt_dir}{hint}")
     if step is None:
         step = max(steps)

@@ -189,7 +189,29 @@ code is non-zero):
                straight run's (and whether bit-equal). ms an iteration at n =
                4 without a checkpoint or an evaluation beside phase 7c's step,
                seconds a checkpoint save and an evaluation, the train loader's
-               cold seconds and peak memory.
+               cold seconds and peak memory;
+  7e. two processes: `catre_tpu_torch.parallel.launch` starts 2 processes on
+               card 0, joined over gloo (NCCL refuses two ranks on one card).
+               Each takes its 256 rows of phase 7's B = 512 global batch (seed
+               0) through the train step at the shipped kernel flags, a warm-up
+               and 3 timed steps (draws of the global batch, mask counts and
+               gradients summed over the group), in f32 and then in the
+               shipped bf16, then `do_test` on its half of phase 5d's split
+               (the seed-0 weights as a checkpoint, the init JSON); this
+               process then runs world 1 on the same rows and split. Gates:
+               phase 7's launches per step on each rank and K1 = 4, K2 = 8, K3
+               = 4 a do_test batch; the ranks' parameters bit-equal; in f32
+               every step's metrics within 2e-3 of world 1's and the first
+               backward's gradients within 1e-2 per parameter relative to
+               their norm (7b's metric); in bf16 the metrics within 3e-2, and
+               the first gradients no farther from the f32 step's than twice
+               world 1's bf16 gradients are (or within 1e-2): in bf16 each
+               world is its own rounding of the f32 step; rank 1 scores
+               nothing, and rank 0's gathered predictions are world 1's bit
+               for bit, or within the bf16 3e-2 with every summary within 0.5
+               points. ms a step on each rank beside world 1's, the gradient
+               all-reduce timed alone and its share of a step, peak memory a
+               rank.
 Then one JSON line of per-kernel results (each with its time, its plain
 version's time and its bound: the larger of its bytes over 3.35 TB/s and its
 operations over the card's peak for their type), the card's name and power
@@ -285,6 +307,11 @@ TRAIN_CLI_WARMUP = 4         # its SOLVER.WARMUP_ITERS
 TRAIN_CLI_EVAL = 20          # its TEST.EVAL_PERIOD
 TRAIN_CLI_RESUME = 19        # the checkpoint its resumed run starts after
 TRAIN_CLI_LOSS_WINDOW = 8    # iterations of the median iter0/loss_total, first vs last
+DIST_WORLD = 2               # phase 7e: processes on the one card, joined over gloo
+DIST_TIMEOUT_S = 300         # ... a collective that waits longer raises
+DIST_REDUCE_CALLS = 5        # ... gradient all-reduces timed alone
+DIST_SUMMARY_PTS = 0.5       # ... do_test summaries, world 2 vs 1, where not bit-equal
+DIST_BF16_SLACK = 2.0        # ... world 2's bf16 gradients from the f32 step's: this x world 1's
 
 
 def log(phase, msg):
@@ -2021,6 +2048,246 @@ def do_train_phase(card, records, per_step, ms_7c):
     return {k: counts[k] + counts2[k] for k in counts}
 
 
+def dist_test_cfg(work, init_file, out_dir):
+    """Phase 7e's do_test config: the shipped file on phase 5d's split, the
+    seed-0 flagship weights in `work`/ckpt, the split's init JSON."""
+    from catre_tpu_torch.config.build import FLAGSHIP_CONFIG
+    from catre_tpu_torch.config.loader import apply_overrides, load_config
+
+    return apply_overrides(load_config(str(FLAGSHIP_CONFIG)), [
+        f"OUTPUT_DIR={out_dir}", f"MODEL.WEIGHTS={os.path.join(work, 'ckpt')}",
+        "MODEL.LOAD_POSES_TEST=True", f"DATASETS.INIT_POSE_FILES_TEST=('{init_file}',)"])
+
+
+def dist_train(dev, rows, **model_overrides):
+    """Phase 7e's train half on this process: the flagship trainer of phase 7
+    (seed 0, a global batch of TRAIN_B, `model_overrides` on the shipped
+    config's model) on `rows` of its batch, one warm-up and TRAIN_STEPS
+    timed steps, synced; -> {"metrics": each step's on the host, "ms" a
+    timed step, "counts": each step's launches, "peak" GiB, "digest": the
+    final parameters' sha256}, the first backward's gradients, the trainer."""
+    import hashlib
+
+    from catre_tpu_torch import ops
+    from catre_tpu_torch.entry import flagship_trainer
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = flagship_trainer(dev, batch_size=TRAIN_B, seed=0, **model_overrides)
+    batch = {k: v[rows] for k, v in t.batch.items()}
+    grads, hook = first_grads(t.step.model, t.step.optimizer)
+    metrics, counts, times = [], [], []
+    for _ in range(1 + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        t.state, m = t.step(t.state, batch, t.generator, t.lr)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts.append(ops.launch_counts())
+        metrics.append({k: v.cpu().numpy().tolist() for k, v in m.items()})
+    hook.remove()
+    digest = hashlib.sha256(b"".join(p.detach().cpu().numpy().tobytes()
+                                     for p in t.state.params.values())).hexdigest()
+    return ({"metrics": metrics, "ms": sum(times[1:]) / TRAIN_STEPS * 1e3, "counts": counts,
+             "peak": torch.cuda.max_memory_allocated() / 2**30, "digest": digest}, grads, t)
+
+
+def dist_rank(dev, work, records, init_file, name):
+    """Phase 7e on one process of the group (`parallel.launch` started it on
+    the card): `dist_train` on its rows of the global batch in f32 and at the
+    shipped bf16, the gradient all-reduce timed alone, then `do_test` on its
+    share of phase 5d's split; writes `work`/rank<r>.json and the first
+    gradients of both runs."""
+    from catre_tpu_torch import ops
+    from catre_tpu_torch.data import meta, nocs
+    from catre_tpu_torch.engine import runner
+    from catre_tpu_torch.parallel import comm
+
+    rank, world = comm.get_rank(), comm.get_world_size()
+    meta.set_data_root(os.path.join(work, "data"))
+    nocs.register_dataset(name, lambda: [dict(r) for r in records])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    n = TRAIN_B // world
+    rows = slice(rank * n, (rank + 1) * n)
+    out, grads = {}, {}
+    out["f32"], grads["f32"], t = dist_train(dev, rows, dtype=None)
+    del t
+    out["bf16"], grads["bf16"], t = dist_train(dev, rows)
+    # the bf16 step's gradient bucket, all-reduced alone
+    params = list(t.state.params.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DIST_REDUCE_CALLS):
+        comm.all_reduce_grads_(params)
+    torch.cuda.synchronize()
+    out["reduce_ms"] = (time.perf_counter() - t0) / DIST_REDUCE_CALLS * 1e3
+    out["n_grad"] = sum(p.grad.numel() for p in params if p.grad is not None)
+    del t, params
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = runner.do_test(dist_test_cfg(work, init_file, os.path.join(work, "world2")),
+                         device=dev)[name]
+    torch.cuda.synchronize()
+    out.update(test_s=time.perf_counter() - t0, test_counts=ops.launch_counts(),
+               peak=torch.cuda.max_memory_allocated() / 2**30,
+               summary={int(it): r["summary"] for it, r in res["results"].items()})
+    if rank == 0:
+        torch.save(grads, os.path.join(work, "grads.pt"))
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dist_phase(dev, card, records, per_step, per_batch):
+    """Phase 7e: DIST_WORLD processes on the one card through
+    `parallel.launch` (gloo), against world 1 in this process (see 7e in the
+    module docstring), with `per_step` launches a train step and `per_batch`
+    a do_test batch; -> the launch counts of both worlds."""
+    import pickle
+
+    import numpy as np
+
+    from catre_tpu_torch import ops
+    from catre_tpu_torch.config.build import FLAGSHIP_CONFIG
+    from catre_tpu_torch.config.loader import load_config
+    from catre_tpu_torch.data import meta, nocs
+    from catre_tpu_torch.engine import runner
+    from catre_tpu_torch.entry import N_ITER, flagship_config
+    from catre_tpu_torch.models.catre import init_model
+    from catre_tpu_torch.parallel.comm import inference_slice
+    from catre_tpu_torch.parallel.launch import launch
+    from catre_tpu_torch.utils.checkpoint import save_checkpoint
+
+    shipped = load_config(str(FLAGSHIP_CONFIG))
+    name, ims = shipped.DATASETS.TEST[0], int(shipped.TEST.IMS_PER_BATCH)
+    table = np.random.default_rng(0).normal(size=(6, 1024, 3)).astype(np.float32) * 0.1
+    old_root = meta.DATA_ROOT
+    with tempfile.TemporaryDirectory(prefix="catre_dist_") as work:
+        init_file = cli_workspace(work, records, table)
+        save_checkpoint(os.path.join(work, "ckpt"), 0, {"model": init_model(flagship_config(),
+                                                                             seed=0)})
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launch(dist_rank, (work, records, init_file, name), ["cuda:0"] * DIST_WORLD,
+               timeout_s=DIST_TIMEOUT_S)
+        launch_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(DIST_WORLD):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        grads2 = torch.load(os.path.join(work, "grads.pt"))
+
+        # world 1 in this process on the same rows, weights and split
+        world1, grads1 = {}, {}
+        for dtype, overrides in (("f32", {"dtype": None}), ("bf16", {})):
+            world1[dtype], grads1[dtype], t = dist_train(dev, slice(None), **overrides)
+            del t
+        torch.cuda.empty_cache()
+        nocs.register_dataset(name, lambda: [dict(r) for r in records])
+        ops.reset_launch_counts()
+        res1 = runner.do_test(dist_test_cfg(work, init_file, os.path.join(work, "world1")),
+                              device=dev)[name]
+        torch.cuda.synchronize()
+        test_counts1 = ops.launch_counts()
+        preds = []
+        for d in ("world2", "world1"):
+            with open(os.path.join(work, d, "predictions.pkl"), "rb") as f:
+                preds.append(pickle.load(f))
+        nocs._DATASET_REGISTRY.pop(name)
+        meta.set_data_root(old_root)
+
+    # the train step: every rank's launches, the ranks alike, world 2 = world 1
+    def step_errors(a, b):
+        return [max(abs(x - y) / max(abs(y), 1e-12) for k in m1 for x, y in zip(m2[k], m1[k]))
+                for m2, m1 in zip(a["metrics"], b["metrics"])]
+
+    runs = [(f"rank {r} {dt}", out[dt]) for r, out in enumerate(ranks) for dt in ("f32", "bf16")]
+    runs += [(f"world 1 {dt}", world1[dt]) for dt in ("f32", "bf16")]
+    for who, run in runs:
+        if any(c != {**dict.fromkeys(c, 0), **per_step} for c in run["counts"]):
+            raise RuntimeError(f"phase 7e {who}: launches per step {run['counts']}, want "
+                               f"{per_step}")
+        if not all(np.isfinite(v).all() for m in run["metrics"] for v in m.values()):
+            raise RuntimeError(f"phase 7e {who}: non-finite metrics")
+    for dt in ("f32", "bf16"):
+        if (ranks[0][dt]["digest"] != ranks[1][dt]["digest"]
+                or ranks[0][dt]["metrics"] != ranks[1][dt]["metrics"]):
+            raise RuntimeError(f"phase 7e {dt}: the two ranks' parameters or metrics differ")
+    err = {dt: (step_errors(ranks[0][dt], world1[dt]), *grad_error(grads2[dt], grads1[dt]))
+           for dt in ("f32", "bf16")}
+    # in bf16 each world is one rounding of the f32 step: their distances from it, side by side
+    off32 = {w: grad_error(g["bf16"], grads1["f32"]) for w, g in (("1", grads1), ("2", grads2))}
+    bf, reduce_share = ranks[0]["bf16"], N_ITER * ranks[0]["reduce_ms"] / ranks[0]["bf16"]["ms"]
+    log("dist", f"{DIST_WORLD} processes on one card (gloo), B={TRAIN_B} global at the shipped "
+                f"flags, {1 + TRAIN_STEPS} steps, world 2 vs world 1 on the same rows: f32 "
+                f"metrics max rel err by step {[float(f'{e:.3e}') for e in err['f32'][0]]} (rtol "
+                f"{TRAIN_LOSS_RTOL:.0e}), first backward's gradients {err['f32'][1]:.3e} "
+                f"({err['f32'][2]}; limit {TRAIN_GRAD_RTOL:.0e}); bf16 metrics "
+                f"{[float(f'{e:.3e}') for e in err['bf16'][0]]}, gradients {err['bf16'][1]:.3e} "
+                f"({err['bf16'][2]}); bf16 gradients from the f32 step's: world 1 "
+                f"{off32['1'][0]:.3e} ({off32['1'][1]}), world 2 {off32['2'][0]:.3e} "
+                f"({off32['2'][1]}); the ranks' parameters bit-equal; launches per step a rank "
+                f"{ {k: v for k, v in per_step.items() if v} }")
+    log("dist", f"bf16 {bf['ms']:.3f} / {ranks[1]['bf16']['ms']:.3f} ms a timed step on ranks 0 / "
+                f"1 against world 1's {world1['bf16']['ms']:.3f} (ratio "
+                f"{bf['ms'] / world1['bf16']['ms']:.4f}); f32 {ranks[0]['f32']['ms']:.3f} against "
+                f"{world1['f32']['ms']:.3f}; gradient all-reduce ({ranks[0]['n_grad']} f32, one "
+                f"bucket) {ranks[0]['reduce_ms']:.3f} ms alone, x{N_ITER} a step = "
+                f"{reduce_share:.1%} of rank 0's bf16 step; peak a rank in bf16 training "
+                f"{bf['peak']:.2f} / {ranks[1]['bf16']['peak']:.2f} GiB (world 1 "
+                f"{world1['bf16']['peak']:.2f}), with do_test after it {ranks[0]['peak']:.2f} / "
+                f"{ranks[1]['peak']:.2f}; the launch {launch_s:.1f} s | {card}")
+    if not (max(err["f32"][0]) <= TRAIN_LOSS_RTOL and err["f32"][1] <= TRAIN_GRAD_RTOL
+            and max(err["bf16"][0]) <= TOL[torch.bfloat16]
+            and off32["2"][0] <= max(DIST_BF16_SLACK * off32["1"][0], TRAIN_GRAD_RTOL)):
+        raise RuntimeError("phase 7e: world 2's train step disagrees with world 1's")
+
+    # do_test: rank 1 scores nothing, rank 0 the gathered predictions as world 1 does
+    n = len(records)
+    calls = [-(-len(range(n)[inference_slice(n, r, DIST_WORLD)]) // ims)
+             for r in range(DIST_WORLD)]
+    for who, got_counts, n_calls in [*((f"rank {r}", out["test_counts"], calls[r])
+                                       for r, out in enumerate(ranks)),
+                                     ("world 1", test_counts1, -(-n // ims))]:
+        want = {**dict.fromkeys(got_counts, 0), **{k: v * n_calls for k, v in per_batch.items()}}
+        if got_counts != want:
+            raise RuntimeError(f"phase 7e {who}: do_test launches {got_counts}, want {want}")
+    if ranks[1]["summary"]:
+        raise RuntimeError("phase 7e: rank 1's do_test scored")
+    got, ref = preds
+    bit_equal, gap = True, 0.0
+    for it, (a, b) in enumerate(zip(got, ref)):
+        if sorted(a) != sorted(b) or len(b) != n:
+            raise RuntimeError(f"phase 7e do_test: iteration {it} holds other images")
+        for sid in b:
+            for k, y in b[sid].items():
+                x = a[sid][k]
+                bit_equal &= x.dtype == y.dtype and x.tobytes() == y.tobytes()
+                if y.size:
+                    gap = max(gap, float(np.abs(x.astype(np.float64) - y).max()
+                                         / max(1.0, float(np.abs(y).max()))))
+    pts = max(abs(ranks[0]["summary"][str(it)][k] - v) for it, r in res1["results"].items()
+              for k, v in r["summary"].items())
+    log("dist", f"do_test at world {DIST_WORLD} on phase 5d's {n} frames: ranks 0 / 1 "
+                f"{ranks[0]['test_s']:.2f} / {ranks[1]['test_s']:.2f} s, {calls} batches (K1 "
+                f"{N_ITER}, K2 {2 * N_ITER}, K3 {N_ITER} a batch), rank 1 returns no results; "
+                f"rank 0's gathered predictions vs world 1's: bit-equal "
+                f"{'yes' if bit_equal else 'no'}, max gap {gap:.3e} x max(1, |ref|) (bf16 limit "
+                f"{TOL[torch.bfloat16]:.0e}), summaries {pts:.4f} points apart (limit "
+                f"{DIST_SUMMARY_PTS})")
+    if not (bit_equal or (gap <= TOL[torch.bfloat16] and pts <= DIST_SUMMARY_PTS)):
+        raise RuntimeError("phase 7e: world 2's do_test disagrees with world 1's")
+    counts = [c for out in ranks for dt in ("f32", "bf16") for c in out[dt]["counts"]]
+    counts += [out["test_counts"] for out in ranks]
+    counts += [c for dt in ("f32", "bf16") for c in world1[dt]["counts"]] + [test_counts1]
+    return {k: sum(c[k] for c in counts) for k in test_counts1}
+
+
 def first_grads(model, optimizer):
     """Record the gradients the first optimizer step of `model` is given
     (the first inner iteration's backward): -> (name -> gradient, hook)."""
@@ -2448,6 +2715,11 @@ def main():
 
     # ---- 7d. the same split trained from the command line, then resumed
     counts = do_train_phase(card, records, train_per_step, ms_7c)
+    for k in launches:
+        launches[k] += counts[k]
+
+    # ---- 7e. two processes on the one card: the train step and do_test over a group
+    counts = dist_phase(dev, card, records, train_per_step, per_call)
     for k in launches:
         launches[k] += counts[k]
     split_dir.cleanup()

@@ -7,10 +7,12 @@
   (`tests/test_cli.py`, `tests/test_config_surface.py`).
 - `main([... "--eval-only", "--device", "cpu", ...])` scores a written split
   from a checkpoint of the port and writes `config_dump.py`, `log.txt` and
-  `predictions.pkl`; with --num-machines 2 or --num-chips 2, training or
-  not, it raises and names the ROADMAP item; on a host without a
-  card the default device raises; on a host with four, the default command
-  line runs on one and --num-chips 0 raises.
+  `predictions.pkl`; more processes than cards, --num-machines 2 without
+  --dist-url and a machine rank outside the machines raise, naming the flag;
+  on a host without a card the default device raises; on a host with four,
+  the default command line runs in this process on one, and --num-chips 0 / 2
+  launch four / two processes, one a card (`tests/test_torch_parallel.py`
+  runs such launches on the CPU).
 - The kernels' shape limits: a config whose fused flags ask for a width the
   kernels refuse raises in `model_config_from`, naming the flag and the
   limit; the shipped configs build."""
@@ -40,6 +42,7 @@ from catre_tpu_torch.engine import runner as trunner
 from catre_tpu_torch.entry import flagship_config, write_example_split
 from catre_tpu_torch.models.catre import init_model
 from catre_tpu_torch.ops.limits import check_model_limits
+from catre_tpu_torch.parallel import launch as tlaunch
 from catre_tpu_torch.utils.checkpoint import latest_step, save_checkpoint
 
 SHIPPED = sorted(str(p) for p in (CONFIG_DIR / "nocs_real").glob("*.py"))
@@ -156,15 +159,23 @@ def test_cli_eval_only_scores_the_split(cli_env):
 
 
 @pytest.mark.parametrize("extra, eval_only, match", [
-    # training on several devices (the case keeps its id)
-    pytest.param(("--num-chips", "2"), False, "item 14", id="extra0-False-item 13b"),
-    (("--num-machines", "2"), True, "item 14"),
-    (("--dist-url", "tcp://localhost:23456"), True, "item 14"),
-    (("--num-chips", "2"), True, "item 14"),
+    # each case keeps its id from when these launches named ROADMAP item 14
+    pytest.param(("--num-chips", "2", "--device", "cuda"), False, "2 processes, one a card",
+                 id="extra0-False-item 13b"),
+    pytest.param(("--num-machines", "2"), True, "--dist-url", id="extra1-True-item 14"),
+    pytest.param(("--dist-url", "tcp://localhost:23456", "--machine-rank", "1"), True,
+                 "--machine-rank 1 outside", id="extra2-True-item 14"),
+    pytest.param(("--num-chips", "2", "--device", "cuda"), True, "2 processes, one a card",
+                 id="extra3-True-item 14"),
 ])
-def test_cli_refusals_name_their_item(cli_env, extra, eval_only, match):
+def test_cli_refusals_name_their_item(cli_env, monkeypatch, extra, eval_only, match):
+    """What a launch cannot do raises before any process starts, naming the
+    flag: more processes than this host's one card, several machines without
+    the group's address, a machine rank outside the machines."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     tmp_path = cli_env[0]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         tmain.main(_argv(tmp_path, *extra, eval_only=eval_only))
 
 
@@ -172,26 +183,33 @@ class _PastTheCheck(Exception):
     pass
 
 
-@pytest.mark.parametrize("num_chips, refused", [((), False), (("--num-chips", "1"), False),
-                                                (("--num-chips", "0"), True),
-                                                (("--num-chips", "2"), True)])
-def test_cli_default_runs_on_one_of_several_cards(cli_env, monkeypatch, num_chips, refused):
-    """On a host with four cards the default command line evaluates on one;
-    --num-chips 0 (every card) or 2 names item 14."""
+@pytest.mark.parametrize("num_chips, launched", [((), False), (("--num-chips", "1"), False),
+                                                 (("--num-chips", "0"), True),
+                                                 (("--num-chips", "2"), True)])
+def test_cli_default_runs_on_one_of_several_cards(cli_env, monkeypatch, num_chips, launched):
+    """On a host with four cards the default command line evaluates in this
+    process, on one; --num-chips 0 (every card) launches four processes and
+    --num-chips 2 two, one a card, on one machine."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
 
     def build_model(*a, **k):
         raise _PastTheCheck
 
+    def launch(fn, args, devices, **kw):
+        raise _PastTheCheck(devices, kw)
+
     monkeypatch.setattr(trunner, "build_model", build_model)
+    monkeypatch.setattr(tlaunch, "launch", launch)
     argv = [a for a in _argv(cli_env[0], *num_chips) if a not in ("--device", "cpu")]
-    if refused:
-        with pytest.raises(NotImplementedError, match="item 14"):
-            tmain.main(argv)
+    with pytest.raises(_PastTheCheck) as exc:
+        tmain.main(argv)
+    if launched:
+        n = 4 if num_chips[1] == "0" else 2
+        assert exc.value.args == ([f"cuda:{i}" for i in range(n)],
+                                  {"num_machines": 1, "machine_rank": 0, "dist_url": ""})
     else:
-        with pytest.raises(_PastTheCheck):
-            tmain.main(argv)
+        assert exc.value.args == ()
 
 
 def test_cli_default_device_needs_a_card(cli_env):

@@ -336,11 +336,11 @@ def test_evaluate_split_scores_the_split(split, port_run):
 
 # ---- refusals
 
-def test_run_inference_refuses_what_it_does_not_do(split, models, monkeypatch):
+def test_run_inference_refuses_what_it_does_not_do(split, models):
     refine = models[2]
     ev = tev.CATREEvaluator(split, n_iters=N_IT)
     batches = [b for b in _port_loader(split) if not b.get("empty")]
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 15"):       # one process per card
         tev.run_inference(refine, batches, ev, N_IT, mesh=object(), mean_table=TABLE)
     with pytest.raises(NotImplementedError, match="item 15"):
         tev.run_inference(refine, [dict(batches[0], _presampled={})], ev, N_IT,
@@ -360,10 +360,6 @@ def test_run_inference_refuses_what_it_does_not_do(split, models, monkeypatch):
     meta_refine = make_refine_fn(init_model(CATREConfig(num_pcl=NPCL), device="meta"), N_IT)
     with pytest.raises(RuntimeError, match="device"):
         tev.run_inference(meta_refine, _port_loader(split), ev, N_IT, mean_table=TABLE)
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ev.evaluate(dump=False)
 
 
 def test_missing_asset_table_falls_back_to_the_host_path(split, models, monkeypatch, tmp_path):

@@ -180,7 +180,8 @@ def test_cli_and_checkpoints_run_with_jax_blocked():
         "'catre_tpu_torch.tools.convert_checkpoint', 'catre_tpu_torch.ops.limits', "
         "'catre_tpu_torch.solver.schedule', 'catre_tpu_torch.solver.optimizer', "
         "'catre_tpu_torch.solver.transforms', 'catre_tpu_torch.solver.extra', "
-        "'catre_tpu_torch.solver.ranger_family'} <= set(names)\n"
+        "'catre_tpu_torch.solver.ranger_family', 'catre_tpu_torch.parallel.comm', "
+        "'catre_tpu_torch.parallel.mesh', 'catre_tpu_torch.parallel.launch'} <= set(names)\n"
         "from catre_tpu_torch import main\n"
         "from catre_tpu_torch.config.build import FLAGSHIP_CONFIG, model_config_from\n"
         "from catre_tpu_torch.config.loader import apply_overrides, load_config\n"

@@ -332,9 +332,10 @@ def test_ctx_reuses_model_loader_and_refine(tmp_path, weights):
 
 def test_what_the_port_refuses(tmp_path, weights):
     cfg = _port_cfg(tmp_path, weights)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # NUM_CHIPS counts processes a machine: 2 in a process without a group of 2 raises
+    with pytest.raises(ValueError, match="NUM_CHIPS=2 processes a machine"):
         runner.do_test(apply_overrides(cfg, ["NUM_CHIPS=2"]), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="NUM_CHIPS=2 processes a machine"):
         runner.do_train(apply_overrides(cfg, ["NUM_CHIPS=2"]), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA card"):

@@ -391,8 +391,9 @@ def _bytes(preds):
 
 
 def test_training_refusals(tmp_path):
-    """NUM_CHIPS 2 names item 14; the default device needs a card."""
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """NUM_CHIPS 2 without a process group of 2 raises, naming the launch;
+    the default device needs a card."""
+    with pytest.raises(ValueError, match="--num-chips 2"):
         runner.do_train(_cfg(tmp_path, "NUM_CHIPS=2"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA card"):
