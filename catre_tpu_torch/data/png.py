@@ -160,19 +160,28 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 def _filter_rows(img: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
     """Forward filters on (H, stride) bytes: each row's prediction reads the
-    image itself, so every row filters at once."""
+    image itself, so the rows of one filter type filter at once. Only the
+    predictions of the types present are formed (a file of Sub rows, the
+    writer's default, needs only the left neighbours)."""
     x = img.astype(np.int32)
     left = np.zeros_like(x)
     left[:, bpp:] = x[:, :-bpp]
     up = np.zeros_like(x)
     up[1:] = x[:-1]
-    up_left = np.zeros_like(x)
-    up_left[1:, bpp:] = x[:-1, :-bpp]
-    pa, pb, pc = np.abs(up - up_left), np.abs(left - up_left), np.abs(left + up - 2 * up_left)
-    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
-    pred = np.choose(ftype.astype(np.int64)[:, None],
-                     [np.zeros_like(x), left, up, (left + up) >> 1, paeth])
-    return ((x - pred) & 0xFF).astype(np.uint8)
+
+    def paeth():
+        up_left = np.zeros_like(x)
+        up_left[1:, bpp:] = x[:-1, :-bpp]
+        pa, pb, pc = np.abs(up - up_left), np.abs(left - up_left), np.abs(left + up - 2 * up_left)
+        return np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
+
+    predict = {NONE: lambda: 0, SUB: lambda: left, UP: lambda: up,
+               AVERAGE: lambda: (left + up) >> 1, PAETH: paeth}
+    out = np.empty_like(x)
+    for t in np.unique(ftype):
+        rows = ftype == t
+        out[rows] = (x - predict[int(t)]())[rows]
+    return (out & 0xFF).astype(np.uint8)
 
 
 def encode_png(img: np.ndarray, filters=SUB, level: int = 6) -> bytes:

@@ -94,11 +94,11 @@ def _device(device) -> torch.device:
 
 def build_model(cfg, device="cuda"):
     """The model of `cfg` on `device`, seeded from SEED (at least 0), then
-    MODEL.WEIGHTS loaded when given: a path ending in .pth or .pkl is a
-    checkpoint in the reference's layout (`utils.checkpoint.
-    load_reference_checkpoint`), any other path a directory of the port's own
-    checkpoints (the latest step). -> (model, its CATREConfig, seconds spent
-    reading and loading the weights)."""
+    MODEL.WEIGHTS loaded when given (`utils.checkpoint.load_weights`): a .pth
+    or .pkl in the reference's layout, an orbax directory of the JAX package
+    (needs tensorstore) or a directory of the port's own checkpoints, each at
+    its latest step. -> (model, its CATREConfig, seconds spent reading and
+    loading the weights)."""
     mcfg = model_config_from(cfg)
     model = init_model(mcfg, seed=max(int(cfg.get("SEED", 0)), 0), device=device)
     n_params = sum(p.numel() for p in model.parameters())
@@ -107,12 +107,8 @@ def build_model(cfg, device="cuda"):
     path = cfg.MODEL.get("WEIGHTS", "")
     if path:
         t0 = time.perf_counter()
-        if path.endswith((".pth", ".pkl")):
-            logger.info("loading a reference checkpoint %s", path)
-            sd = ckpt.load_reference_checkpoint(path, model)
-        else:
-            logger.info("loading a checkpoint of the port from %s", path)
-            sd = ckpt.load_checkpoint(path)["model"]
+        logger.info("loading the weights of %s", path)
+        sd = ckpt.load_weights(path, model)
         model.load_state_dict(sd)
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)

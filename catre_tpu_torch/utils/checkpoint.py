@@ -27,10 +27,18 @@ checkpointer reads. The native half (`save_checkpoint`, `load_checkpoint`,
 a step in a directory. Over a process group the main process writes it and
 every process waits for it (`save_checkpoint` is collective); every process
 reads it.
+
+The JAX package's own directories are read too (`read_orbax_params`): what
+its `save_checkpoint` writes with orbax's `CheckpointManager`, a step a
+directory, each holding an OCDBT store of zarr arrays whose frames are zstd
+compressed. Only `tensorstore` reads that store, so it is imported inside the
+reader alone; a host without it (the card's) converts the directory first,
+on a host that has it, with `tools/convert_checkpoint.py`.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import os.path as osp
@@ -41,12 +49,15 @@ import numpy as np
 import torch
 
 from ..parallel import comm
+from .convert import params_from_jax
 
 logger = logging.getLogger(__name__)
 
 IN_POINT = 64
 FORMAT = "catre_tpu_torch"
 _STEP_FILE = re.compile(r"step_(\d+)\.pt$")
+ORBAX_STEP_FILE = "_CHECKPOINT_METADATA"
+CONVERT_COMMAND = "python -m catre_tpu_torch.tools.convert_checkpoint <orbax dir> <out dir>"
 
 
 # ---- the reference layout
@@ -237,14 +248,18 @@ def latest_step(ckpt_dir: str) -> int | None:
 def load_checkpoint(ckpt_dir: str, step: int | None = None) -> dict:
     """The checkpoint of `step` (default the latest) in `ckpt_dir`: a dict
     with "step", "model" (a state dict on the CPU) and whatever else was
-    saved. Raises FileNotFoundError when the directory holds none; a
-    directory with other content (an orbax checkpoint of the JAX package,
-    say) is named as such."""
+    saved. Raises FileNotFoundError when the directory holds none; an orbax
+    directory of the JAX package is named as such, with the command that
+    converts it, and any other content is listed."""
     steps = _step_files(ckpt_dir)
     if not steps:
-        other = sorted(os.listdir(ckpt_dir)) if osp.isdir(ckpt_dir) else []
-        hint = (f"; it holds {other[:5]}: an orbax checkpoint of the JAX package is not read "
-                f"here, converting it is ROADMAP item 14b") if other else ""
+        if is_orbax_dir(ckpt_dir):
+            hint = (f": it is an orbax checkpoint of the JAX package (steps "
+                    f"{orbax_steps(ckpt_dir)}), which MODEL.WEIGHTS reads where tensorstore is "
+                    f"installed; convert it there with `{CONVERT_COMMAND}`")
+        else:
+            other = sorted(os.listdir(ckpt_dir)) if osp.isdir(ckpt_dir) else []
+            hint = f"; it holds {other[:5]}" if other else ""
         raise FileNotFoundError(f"no checkpoint of the port in {ckpt_dir}{hint}")
     if step is None:
         step = max(steps)
@@ -255,3 +270,91 @@ def load_checkpoint(ckpt_dir: str, step: int | None = None) -> dict:
     if not isinstance(ckpt, dict) or ckpt.get("format") != FORMAT:
         raise ValueError(f"{steps[step]} is not a checkpoint of the port")
     return ckpt
+
+
+# ---- orbax directories of the JAX package
+
+def orbax_steps(path: str) -> list:
+    """The steps of an orbax checkpoint directory, ascending: the subdirectories
+    named by an integer that hold `_CHECKPOINT_METADATA`. orbax's temporary
+    `<step>.orbax-checkpoint-tmp-<n>` directories of an unfinished save are not
+    steps, as `CheckpointManager.latest_step` does not count them."""
+    if not osp.isdir(path):
+        return []
+    return sorted(int(name) for name in os.listdir(path)
+                  if name.isdigit() and osp.isfile(osp.join(path, name, ORBAX_STEP_FILE)))
+
+
+def is_orbax_dir(path: str) -> bool:
+    return bool(orbax_steps(path))
+
+
+def _bf16_bits_to_f32(a: np.ndarray) -> np.ndarray:
+    """bfloat16 -> float32 through the uint16 bits: the upper half of the f32."""
+    return (a.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
+def read_orbax_params(path: str, step: int | None = None) -> dict:
+    """The flax parameter tree (nested dicts of numpy arrays, bf16 leaves as
+    f32) of step `step` (default the latest) of an orbax directory written by
+    the JAX package's `save_checkpoint`: `{"params": ...}` (its
+    `tools/convert_checkpoint.py`) or a `TrainState(params, opt_state, step)`
+    of its `do_train`, of which only the params are read, as its `build_model`
+    reads only them. The leaves are listed by the step's `_METADATA` and read
+    through tensorstore, the zarr arrays of its OCDBT store keyed by the tree
+    path joined by dots. Without tensorstore this raises and names the command
+    that converts the directory on a host that has it."""
+    steps = orbax_steps(path)
+    if not steps:
+        raise FileNotFoundError(f"no orbax checkpoint step in {path}")
+    step = steps[-1] if step is None else int(step)
+    if step not in steps:
+        raise FileNotFoundError(f"no orbax step {step} in {path} (steps {steps})")
+    item = osp.join(osp.abspath(path), str(step), "default")
+    with open(osp.join(item, "_METADATA")) as f:
+        layout = json.load(f)
+    if not layout.get("use_ocdbt") or layout.get("use_zarr3"):
+        raise ValueError(f"{item}: orbax layout use_ocdbt={layout.get('use_ocdbt')}, "
+                         f"use_zarr3={layout.get('use_zarr3')} is not read (the JAX package "
+                         "writes an OCDBT store of zarr v2 arrays)")
+    leaves = [[k["key"] for k in entry["key_metadata"]]
+              for entry in layout["tree_metadata"].values()]
+    leaves = [keys for keys in leaves if keys[0] == "params" and len(keys) > 1]
+    if not leaves:
+        raise ValueError(f"{item} holds no params")
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise RuntimeError(
+            f"reading the orbax checkpoint {path} needs tensorstore, which this host lacks; on "
+            f"a host that has it (any host that wrote the checkpoint), run `{CONVERT_COMMAND}` "
+            "and give MODEL.WEIGHTS the directory it writes") from e
+    tree: dict = {}
+    for keys in leaves:
+        spec = {"driver": "zarr", "kvstore": {"driver": "ocdbt", "base": "file://" + item,
+                                              "path": ".".join(keys) + "/"}}
+        arr = np.asarray(ts.open(spec, open=True).result().read().result())
+        if arr.dtype.name == "bfloat16":
+            arr = _bf16_bits_to_f32(arr)
+        node = tree
+        for k in keys[1:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = arr
+    return tree
+
+
+def load_orbax_checkpoint(path: str, model: torch.nn.Module, step: int | None = None) -> dict:
+    """An orbax directory of the JAX package -> a state dict for `model`
+    (`utils/convert.py::params_from_jax`)."""
+    return params_from_jax(read_orbax_params(path, step), model)
+
+
+def load_weights(path: str, model: torch.nn.Module) -> dict:
+    """What MODEL.WEIGHTS names -> a state dict for `model`: a .pth / .pkl in
+    the reference's layout, an orbax directory of the JAX package (its latest
+    step), or a directory of the port's checkpoints (its latest step)."""
+    if path.endswith((".pth", ".pkl")):
+        return load_reference_checkpoint(path, model)
+    if is_orbax_dir(path):
+        return load_orbax_checkpoint(path, model)
+    return load_checkpoint(path)["model"]

@@ -212,6 +212,26 @@ code is non-zero):
                points. ms a step on each rank beside world 1's, the gradient
                all-reduce timed alone and its share of a step, peak memory a
                rank.
+  8. tools:    the JAX package's tools as the port carries them, on the card's
+               host (no cv2, JAX or tensorstore), under a data root of seeded
+               asset pickles: `synth_nocs` writes 64 frames that the port's test
+               loader reads (every listed image, finite clouds); `pose_data`
+               recovers the pose of a written frame by Umeyama and by PnP within
+               1e-3; `prepare_init_results` turns predictions into an init JSON
+               that `load_init_poses_into_dataset` reads (poses, scales and
+               masks back); `fps_sample` on the card gives the CPU's points;
+               `soak` trains 8 iterations (one a step of 64 frames, the warm-up's
+               refine counts, TRAIN2 at 0.25) with one checkpoint and one
+               evaluation, then `--resume`s to iteration 9: finite losses, the
+               warm-up's launches (K3 = K4 = n, K5 2n + 2n, K6 n + n) and K1 = 4,
+               K2 = 8, K3 = 4 a refine call of the evaluation, ms an iteration at
+               n = 4 beside 7d's; `sampler_spread` (2 seeds, 16 frames), arm A
+               with iteration 0 the same in every run, then the arms
+               f32,bf16_fused: K1 = 4, K2 = 8, K3 = 4 a bf16_fused refine call,
+               none in f32; `repro_diff` of 5f's tables against themselves
+               (every delta 0, exit 0) and `trainrun_report` on 7d's directory;
+               an orbax directory in MODEL.WEIGHTS raises and names
+               `tools/convert_checkpoint.py`.
 Then one JSON line of per-kernel results (each with its time, its plain
 version's time and its bound: the larger of its bytes over 3.35 TB/s and its
 operations over the card's peak for their type), the card's name and power
@@ -312,6 +332,14 @@ DIST_TIMEOUT_S = 300         # ... a collective that waits longer raises
 DIST_REDUCE_CALLS = 5        # ... gradient all-reduces timed alone
 DIST_SUMMARY_PTS = 0.5       # ... do_test summaries, world 2 vs 1, where not bit-equal
 DIST_BF16_SLACK = 2.0        # ... world 2's bf16 gradients from the f32 step's: this x world 1's
+TOOLS_FRAMES = 64            # phase 8: frames synth_nocs writes (the soak's real_train, one step)
+TOOLS_FRAMES2 = 16           # ... the soak's CAMERA-shaped TRAIN2 split
+TOOLS_FRAMES_TEST = 16       # ... the soak's and the sampler study's test split
+SOAK_EPOCHS, SOAK_MORE = 8, 2    # ... the soak's first run (one iteration an epoch), then resumed
+SOAK_EVAL = 8                # ... its TEST.EVAL_PERIOD: one evaluation, at the first run's end
+SPREAD_SEEDS = 2             # ... loader seeds of the sampler study
+POSE_TOL = 1e-3              # ... pose_data's Umeyama and PnP labels against the written pose
+FPS_INSTANCES, FPS_POINTS = 40, 32   # ... fps_sample, card against CPU
 
 
 def log(phase, msg):
@@ -1502,10 +1530,10 @@ def write_split(root):
     return records
 
 
-def loader_phase(dev, card, records, model_seed=0):
+def loader_phase(dev, card, records, keep, model_seed=0):
     """The split on disk -> the shipped test loader -> the shipped refine (see
     5d in the module docstring); returns the refine's launch counts over the
-    warm passes."""
+    warm passes. 5f's tables are copied under `keep`/5f for phase 8."""
     import numpy as np
 
     from catre_tpu_torch import ops
@@ -1594,7 +1622,7 @@ def loader_phase(dev, card, records, model_seed=0):
                   "reused from the third)")
     del loader, unc, piped
     counts_eval = evaluate_phase(dev, card, records, table, model_seed)
-    counts_test = do_test_phase(dev, card, records, table, model_seed)
+    counts_test = do_test_phase(dev, card, records, table, keep, model_seed)
     # the registry holds the device caches and the candidates (1.5 GB each): later phases
     # measure peaks
     del table_dev
@@ -1769,10 +1797,12 @@ def cli_workspace(work, records, table):
     return init_file
 
 
-def do_test_phase(dev, card, records, table, model_seed=0):
+def do_test_phase(dev, card, records, table, keep, model_seed=0):
     """The split of 5d through `main --eval-only` (see 5f in the module
-    docstring); returns the launch counts of its three runs."""
+    docstring); returns the launch counts of its three runs. The native run's
+    tables are copied to `keep`/5f."""
     import pickle
+    import shutil
 
     import numpy as np
 
@@ -1842,6 +1872,11 @@ def do_test_phase(dev, card, records, table, model_seed=0):
                 raise RuntimeError(f"do_test {tag}: {len(got[0])} images scored, or no "
                                    "config_dump.py")
             same_predictions(f"do_test {tag} vs evaluate_split", got, ref)
+            if tag == "native":
+                os.makedirs(os.path.join(keep, "5f"))
+                for i in range(N_ITER + 1):
+                    shutil.copy(os.path.join(out_dir, f"metrics_tab_iter{i}.txt"),
+                                os.path.join(keep, "5f"))
             iou_aps, pose_aps = res["results"][0]["iou_aps"], res["results"][0]["pose_aps"]
             at_init = [v for c in present for v in (iou_aps[c, 1], iou_aps[c, 2], iou_aps[c, 3],
                                                      pose_aps[c, 0, 0], pose_aps[c, -1, 0])]
@@ -1860,10 +1895,12 @@ def do_test_phase(dev, card, records, table, model_seed=0):
     return total
 
 
-def do_train_phase(card, records, per_step, ms_7c):
+def do_train_phase(card, records, per_step, ms_7c, keep):
     """Phase 7d: the split of 5d trained through `main` without --eval-only,
     then resumed from a middle checkpoint (see 7d in the module docstring);
-    -> the launch counts of both runs."""
+    -> (the launch counts of both runs, the median ms an iteration at the full
+    refine count). The straight run's metrics.json and log.txt are copied to
+    `keep`/7d."""
     import shutil
     import statistics
 
@@ -2004,6 +2041,9 @@ def do_train_phase(card, records, per_step, ms_7c):
                         f"{peak / 2**30:.2f} GiB; launches "
                         f"{ {k: v for k, v in counts.items() if v} } (the warm-up's schedule "
                         f"and {evals} x {per_eval}) | {card}")
+        os.makedirs(os.path.join(keep, "7d"))
+        for f in ("metrics.json", "log.txt"):
+            shutil.copy(os.path.join(out, f), os.path.join(keep, "7d"))
         fell = last < first
         log("do_train", f"iter0/loss_total median of the first {TRAIN_CLI_LOSS_WINDOW} "
                         f"iterations {first:.5f}, of the last {last:.5f}: "
@@ -2045,7 +2085,7 @@ def do_train_phase(card, records, per_step, ms_7c):
         meta.set_data_root(old_root)
     del state, state2
     torch.cuda.empty_cache()
-    return {k: counts[k] + counts2[k] for k in counts}
+    return {k: counts[k] + counts2[k] for k in counts}, statistics.median(steady)
 
 
 def dist_test_cfg(work, init_file, out_dir):
@@ -2286,6 +2326,390 @@ def dist_phase(dev, card, records, per_step, per_batch):
     counts += [out["test_counts"] for out in ranks]
     counts += [c for dt in ("f32", "bf16") for c in world1[dt]["counts"]] + [test_counts1]
     return {k: sum(c[k] for c in counts) for k in test_counts1}
+
+
+def write_pose_frame(base, R, t, s, model_name, inst=3, half=50):
+    """A NOCS-format frame of one instance under the pose (R, t) and NOCS
+    scale s: a curved surface of (2 half)^2 pixels around t's projection,
+    its depth whole millimetres, its coordinate map (R^T (X - t) / s + 0.5)
+    rounded to 8 bits, written by `data/png.py`; -> the intrinsics."""
+    import numpy as np
+
+    from catre_tpu_torch.data import meta, png
+
+    K = meta.REAL_INTRINSICS.astype(np.float64)
+    u0, v0 = np.round(K[:2] @ (t / t[2])).astype(int)
+    vs, us = np.mgrid[v0 - half: v0 + half, u0 - half: u0 + half]
+    xn, yn = (us - u0) / half, (vs - v0) / half
+    z = np.round((t[2] + 0.08 * xn - 0.05 * yn + 0.06 * (xn ** 2 + yn ** 2)) * 1000) / 1000
+    X = np.stack([(us - K[0, 2]) / K[0, 0] * z, (vs - K[1, 2]) / K[1, 1] * z, z], axis=-1)
+    nocs = (X - t) @ R / s
+    if np.abs(nocs).max() >= 0.5:
+        raise ValueError("the surface leaves the NOCS cube")
+    rgb = np.round((nocs + 0.5) * 255).astype(np.uint8)
+    rgb[..., 2] = np.round((0.5 - nocs[..., 2]) * 255).astype(np.uint8)    # z flipped
+    depth = np.zeros((meta.IM_HEIGHT, meta.IM_WIDTH), np.uint16)
+    mask = np.zeros(depth.shape, np.uint8)
+    coord = np.zeros(depth.shape + (3,), np.uint8)
+    depth[vs, us] = np.round(z * 1000).astype(np.uint16)
+    mask[vs, us] = inst
+    coord[vs, us] = rgb[..., ::-1]                                         # BGR
+    for suffix, img in (("depth", depth), ("mask", mask), ("coord", coord)):
+        png.write_png(f"{base}_{suffix}.png", img)
+    with open(base + "_meta.txt", "w") as f:
+        f.write(f"{inst} 1 {model_name}\n")
+    return K
+
+
+def tools_phase(dev, card, per_step, per_call, ms_7d, keep):
+    """Phase 8 (see the module docstring); -> the launch counts of the soak's
+    two runs and the sampler study's."""
+    import argparse
+    import contextlib
+    import io
+    import pickle
+    import statistics
+
+    import numpy as np
+
+    from catre_tpu_torch import ops
+    from catre_tpu_torch.config.build import FLAGSHIP_CONFIG
+    from catre_tpu_torch.config.loader import apply_overrides, load_config
+    from catre_tpu_torch.data import loader as dl
+    from catre_tpu_torch.data import meta, nocs
+    from catre_tpu_torch.data.rle import rle_to_binary_mask
+    from catre_tpu_torch.engine import runner
+    from catre_tpu_torch.entry import N_ITER
+    from catre_tpu_torch.geom.rotations import euler_to_mat
+    from catre_tpu_torch.tools import (fps_sample, pose_data, prepare_init_results, repro_diff,
+                                       sampler_spread, soak, synth_nocs, trainrun_report)
+    from catre_tpu_torch.utils import checkpoint as ckpt
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    want_call = {k: v for k, v in per_call.items() if v}
+    old_root, env_root = meta.DATA_ROOT, os.environ.pop("CATRE_DATA_ROOT", None)
+    registered = set(nocs._DATASET_REGISTRY)
+    work_dir = tempfile.TemporaryDirectory(prefix="catre_tools_")
+    work = work_dir.name
+    data = os.path.join(work, "data")
+    quiet = logging.StreamHandler(open(os.path.join(work, "tools.log"), "w"))  # INFO lines
+    logging.getLogger().addHandler(quiet)
+    try:
+        # the asset pickles under a data root of the phase's own, seeded
+        meta.set_data_root(data)
+        os.makedirs(meta.MODEL_DIR)
+        rng = np.random.default_rng(8)
+        table = rng.normal(size=(6, 1024, 3)).astype(np.float32) * 0.15
+        models = {f"inst_{j}": rng.normal(size=(1024, 3)).astype(np.float32) * 0.1
+                  for j in range(FPS_INSTANCES)}
+        assets = {meta.CR_MEAN_MODEL_PATH: {meta.ID2OBJ[i + 1]: table[i] for i in range(6)},
+                  meta.ABS_SCALE_PATH: {f"{o}_{i}_norm": rng.uniform(0.08, 0.3, 3)
+                                        .astype(np.float32) for o in meta.OBJECTS
+                                        for i in range(2)},
+                  meta.TEST_MODEL_PATH: models}
+        for path, obj in assets.items():
+            with open(path, "wb") as f:
+                pickle.dump(obj, f)
+
+        # synth_nocs -> the port's test loader (the split is also the soak's real_train)
+        real = os.path.join(data, "REAL")
+        t0 = time.perf_counter()
+        synth_nocs.generate_split(real, split="real_train", n_frames=TOOLS_FRAMES, n_objs=6,
+                                  seed=0)
+        gen_s = time.perf_counter() - t0
+        nocs.register_dataset("nocs_tools_real_train", image_root=real, use_cache=False)
+        dicts = sampler_spread.inject_fixed_init(nocs.get_dataset_dicts("nocs_tools_real_train"))
+        with open(os.path.join(real, "real_train_list_all.txt")) as f:
+            n_listed = len(f.read().split())
+        loader = dl.CATRELoader(dicts, dl.LoaderConfig(aug_depth=False, sample_window=-1),
+                                phase="test", ims_per_batch=16, device=dev)
+        seen, n_obj = set(), 0          # a padding image of the trailing group has no id
+        for batch in loader:
+            pcl, valid = torch.as_tensor(batch["pcl"]), batch["valid"].astype(bool)
+            if pcl.shape[1:] != (1024, 3) or not torch.isfinite(pcl).all():
+                raise RuntimeError(f"tools: a test batch of the synthetic split: {pcl.shape}")
+            m = len(valid) // len(batch["scene_im_ids"])
+            for i, sid in enumerate(batch["scene_im_ids"]):
+                if sid is not None and sid not in seen:
+                    seen.add(sid)
+                    n_obj += int(valid[i * m:(i + 1) * m].sum())
+        n_img = len(seen)
+        if not (len(dicts) == n_listed == n_img > 0 and n_obj >= n_img):
+            raise RuntimeError(f"tools: {n_listed} frames listed, {len(dicts)} records, "
+                               f"{n_img} images through the test loader")
+        log("tools", f"synth_nocs wrote {n_listed} frames 480x640 in {gen_s:.2f} s "
+                     f"({gen_s / n_listed * 1e3:.1f} ms a frame); the test loader read "
+                     f"{n_img} images, {n_obj} objects, finite clouds")
+        del loader
+        dl.clear_decoded_caches()
+
+        # pose_data: a known pose back by Umeyama and by PnP
+        R = euler_to_mat(torch.tensor([[0.3, -0.4, 0.5]], dtype=torch.float64))[0].numpy()
+        t, s_gt = np.array([0.05, -0.03, 0.9]), 0.45
+        base = os.path.join(work, "pose_0000")
+        K = write_pose_frame(base, R, t, s_gt, "bottle_0_norm")
+        errs = {}
+        for method in ("umeyama", "pnp"):
+            lab = pose_data.process_frame(base, K, method=method,
+                                          scale_factors={"bottle_0_norm": s_gt})
+            errs[method] = max(abs(lab["scales"][0] - s_gt),
+                               float(np.abs(lab["rotations"][0] - R).max()),
+                               float(np.abs(lab["translations"][0] - t).max()))
+        log("tools", f"pose_data on a written frame of a known pose: max error of s, R, t "
+                     f"Umeyama {errs['umeyama']:.3e}, PnP (numpy EPnP) {errs['pnp']:.3e}, "
+                     f"limit {POSE_TOL:.0e}")
+        if not max(errs.values()) <= POSE_TOL:
+            raise RuntimeError("tools: pose_data missed the written pose")
+
+        # prepare_init_results: predictions -> init JSON -> the test records
+        n = 4
+        rots = euler_to_mat(torch.from_numpy(rng.uniform(-1, 1, (n, 3)))).numpy()
+        s_nocs = rng.uniform(0.5, 1.5, n)
+        RTs = np.tile(np.eye(4), (n, 1, 1))
+        RTs[:, :3, :3] = s_nocs[:, None, None] * rots
+        RTs[:, :3, 3] = rng.normal(size=(n, 3))
+        preds = {"pred_RTs": RTs, "pred_scales": rng.uniform(0.2, 0.6, (n, 3)),
+                 "pred_class_ids": np.array([1, 2, 3, 6]),
+                 "pred_bboxes": rng.integers(0, 400, (n, 4)), "pred_scores": rng.uniform(size=n),
+                 "gt_handle_visibility": np.array([1, 1, 1, 0])}
+        masks = rng.uniform(size=(meta.IM_HEIGHT, meta.IM_WIDTH, n)) > 0.7
+        for sub, obj in (("pose", preds), ("seg", {"masks": masks})):
+            os.makedirs(os.path.join(work, sub))
+            with open(os.path.join(work, sub, "results_test_scene_1_0000.pkl"), "wb") as f:
+                pickle.dump(obj, f)
+        init_json = os.path.join(work, "init", "init_poses.json")
+        if prepare_init_results.main(["--pose-dir", os.path.join(work, "pose"), "--seg-dir",
+                                      os.path.join(work, "seg"), "--out", init_json]) != 0:
+            raise RuntimeError("tools: prepare_init_results failed")
+        with open(init_json) as f:
+            entries = json.load(f)["scene_1/0000"]
+        pose_want = np.concatenate([rots, RTs[:, :3, 3:]], axis=2)
+        scale_want = preds["pred_scales"] * s_nocs[:, None]
+        err = max(max(np.abs(np.asarray(e["pose_est"]) - pose_want[i]).max(),
+                      np.abs(np.asarray(e["scale_est"]) - scale_want[i]).max())
+                  for i, e in enumerate(entries))
+        same_masks = all(np.array_equal(rle_to_binary_mask(e["segmentation"]), masks[:, :, i])
+                         for i, e in enumerate(entries))
+        recs = nocs.load_init_poses_into_dataset([{"scene_im_id": "scene_1/0000"}], init_json)
+        if not (len(entries) == n and err <= 1e-6 and same_masks
+                and len(recs[0]["annotations"]) == n):
+            raise RuntimeError(f"tools: prepare_init_results round trip: {len(entries)} entries, "
+                               f"pose / scale error {err:.3e}, masks equal {same_masks}")
+        log("tools", f"prepare_init_results: {n} predictions -> JSON -> "
+                     f"load_init_poses_into_dataset, poses and scales within {err:.1e}, "
+                     "masks equal after the RLE")
+
+        # fps_sample on the card against the CPU
+        out_pkl = os.path.join(work, "fps.pkl")
+        sync()
+        t0 = time.perf_counter()
+        fps_sample.main(["--split", "test", "--num-points", str(FPS_POINTS), "--out", out_pkl,
+                         "--device", dev.type])
+        fps_s = time.perf_counter() - t0
+        with open(out_pkl, "rb") as f:
+            card_kps = pickle.load(f)
+        cpu_kps = fps_sample.fps_keypoints(models, FPS_POINTS, "cpu")
+        key = f"fps{FPS_POINTS}_and_center"
+        if list(card_kps) != list(cpu_kps) or not all(
+                np.array_equal(card_kps[k][key], cpu_kps[k][key]) for k in cpu_kps):
+            raise RuntimeError("tools: fps_sample on the card differs from the CPU")
+        log("tools", f"fps_sample: {len(models)} instances x {FPS_POINTS} points on the card "
+                     f"in {fps_s:.3f} s (the CLI), the same points as on the CPU")
+
+        # the soak: SOAK_EPOCHS iterations and one checkpoint, then --resume to the end
+        soak_out = os.path.join(work, "soak")
+        opts = ["TRAIN.PRINT_FREQ=1", f"TEST.EVAL_PERIOD={SOAK_EVAL}"]
+        soak_cfg = soak.soak_config(argparse.Namespace(epochs=SOAK_EPOCHS, out=soak_out,
+                                                       opts=opts))
+        n_train = int(soak_cfg.MODEL.CATRE.N_ITER_TRAIN)
+        warm = int(soak_cfg.MODEL.CATRE.N_ITER_TRAIN_WARM_EPOCH)
+        per_epoch = max(TOOLS_FRAMES // int(soak_cfg.SOLVER.IMS_PER_BATCH), 1)
+        eval_calls = -(-TOOLS_FRAMES_TEST // int(soak_cfg.TEST.IMS_PER_BATCH))
+
+        def n_at(it):
+            return min(n_train, max(1, int(n_train * (it // per_epoch + 1) / warm)))
+
+        def want(iters, n_evals):
+            w = dict.fromkeys(total, 0)
+            for it in iters:
+                for k, v in per_step.items():
+                    w[k] += v * n_at(it) // N_ITER
+            for k, v in per_call.items():
+                w[k] += n_evals * eval_calls * v
+            return w
+
+        common = ["--data-root", data, "--out", soak_out, "--frames", str(TOOLS_FRAMES),
+                  "--frames2", str(TOOLS_FRAMES2), "--frames-test", str(TOOLS_FRAMES_TEST),
+                  "--device", dev.type, "--opts", *opts]
+        walls, n_first, soak_counts = [], SOAK_EPOCHS * per_epoch, dict(total)
+        for epochs, resume, iters in ((SOAK_EPOCHS, False, range(n_first)),
+                                      (SOAK_EPOCHS + SOAK_MORE, True,
+                                       range(n_first, n_first + SOAK_MORE * per_epoch))):
+            sync()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            soak.main(["--epochs", str(epochs), *(["--resume"] if resume else []), *common])
+            sync()
+            walls.append(time.perf_counter() - t0)
+            counts = ops.launch_counts()
+            n_evals = sum((it + 1) % SOAK_EVAL == 0 for it in iters)
+            if counts != want(iters, n_evals):
+                raise RuntimeError(f"tools: soak launches {counts}, want {want(iters, n_evals)}")
+            soak_counts = {k: soak_counts[k] + v for k, v in counts.items()}
+            steps = sorted(ckpt._step_files(os.path.join(soak_out, "ckpt")))
+            if steps[-1] != iters[-1] or (not resume and steps != [iters[-1]]):
+                raise RuntimeError(f"tools: soak checkpoints {steps}")
+        with open(os.path.join(soak_out, "metrics.json")) as f:
+            lines = {r["iteration"]: r for r in map(json.loads, f)}
+        last = n_first + SOAK_MORE * per_epoch
+        if sorted(lines) != list(range(last)) or not all(
+                np.isfinite(v) for r in lines.values() for v in r.values()):
+            raise RuntimeError(f"tools: soak metrics of iterations {sorted(lines)}, or not finite")
+        steady = [lines[i + 1]["time"] * 1e3 for i in range(n_first - 1)
+                  if n_at(i) == n_train and (i + 1) % SOAK_EVAL]
+        total = dict(soak_counts)
+        log("tools", f"soak: {n_first} iterations (n {[n_at(i) for i in range(n_first)]}), one "
+                     f"checkpoint and one evaluation in {walls[0]:.2f} s, --resume to "
+                     f"iteration {last - 1} in {walls[1]:.2f} s; losses finite, last "
+                     f"loss_total {lines[last - 1]['loss_total']:.5f}; "
+                     f"{statistics.median(steady):.3f} ms an iteration at n = {n_train} "
+                     f"(median of {len(steady)}, {min(steady):.3f}-{max(steady):.3f}; phase 7d "
+                     f"{ms_7d:.3f}); launches { {k: v for k, v in soak_counts.items() if v} }, "
+                     f"the warm-up's schedule (an iteration at n: K3 = K4 = n, K5 2n + 2n, K6 "
+                     f"n + n) and the evaluation's {want_call} a refine call | {card}")
+
+        # the sampler study on the soak's test split: arm A, then the dtype study
+        calls = []
+        make = sampler_spread.make_refine_fn
+
+        def counted(model, n_iter):
+            fn = make(model, n_iter)
+
+            def refine(*a, **k):
+                sync()
+                before = ops.launch_counts()
+                out = fn(*a, **k)
+                sync()
+                after = ops.launch_counts()
+                calls.append((model.cfg.fused_heads,
+                              {kk: v - before[kk] for kk, v in after.items() if v != before[kk]}))
+                return out
+            return refine
+
+        spread = ["--out", os.path.join(work, "spread"), "--data-root", data, "--frames",
+                  str(TOOLS_FRAMES_TEST), "--seeds", str(SPREAD_SEEDS), "--ref-seeds", "0",
+                  "--device", dev.type]
+        sampler_spread.make_refine_fn = counted
+        try:
+            for argv in (spread, spread + ["--dtype-arms", "f32,bf16_fused"]):
+                calls.clear()
+                ops.reset_launch_counts()
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    report = sampler_spread.run_study(sampler_spread.parse_args(argv))
+                wall = time.perf_counter() - t0
+                total = {k: total[k] + v for k, v in ops.launch_counts().items()}
+                runs = [ln for ln in buf.getvalue().splitlines() if ln.startswith("[spread] ")
+                        and "seed=" in ln]
+                bad = [c for f, c in calls if c != (want_call if f else {})]
+                if bad or not calls:
+                    raise RuntimeError(f"tools: sampler_spread launches {bad} a refine call "
+                                       f"(fused: {want_call}, plain: none)")
+                if "--dtype-arms" not in argv:
+                    if report["iter0_max_ptp"] != 0.0:
+                        raise RuntimeError("tools: sampler_spread iteration 0 moved with the seed")
+                    log("tools", f"sampler_spread arm A: {SPREAD_SEEDS} seeds on "
+                                 f"{report['frames']} frames in {wall:.2f} s ({runs}); iter-0 "
+                                 f"max ptp {report['iter0_max_ptp']}, IoU50 "
+                                 f"{report['ours']['IoU50']['mean']:.2f} +- "
+                                 f"{report['ours']['IoU50']['std']:.3f}; {len(calls)} refine "
+                                 f"calls, each {want_call}")
+                else:
+                    d = report["delta_bf16_fused_vs_f32"]
+                    log("tools", f"sampler_spread dtype arms f32,bf16_fused in {wall:.2f} s "
+                                 f"({runs}); |dmean| bf16_fused vs f32: "
+                                 f"{ {k: round(v['abs_dmean'], 3) for k, v in d.items()} }; "
+                                 f"bf16_fused {sum(f for f, _ in calls)} calls each "
+                                 f"{want_call}, f32 none | {card}")
+        finally:
+            sampler_spread.make_refine_fn = make
+
+        # the run reports on phase 5f's tables and phase 7d's directory
+        t5f, d7d = os.path.join(keep, "5f"), os.path.join(keep, "7d")
+        summary = repro_diff.load_table_summary(t5f, N_ITER)
+        with open(os.path.join(work, "ref_summary.json"), "w") as f:
+            json.dump(summary, f)
+        outs = []
+        for mod, argv in ((repro_diff, [t5f, os.path.join(work, "ref_summary.json")]),
+                          (trainrun_report, [d7d, "--log", os.path.join(d7d, "log.txt"),
+                                             "--points", "5"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main(argv)
+            outs.append((rc, buf.getvalue()))
+        deltas = outs[0][1].count("(delta +0.00)")
+        if outs[0][0] != 0 or deltas != len(summary) or "parity OK" not in outs[0][1]:
+            raise RuntimeError(f"tools: repro_diff of 5f's tables against themselves: rc "
+                               f"{outs[0][0]}\n{outs[0][1]}")
+        if outs[1][0] != 0 or "| iter |" not in outs[1][1]:
+            raise RuntimeError(f"tools: trainrun_report on 7d: rc {outs[1][0]}\n{outs[1][1]}")
+        ss = [ln for ln in outs[1][1].splitlines() if ln.startswith("steady-state")]
+        ss = ss[0] if ss else "no steady-state line"
+        log("tools", f"repro_diff of 5f's iteration-{N_ITER} table against itself: "
+                     f"{deltas} metrics at delta 0, exit 0; trainrun_report on 7d: "
+                     f"{len(outs[1][1].splitlines())} lines, {ss}")
+
+        # an orbax directory of the JAX package in MODEL.WEIGHTS
+        ob = os.path.join(work, "orbax")
+        os.makedirs(os.path.join(ob, "3", "default"))
+        with open(os.path.join(ob, "3", ckpt.ORBAX_STEP_FILE), "w") as f:
+            f.write("{}")
+        keys = ["params", "ts_head", "fc_t", "Dense_0", "kernel"]
+        with open(os.path.join(ob, "3", "default", "_METADATA"), "w") as f:
+            json.dump({"tree_metadata": {str(tuple(keys)): {
+                "key_metadata": [{"key": k, "key_type": 2} for k in keys],
+                "value_metadata": {"value_type": "np.ndarray", "skip_deserialize": False}}},
+                "use_ocdbt": True, "use_zarr3": False}, f)
+        cfg = apply_overrides(load_config(str(FLAGSHIP_CONFIG)), [f"MODEL.WEIGHTS={ob}"])
+        import importlib.util
+
+        installed = importlib.util.find_spec("tensorstore") is not None
+        held = sys.modules.get("tensorstore")
+        sys.modules["tensorstore"] = None             # what a host without it sees
+        try:
+            runner.build_model(cfg, dev)
+            raise AssertionError("an orbax directory loaded without tensorstore")
+        except RuntimeError as e:
+            if "catre_tpu_torch.tools.convert_checkpoint" not in str(e):
+                raise
+            msg = str(e)
+        finally:
+            if held is None:
+                sys.modules.pop("tensorstore", None)
+            else:
+                sys.modules["tensorstore"] = held
+        log("tools", f"MODEL.WEIGHTS=<orbax dir> without tensorstore (installed here: "
+                     f"{installed}): {msg[:160]}...")
+    finally:
+        logging.getLogger().removeHandler(quiet)
+        quiet.close()
+        for name in set(nocs._DATASET_REGISTRY) - registered:
+            nocs._DATASET_REGISTRY.pop(name)
+        dl.clear_decoded_caches()
+        meta.set_data_root(old_root)
+        if env_root is not None:
+            os.environ["CATRE_DATA_ROOT"] = env_root
+        work_dir.cleanup()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    log("tools", f"phase 8 in {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 def first_grads(model, optimizer):
@@ -2668,8 +3092,9 @@ def main():
 
     # ---- 5d. split from disk -> test loader -> shipped refine; 5e. the same split scored
     split_dir = tempfile.TemporaryDirectory(prefix="catre_split_")
+    keep_dir = tempfile.TemporaryDirectory(prefix="catre_keep_")    # 5f's and 7d's outputs
     records = write_split(split_dir.name)
-    for counts in loader_phase(dev, card, records):
+    for counts in loader_phase(dev, card, records, keep_dir.name):
         for k in launches:
             launches[k] += counts[k]
 
@@ -2714,7 +3139,7 @@ def main():
         launches[k] += counts[k]
 
     # ---- 7d. the same split trained from the command line, then resumed
-    counts = do_train_phase(card, records, train_per_step, ms_7c)
+    counts, ms_7d = do_train_phase(card, records, train_per_step, ms_7c, keep_dir.name)
     for k in launches:
         launches[k] += counts[k]
 
@@ -2723,6 +3148,13 @@ def main():
     for k in launches:
         launches[k] += counts[k]
     split_dir.cleanup()
+
+    # ---- 8. the tools on the card: the synthetic split, labels, init poses, FPS, the
+    # soak and its resume, the sampler study, the run reports, an orbax directory
+    counts = tools_phase(dev, card, train_per_step, per_call, ms_7d, keep_dir.name)
+    for k in launches:
+        launches[k] += counts[k]
+    keep_dir.cleanup()
 
     # bounds of K1-K4 at the shapes they were timed at, bf16: their dense products
     # (K3 once forward, K4 the forward again and two products per forward product)

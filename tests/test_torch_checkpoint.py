@@ -260,7 +260,7 @@ def test_directory_without_checkpoints_raises(tmp_path):
     orbax = tmp_path / "orbax"
     (orbax / "0" / "default").mkdir(parents=True)
     (orbax / "0" / "_CHECKPOINT_METADATA").write_text("{}")
-    with pytest.raises(FileNotFoundError, match="item 14"):
+    with pytest.raises(FileNotFoundError, match="convert_checkpoint"):
         ck.load_checkpoint(str(orbax))
 
 

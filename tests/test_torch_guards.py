@@ -158,11 +158,13 @@ def test_evaluator_runs_with_jax_blocked():
 
 
 def test_cli_and_checkpoints_run_with_jax_blocked():
-    """Every module of the port imports with jax, flax, cv2, PIL, matplotlib,
-    orbax and torchvision blocked; then the CLI scores a written split from a
-    checkpoint of the port and from a reference .pth converted by
-    `tools/convert_checkpoint.py`, with the mean-shape table read from a
-    pickle under a data root set after import (`meta.set_data_root`)."""
+    """Every module of the port (the tools too) imports with jax, flax, cv2,
+    PIL, matplotlib, orbax and torchvision blocked, and without importing
+    tensorstore (the orbax reader imports it when it reads); then the CLI
+    scores a written split from a checkpoint of the port and from a reference
+    .pth converted by `tools/convert_checkpoint.py`, with the mean-shape table
+    read from a pickle under a data root set after import
+    (`meta.set_data_root`)."""
     code = (
         "import sys\n"
         "BLOCKED = ('jax', 'flax', 'cv2', 'PIL', 'matplotlib', 'orbax', 'torchvision')\n"
@@ -181,7 +183,14 @@ def test_cli_and_checkpoints_run_with_jax_blocked():
         "'catre_tpu_torch.solver.schedule', 'catre_tpu_torch.solver.optimizer', "
         "'catre_tpu_torch.solver.transforms', 'catre_tpu_torch.solver.extra', "
         "'catre_tpu_torch.solver.ranger_family', 'catre_tpu_torch.parallel.comm', "
-        "'catre_tpu_torch.parallel.mesh', 'catre_tpu_torch.parallel.launch'} <= set(names)\n"
+        "'catre_tpu_torch.parallel.mesh', 'catre_tpu_torch.parallel.launch', "
+        "'catre_tpu_torch.tools.alignment', 'catre_tpu_torch.tools.pose_data', "
+        "'catre_tpu_torch.tools.prepare_init_results', 'catre_tpu_torch.tools.synth_nocs', "
+        "'catre_tpu_torch.tools.fps_sample', 'catre_tpu_torch.tools.soak', "
+        "'catre_tpu_torch.tools.sampler_spread', 'catre_tpu_torch.tools.repro_diff', "
+        "'catre_tpu_torch.tools.trainrun_report', 'catre_tpu_torch.tools.fetch_assets'} "
+        "<= set(names)\n"
+        "assert 'tensorstore' not in sys.modules\n"
         "from catre_tpu_torch import main\n"
         "from catre_tpu_torch.config.build import FLAGSHIP_CONFIG, model_config_from\n"
         "from catre_tpu_torch.config.loader import apply_overrides, load_config\n"
