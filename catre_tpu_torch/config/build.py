@@ -211,18 +211,12 @@ def _mean_table_matches(num_kps: int) -> bool:
 
 
 def loader_config_from(cfg, phase: str = "train") -> LoaderConfig:
-    """The loader's LoaderConfig, with the JAX defaults. A train config that
-    asks for colour augmentation or background replacement raises: the port
-    has neither (ROADMAP item 12c). As in the JAX package no key sets
-    `with_nocs` (WITH_NOCS is not in the base schema, which warns about it):
-    the NOCS path is asked for on the LoaderConfig itself."""
+    """The loader's LoaderConfig, with the JAX defaults; the colour
+    augmentation and background replacement probabilities are 0 at test. As
+    in the JAX package no key sets `with_nocs` (WITH_NOCS is not in the base
+    schema, which warns about it): the NOCS path is asked for on the
+    LoaderConfig itself."""
     inp = cfg.INPUT
-    color_aug = float(inp.get("COLOR_AUG_PROB", 0.0))
-    change_bg = float(inp.get("CHANGE_BG_PROB", 0.0))
-    if phase == "train" and (color_aug > 0 or change_bg > 0):
-        raise NotImplementedError(f"INPUT.COLOR_AUG_PROB = {color_aug}, CHANGE_BG_PROB = "
-                                  f"{change_bg}: the port's loader has no colour augmentation "
-                                  "or background replacement; ROADMAP.md item 12c")
     kps_type = str(inp.get("KPS_TYPE", "mean_shape"))
     num_kps = int(inp.get("NUM_KPS", 1024))
     use_cmra_model = bool(inp.get("USE_CMRA_MODEL", True))
@@ -248,6 +242,16 @@ def loader_config_from(cfg, phase: str = "train") -> LoaderConfig:
         use_cmra_model=use_cmra_model,
         cache_decoded=str(cfg.DATALOADER.get("CACHE_DECODED", "")),
         pcl_with_color=bool(inp.get("PCL_WITH_COLOR", False)),
+        color_aug_prob=float(inp.get("COLOR_AUG_PROB", 0.0)) if phase == "train" else 0.0,
+        color_aug_type=str(inp.get("COLOR_AUG_TYPE", "aae")),
+        color_aug_code=str(inp.get("COLOR_AUG_CODE", "")),
+        color_aug_syn_only=bool(inp.get("COLOR_AUG_SYN_ONLY", False)),
+        change_bg_prob=float(inp.get("CHANGE_BG_PROB", 0.0)) if phase == "train" else 0.0,
+        truncate_fg=bool(inp.get("TRUNCATE_FG", False)),
+        bg_image_dir=str(inp.get("BG_IMGS_ROOT", "")),
+        bg_type=str(inp.get("BG_TYPE", "file_dir")),
+        num_bg_imgs=int(inp.get("NUM_BG_IMGS", 10000)),
+        bg_keep_aspect_ratio=bool(inp.get("BG_KEEP_ASPECT_RATIO", True)),
         sampler_train=str(cfg.DATALOADER.get("SAMPLER_TRAIN", "TrainingSampler")),
         repeat_threshold=float(cfg.DATALOADER.get("REPEAT_THRESHOLD", 0.0)),
         init_pose_train_path=(inp.get("INIT_POSE_TRAIN_PATH", "")

@@ -130,7 +130,7 @@ def _make_ref_loader_cls(ref_root: str):
                 data["pcl"] = self._ref_sample(g, data)
                 data["pcl_idx"] = None
                 data["n_inside"] = None
-                out.append(self._post_device(record, data))
+                out.append(self._post_device(g, record, data))
             return out
 
         def _ref_sample(self, g, data):

@@ -232,6 +232,26 @@ code is non-zero):
                (every delta 0, exit 0) and `trainrun_report` on 7d's directory;
                an orbax directory in MODEL.WEIGHTS raises and names
                `tools/convert_checkpoint.py`.
+  9. launchers and colour (9a) the shell launchers as subprocesses on the
+               card: `test_catre_torch.sh` on 5d's split (registered through
+               a dataset cache under a data root of its own) with the seed-0
+               weights as a reference-layout .pth and 5f's init poses,
+               predictions bit-equal to 5f's; `train_catre_torch.sh` one epoch
+               of the split (4 iterations, finite losses);
+               `scripts/repro_real275_torch.sh` on a REAL275-shaped root
+               (synth_nocs frames, the asset pickles, SPD-style init poses, the
+               .pth) ending in `repro_diff`'s exit 0 against the summary of an
+               in-process `main --eval-only` on the same root; each run's wall
+               seconds. (9b) the committed fixture JPEGs decoded as OpenCV did
+               (`tests/data/jpeg`); the shipped train loader with
+               PCL_WITH_COLOR, no decoded cache, COLOR_AUG_PROB 1 and
+               CHANGE_BG_PROB 1 over a pool of VOC-sized JPEG and PNG
+               backgrounds, under aae, roi10d, code and code_albu (the
+               reference's chains), its 64-frame groups into the flagship train
+               step (one step a family): phase 7's launches a step, `pcl_rgb`
+               finite in [0, 1]; host ms an image for each family, ms a
+               background decode and a replacement, the loader's ms a group,
+               the step's ms after it, and the two beside 7c's step.
 Then one JSON line of per-kernel results (each with its time, its plain
 version's time and its bound: the larger of its bytes over 3.35 TB/s and its
 operations over the card's peak for their type), the card's name and power
@@ -340,6 +360,36 @@ SOAK_EVAL = 8                # ... its TEST.EVAL_PERIOD: one evaluation, at the 
 SPREAD_SEEDS = 2             # ... loader seeds of the sampler study
 POSE_TOL = 1e-3              # ... pose_data's Umeyama and PnP labels against the written pose
 FPS_INSTANCES, FPS_POINTS = 40, 32   # ... fps_sample, card against CPU
+# phase 9b: the reference's chain strings of COLOR_AUG_TYPE code and code_albu
+# (`core/base_data_loader.py:251-262, :292-317`)
+AAE_CHAIN = """Sequential([
+    Sometimes(0.5, CoarseDropout( p=0.2, size_percent=0.05) ),
+    Sometimes(0.5, GaussianBlur(1.2*np.random.rand())),
+    Sometimes(0.5, Add((-25, 25), per_channel=0.3)),
+    Sometimes(0.3, Invert(0.2, per_channel=True)),
+    Sometimes(0.5, Multiply((0.6, 1.4), per_channel=0.5)),
+    Sometimes(0.5, Multiply((0.6, 1.4))),
+    Sometimes(0.5, LinearContrast((0.5, 2.2), per_channel=0.3))
+    ], random_order = False)"""
+ALBU_CHAIN = """Compose([
+    CoarseDropout(max_height=0.05*480, max_holes=0.05*640, p=0.4),
+    OneOf([IAAAdditiveGaussianNoise(p=0.5), GaussNoise(p=0.5)], p=0.2),
+    OneOf([MotionBlur(p=0.2), MedianBlur(blur_limit=3, p=0.1), Blur(blur_limit=3, p=0.1)],
+          p=0.2),
+    OneOf([CLAHE(clip_limit=2), IAASharpen(), IAAEmboss(), RandomBrightnessContrast()], p=0.3),
+    InvertImg(p=0.2),
+    RGBShift(r_shift_limit=105, g_shift_limit=45, b_shift_limit=40, p=0.5),
+    RandomContrast(limit=0.9, p=0.5),
+    RandomGamma(gamma_limit=(80,120), p=0.5),
+    RandomBrightness(limit=1.2, p=0.5),
+    HueSaturationValue(hue_shift_limit=172, sat_shift_limit=20, val_shift_limit=27, p=0.3),
+    JpegCompression(quality_lower=4, quality_upper=100, p=0.4),
+], p=0.8)"""
+REPRO_FRAMES = 16            # phase 9a: REAL275-shaped test frames the repro script scores
+LAUNCHER_TIMEOUT_S = 300     # ... a launcher run that takes longer fails the phase
+COLOUR_FRAMES = 64           # phase 9b: frames with colour images, one train group
+COLOUR_TIME_IMAGES = 6       # ... images each family augments for its host time
+COLOUR_PNG_BACKGROUNDS = 2   # ... PNG backgrounds beside the committed JPEGs in the pool
 
 
 def log(phase, msg):
@@ -1877,6 +1927,8 @@ def do_test_phase(dev, card, records, table, keep, model_seed=0):
                 for i in range(N_ITER + 1):
                     shutil.copy(os.path.join(out_dir, f"metrics_tab_iter{i}.txt"),
                                 os.path.join(keep, "5f"))
+                shutil.copy(os.path.join(work, "ref", "predictions.pkl"),
+                            os.path.join(keep, "5f", "evaluate_split_predictions.pkl"))
             iou_aps, pose_aps = res["results"][0]["iou_aps"], res["results"][0]["pose_aps"]
             at_init = [v for c in present for v in (iou_aps[c, 1], iou_aps[c, 2], iou_aps[c, 3],
                                                      pose_aps[c, 0, 0], pose_aps[c, -1, 0])]
@@ -2712,6 +2764,340 @@ def tools_phase(dev, card, per_step, per_call, ms_7d, keep):
     return total
 
 
+def launcher_env(data_root):
+    """The environment of a launcher run: the data root, no CATRE_ variable
+    else, this interpreter first on PATH (the scripts call `python`)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("CATRE_")}
+    env["CATRE_DATA_ROOT"] = data_root
+    env["PATH"] = os.path.dirname(sys.executable) + os.pathsep + env.get("PATH", "")
+    return env
+
+
+def run_launcher(tag, cmd, env, work):
+    """One launcher from the repository root; its output to a file under
+    `work`; -> (stdout, wall seconds). A non-zero exit fails the phase."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True,
+                          timeout=LAUNCHER_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(work, f"{tag}.out"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"launchers: {tag} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout, wall
+
+
+def write_real275_root(root, table, model_seed=0):
+    """A REAL275-shaped data root: the asset pickles, REPRO_FRAMES real_test
+    frames from synth_nocs, SPD-style init poses (the gt with noise, the gt
+    masks) and the seed-0 weights as the released checkpoint's .pth; -> the
+    paths of the init JSON and the .pth."""
+    import pickle
+
+    import numpy as np
+
+    from catre_tpu_torch.data import meta, nocs
+    from catre_tpu_torch.entry import flagship_config
+    from catre_tpu_torch.models.catre import init_model
+    from catre_tpu_torch.tools import synth_nocs
+    from catre_tpu_torch.tools.fetch_assets import CKPT_NAME
+
+    meta.set_data_root(root)
+    os.makedirs(meta.MODEL_DIR)
+    rng = np.random.default_rng(9)
+    assets = {meta.CR_MEAN_MODEL_PATH: {meta.ID2OBJ[i + 1]: table[i] for i in range(6)},
+              meta.ABS_SCALE_PATH: {f"{o}_{i}_norm": rng.uniform(0.08, 0.3, 3).astype(np.float32)
+                                    for o in meta.OBJECTS for i in range(2)}}
+    for path, obj in assets.items():
+        with open(path, "wb") as f:
+            pickle.dump(obj, f)
+    synth_nocs.generate_split(os.path.join(root, "NOCS", "REAL"), split="real_test",
+                              n_frames=REPRO_FRAMES, n_objs=6, seed=0)
+    init = {r["scene_im_id"]: [
+        {"obj_id": a["category_id"] + 1, "score": 0.9,
+         "pose_est": (np.asarray(a["pose"]) + rng.normal(0, 0.01, (3, 4))).tolist(),
+         "scale_est": (np.asarray(a["scale"]) * 1.05).tolist(),
+         "bbox_est": [float(v) for v in a["bbox"]], "segmentation": a["segmentation"]}
+        for a in r["annotations"]] for r in nocs.NOCSDataset("nocs_test_real", use_cache=False)()}
+    init_file = os.path.join(root, "NOCS", "test_init_poses", "init_pose_spd_nocs_real.json")
+    os.makedirs(os.path.dirname(init_file))
+    with open(init_file, "w") as f:
+        json.dump(init, f)
+    pth = os.path.join(root, "checkpoints", CKPT_NAME)
+    os.makedirs(os.path.dirname(pth))
+    model = init_model(flagship_config(), seed=model_seed)
+    torch.save({"model": reference_layout(model.state_dict())}, pth)
+    return init_file, pth
+
+
+def launchers_phase(card, records, keep):
+    """Phase 9a (see the module docstring)."""
+    import pickle
+
+    import numpy as np
+
+    from catre_tpu_torch import main as cli
+    from catre_tpu_torch.config.build import CONFIG_DIR, FLAGSHIP_CONFIG
+    from catre_tpu_torch.config.loader import load_config
+    from catre_tpu_torch.data import meta, nocs
+    from catre_tpu_torch.entry import flagship_config
+    from catre_tpu_torch.models.catre import init_model
+
+    shipped = load_config(str(FLAGSHIP_CONFIG))
+    repro_cfg = str(CONFIG_DIR / "nocs_real" /
+                    "aug05_kpsMS_r9d_catreDisR_shared_tspcl_convPerRot_scaleexp_120e.py")
+    table = np.random.default_rng(0).normal(size=(6, 1024, 3)).astype(np.float32) * 0.1  # 5f's
+    old_root = meta.DATA_ROOT
+    walls = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="catre_launchers_") as work:
+            # 5d's split under a data root of its own, found by the launcher's process
+            # through its dataset cache; the seed-0 weights as a .pth; 5f's init poses
+            init_file = cli_workspace(work, records, table)
+            data = meta.DATA_ROOT
+            for name in (shipped.DATASETS.TRAIN[0], shipped.DATASETS.TEST[0]):
+                path = nocs.NOCSDataset(name)._cache_path()
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                with open(path, "wb") as f:
+                    pickle.dump(records, f)
+            pth = os.path.join(work, "model_final.pth")
+            model = init_model(flagship_config(), seed=0)
+            torch.save({"model": reference_layout(model.state_dict())}, pth)
+            env = launcher_env(data)
+
+            out = os.path.join(work, "test_out")
+            _, walls["test_catre_torch.sh"] = run_launcher(
+                "test_launcher", ["./test_catre_torch.sh", str(FLAGSHIP_CONFIG), "1", pth,
+                                  f"OUTPUT_DIR={out}", "MODEL.LOAD_POSES_TEST=True",
+                                  f"DATASETS.INIT_POSE_FILES_TEST=('{init_file}',)"], env, work)
+            with open(os.path.join(out, "predictions.pkl"), "rb") as f:
+                got = pickle.load(f)
+            with open(os.path.join(keep, "5f", "evaluate_split_predictions.pkl"), "rb") as f:
+                ref = pickle.load(f)
+            same_predictions("test_catre_torch.sh vs 5f", got, ref)
+            log("launchers", f"test_catre_torch.sh <shipped config> 1 <seed-0 .pth>: "
+                             f"{len(got[0])} images, predictions bit-equal to 5f's "
+                             f"(evaluate_split), {walls['test_catre_torch.sh']:.1f} s")
+
+            out = os.path.join(work, "train_out")
+            _, walls["train_catre_torch.sh"] = run_launcher(
+                "train_launcher", ["./train_catre_torch.sh", str(FLAGSHIP_CONFIG), "1",
+                                   f"OUTPUT_DIR={out}", "SOLVER.TOTAL_EPOCHS=1",
+                                   "SOLVER.WARMUP_ITERS=1", "SOLVER.CHECKPOINT_PERIOD=100",
+                                   "TEST.EVAL_PERIOD=0", "TRAIN.PRINT_FREQ=1", "SEED=0"],
+                env, work)
+            lines = [json.loads(x) for x in open(os.path.join(out, "metrics.json"))]
+            n_iter = len(lines)
+            done = f"training done: {n_iter} iterations" in open(os.path.join(out, "log.txt")).read()
+            if not (n_iter and done and [x["iteration"] for x in lines] == list(range(n_iter))
+                    and all(np.isfinite(x["loss_total"]) for x in lines)):
+                raise RuntimeError(f"launchers: train_catre_torch.sh logged {lines}")
+            log("launchers", f"train_catre_torch.sh <shipped config> 1: {n_iter} iterations "
+                             f"of 5d's split, losses {[round(x['loss_total'], 4) for x in lines]}, "
+                             f"{walls['train_catre_torch.sh']:.1f} s")
+
+            # the repro script on a REAL275-shaped root, against main run in this process
+            real = os.path.join(work, "real275")
+            init_json, real_pth = write_real275_root(real, table)
+            ref_out = os.path.join(work, "repro_ref")
+            quiet = logging.StreamHandler(open(os.path.join(work, "repro_ref.log"), "w"))
+            logging.getLogger().addHandler(quiet)
+            try:
+                cli.main(["--config-file", repro_cfg, "--eval-only", f"OUTPUT_DIR={ref_out}",
+                          f"MODEL.WEIGHTS={real_pth}",
+                          f"DATASETS.INIT_POSE_FILES_TEST=('{init_json}',)"])
+            finally:
+                for h in [quiet, *cli._HANDLERS]:
+                    logging.getLogger().removeHandler(h)
+                    h.close()
+                cli._HANDLERS.clear()
+            with open(os.path.join(ref_out, "metrics_tab_iter4.txt")) as f:
+                rows = [line.split() for line in f if line.strip()]
+            summary = {r[0]: float(r[-1]) for r in rows[1:]}
+            ref_json = os.path.join(work, "ref_summary.json")
+            with open(ref_json, "w") as f:
+                json.dump(summary, f)
+            out = os.path.join(work, "repro_out")
+            stdout, walls["repro_real275_torch.sh"] = run_launcher(
+                "repro", ["scripts/repro_real275_torch.sh", real, out],
+                dict(launcher_env(real), CATRE_REF_SUMMARY_JSON=ref_json), work)
+            if "parity OK" not in stdout or "all assets present" not in stdout:
+                raise RuntimeError("launchers: the repro script did not end in repro_diff's OK")
+            with open(os.path.join(out, "predictions.pkl"), "rb") as f:
+                got = pickle.load(f)
+            with open(os.path.join(ref_out, "predictions.pkl"), "rb") as f:
+                ref = pickle.load(f)
+            try:
+                same_predictions("repro vs in-process", got, ref)
+                same = "bit-equal to"
+            except RuntimeError:
+                same = "not bit-equal to"
+            log("launchers", f"scripts/repro_real275_torch.sh on a REAL275-shaped root "
+                             f"({REPRO_FRAMES} synth_nocs frames, the f32 config): repro_diff "
+                             f"exit 0 against the in-process run's {len(summary)} summaries "
+                             f"(IoU50 {summary.get('IoU50')}, re5te2 {summary.get('re5te2')}), "
+                             f"predictions {same} it; {walls['repro_real275_torch.sh']:.1f} s "
+                             f"| {card}")
+    finally:
+        meta.set_data_root(old_root)
+    return walls
+
+
+class TimedLoader:
+    """A loader whose groups are timed as they are drawn (host seconds),
+    handed to `check`, and followed by a CUDA event (where the step that
+    takes the group starts)."""
+
+    def __init__(self, loader, check):
+        self.loader, self.cfg, self.check = loader, loader.cfg, check
+        self.seconds, self.events = [], []
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it)
+            self.seconds.append(time.perf_counter() - t0)
+            self.check(batch)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+            yield batch
+
+
+def colour_train_phase(dev, card, per_step, ms_7c):
+    """Phase 9b (see the module docstring); -> the launch counts."""
+    import numpy as np
+
+    from catre_tpu_torch import ops
+    from catre_tpu_torch.data import aug_color, jpeg, png
+    from catre_tpu_torch.data import loader as dl
+    from catre_tpu_torch.entry import shipped_train_loader, train_from_split, write_example_split
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    fixtures = os.path.join(repo, "tests", "data", "jpeg")
+    ref = np.load(os.path.join(fixtures, "cv2_imread.npz"))
+    decodable = [n for n in ref.files if n != "progressive"]
+    for name in decodable:
+        got = jpeg.read_jpeg(os.path.join(fixtures, name + ".jpg"))
+        if got.shape != ref[name].shape or not (got == ref[name]).all():
+            raise RuntimeError(f"colour: jpeg.py's decode of {name}.jpg differs from OpenCV's")
+    try:
+        jpeg.read_jpeg(os.path.join(fixtures, "progressive.jpg"))
+        raise RuntimeError("colour: a progressive JPEG was decoded")
+    except ValueError as e:
+        if "progressive" not in str(e):
+            raise
+    log("colour", f"jpeg.py decodes the {len(decodable)} committed fixture JPEGs as OpenCV did "
+                  "(bit-equal); the progressive one raises and names its format")
+
+    families = {"aae": "", "roi10d": "", "code": AAE_CHAIN, "code_albu": ALBU_CHAIN}
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    table = np.random.default_rng(0).normal(size=(6, 1024, 3)).astype(np.float32) * 0.1
+    with tempfile.TemporaryDirectory(prefix="catre_colour_") as work:
+        # the pool: the committed VOC-sized JPEGs and smooth PNGs written here
+        pool = os.path.join(work, "pool")
+        os.makedirs(pool)
+        bg_jpegs = sorted(f for f in os.listdir(fixtures) if f.startswith("background_"))
+        for f in bg_jpegs:
+            with open(os.path.join(fixtures, f), "rb") as src, \
+                    open(os.path.join(pool, f), "wb") as dst:
+                dst.write(src.read())
+        y, x = np.mgrid[0:375, 0:500]
+        for i in range(COLOUR_PNG_BACKGROUNDS):
+            img = np.stack([x % 256, (y * (i + 2)) % 256, (x + y) % 256], -1).astype(np.uint8)
+            png.write_png(os.path.join(pool, f"background_png_{i}.png"), img)
+        t0 = time.perf_counter()
+        for f in bg_jpegs:
+            jpeg.read_jpeg(os.path.join(pool, f))
+        decode_ms = (time.perf_counter() - t0) / len(bg_jpegs) * 1e3
+
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(work, "split"))
+        records = write_example_split(os.path.join(work, "split"), COLOUR_FRAMES, images=True)
+        write_s = time.perf_counter() - t0
+        frames = [aug_color.read_image(r["file_name"])[:, :, ::-1]
+                  for r in records[:COLOUR_TIME_IMAGES]]
+        h, w = frames[0].shape[:2]
+        mask = np.zeros((h, w), bool)
+        mask[h // 4:3 * h // 4, w // 4:3 * w // 4] = True
+        t0 = time.perf_counter()
+        for i, f in enumerate(frames):
+            aug_color.replace_background(np.random.default_rng(i), f, mask, pool)
+        replace_ms = (time.perf_counter() - t0) / len(frames) * 1e3
+        family_ms = {}
+        for fam, code in families.items():
+            aug = aug_color.build_color_augmentor(fam, code, seed=0)
+            t0 = time.perf_counter()
+            for i, f in enumerate(frames):
+                aug(np.random.default_rng(i), np.ascontiguousarray(f))
+            family_ms[fam] = (time.perf_counter() - t0) / len(frames) * 1e3
+        log("colour", f"host, one thread, {h}x{w}: ms an image aae {family_ms['aae']:.1f}, "
+                      f"roi10d {family_ms['roi10d']:.1f}, code {family_ms['code']:.1f}, "
+                      f"code_albu {family_ms['code_albu']:.1f}; a background JPEG of the "
+                      f"pool decoded in {decode_ms:.1f} ms, a replacement (read, fit, paste) "
+                      f"{replace_ms:.1f} ms; the colour split written in {write_s:.1f} s")
+
+        # the colour loader's groups into the flagship train step, under each family
+        for fam, code in families.items():
+            rgb_bad = []
+
+            def check(batch):
+                rgb = batch.get("pcl_rgb")
+                if (rgb is None or rgb.shape != tuple(batch["pcl"].shape)
+                        or not np.isfinite(rgb).all() or rgb.min() < 0 or rgb.max() > 1):
+                    rgb_bad.append(batch["scene_im_ids"])
+
+            loader = TimedLoader(shipped_train_loader(
+                records, dev, mean_points=table, pcl_with_color=True, cache_decoded="",
+                color_aug_prob=1.0, change_bg_prob=1.0, color_aug_type=fam,
+                color_aug_code=code, bg_image_dir=pool, bg_type="file_dir"), check)
+            events, counts = [], []
+
+            def on_step(i, metrics):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append(ev)
+                counts.append(ops.launch_counts())
+
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            state, history = train_from_split(records, 1, dev, callback=on_step, loader=loader)
+            torch.cuda.synchronize()
+            prev = dict.fromkeys(per_step, 0)
+            for i, c in enumerate(counts):
+                got = {k: c[k] - prev[k] for k in per_step}
+                if got != per_step:
+                    raise RuntimeError(f"colour {fam}, step {i}: launches {got}, want {per_step}")
+                prev = c
+            for k, v in ops.launch_counts().items():
+                total[k] += v
+            if rgb_bad or len(loader.seconds) != 1:
+                raise RuntimeError(f"colour {fam}: pcl_rgb missing, non-finite or outside "
+                                   f"[0, 1] in {rgb_bad}")
+            if not (all(torch.isfinite(v).all() for m in history for v in m.values())
+                    and all(torch.isfinite(p).all() for p in state.params.values())):
+                raise RuntimeError(f"colour {fam}: non-finite metrics or parameters")
+            group_ms = loader.seconds[0] * 1e3
+            step_ms = loader.events[0].elapsed_time(events[0])
+            log("colour", f"{fam}: the shipped train loader with PCL_WITH_COLOR, "
+                          f"COLOR_AUG_PROB 1, CHANGE_BG_PROB 1 ({len(os.listdir(pool))} "
+                          f"backgrounds): {group_ms:.1f} ms a "
+                          f"{loader.loader.ims_per_batch}-frame group (host), pcl_rgb finite "
+                          f"in [0, 1]; the flagship step on it {step_ms:.1f} ms from the group "
+                          f"to the step's end, so {group_ms + step_ms:.1f} ms a step from "
+                          f"this loader (phase 7c {ms_7c:.3f}); launches a step "
+                          f"{ {k: v for k, v in per_step.items() if v} }, last-iteration loss "
+                          f"{history[-1]['loss_total'][-1].item():.5f}")
+            del loader, state
+            dl.clear_decoded_caches()
+        torch.cuda.empty_cache()
+        log("colour", f"phase 9b in {time.perf_counter() - t_phase:.1f} s | {card}")
+    return total
+
+
 def first_grads(model, optimizer):
     """Record the gradients the first optimizer step of `model` is given
     (the first inner iteration's backward): -> (name -> gradient, hook)."""
@@ -3147,13 +3533,22 @@ def main():
     counts = dist_phase(dev, card, records, train_per_step, per_call)
     for k in launches:
         launches[k] += counts[k]
-    split_dir.cleanup()
 
     # ---- 8. the tools on the card: the synthetic split, labels, init poses, FPS, the
     # soak and its resume, the sampler study, the run reports, an orbax directory
     counts = tools_phase(dev, card, train_per_step, per_call, ms_7d, keep_dir.name)
     for k in launches:
         launches[k] += counts[k]
+
+    # ---- 9. the launchers as subprocesses (their launches are their processes'), then
+    # colour augmentation and background replacement into the train step
+    t9 = time.perf_counter()
+    launchers_phase(card, records, keep_dir.name)
+    counts = colour_train_phase(dev, card, train_per_step, ms_7c)
+    for k in launches:
+        launches[k] += counts[k]
+    log("launchers", f"phase 9 in {time.perf_counter() - t9:.1f} s")
+    split_dir.cleanup()
     keep_dir.cleanup()
 
     # bounds of K1-K4 at the shapes they were timed at, bf16: their dense products

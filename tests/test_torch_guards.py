@@ -188,7 +188,9 @@ def test_cli_and_checkpoints_run_with_jax_blocked():
         "'catre_tpu_torch.tools.prepare_init_results', 'catre_tpu_torch.tools.synth_nocs', "
         "'catre_tpu_torch.tools.fps_sample', 'catre_tpu_torch.tools.soak', "
         "'catre_tpu_torch.tools.sampler_spread', 'catre_tpu_torch.tools.repro_diff', "
-        "'catre_tpu_torch.tools.trainrun_report', 'catre_tpu_torch.tools.fetch_assets'} "
+        "'catre_tpu_torch.tools.trainrun_report', 'catre_tpu_torch.tools.fetch_assets', "
+        "'catre_tpu_torch.data.aug_color', 'catre_tpu_torch.data.jpeg', "
+        "'catre_tpu_torch.data.imgproc'} "
         "<= set(names)\n"
         "assert 'tensorstore' not in sys.modules\n"
         "from catre_tpu_torch import main\n"

@@ -265,8 +265,9 @@ def test_loader_config_from_the_shipped_config(phase):
 def test_loader_config_refuses_features_the_port_lacks(key, value):
     """The aligned RGB path, the test occlusion and the FPS keypoints are
     carried as the JAX bridge carries them (no key sets the NOCS path, in
-    either package); what the port lacks, colour augmentation and background
-    replacement at train, raises and names its item."""
+    either package); colour augmentation and background replacement, which
+    the port once lacked, are read at train as JAX reads them and are 0 at
+    test."""
     cfg = load_config(str(FLAGSHIP_CONFIG))
     cfg.INPUT[key] = value
     from catre_tpu.config.loader import load_config as j_load_config
@@ -280,9 +281,12 @@ def test_loader_config_refuses_features_the_port_lacks(key, value):
     assert (port.kps_type == "fps") == (key == "KPS_TYPE")
     assert port.pcl_with_color == (key == "PCL_WITH_COLOR") and not port.with_nocs
     for lacking in ("COLOR_AUG_PROB", "CHANGE_BG_PROB"):
-        cfg.INPUT[lacking] = 0.5
-        with pytest.raises(NotImplementedError, match="item 12c"):
-            loader_config_from(cfg, "train")
-        loader_config_from(cfg, "test")            # the test phase reads neither, as JAX's
-        cfg.INPUT[lacking] = 0.0
+        cfg.INPUT[lacking] = jcfg.INPUT[lacking] = 0.5
+        for phase in ("train", "test"):            # the test phase reads neither, as JAX's
+            port, ref = loader_config_from(cfg, phase), j_loader_config_from(jcfg, phase)
+            for field in dataclasses.fields(port):
+                assert getattr(port, field.name) == getattr(ref, field.name), field.name
+            assert (port.color_aug_prob + port.change_bg_prob > 0) == (phase == "train")
+        cfg.INPUT[lacking] = jcfg.INPUT[lacking] = 0.0
+        port = loader_config_from(cfg, "test")
     assert key != "KPS_TYPE" or not port.ship_mean_points      # FPS keypoints read no mean points
