@@ -18,7 +18,11 @@ call samples all of it as (G, M, ...) tensors. Host arrays move to the
 loader's device, the card unless the caller asks for the CPU. The JAX jit
 cache and its environment knobs are not carried: the fused and the
 materialized windowed forms are two plain functions, `sample_group_from_depth`
-and `sample_group_from_cloud`, held equal by the tests.
+and `sample_group_from_cloud`, held equal by the tests. Under a profiler a
+group sampler's call is the span `catre.sampler`, its candidates and its
+selection `catre.sampler.candidates` and `catre.sampler.select` (in the
+materialized form the frame's metres, masks and backprojection are a
+candidates span of their own, before the crop's).
 
 Train phase: an infinite stream of records, one permutation of the split per
 epoch (or repeat factors with stochastic rounding), strided by rank, which
@@ -69,10 +73,11 @@ import numpy as np
 import torch
 
 from ..geom.transforms import backproject
-from ..ops.sampling import (batch_ball_crop, batch_ball_crop_candidates,
+from ..ops.sampling import (CANDIDATES, SELECT, batch_ball_crop, batch_ball_crop_candidates,
                             batch_ball_crop_from_depth, batch_select_from_candidates,
                             depth_metres, unpack_masks)
 from ..parallel.comm import inference_slice
+from ..utils.profiler import span
 from . import assets, meta, png
 from .aug import aug_depth
 from .aug_color import build_color_augmentor, color_augment, replace_background
@@ -292,11 +297,13 @@ def sample_group_from_cloud(cfg: LoaderConfig, train_aug: bool, depths, Ks, pack
     (full frame, or windows whose bounds are reduced here from the masks).
     `aug_draws`: the `aug_depth` override arguments, each with G in front."""
     _check_window(cfg)
-    depth = depth_metres(depths)
-    if train_aug:
-        depth = augment_depth(cfg, depth, aug_draws, generator)
-    masks = unpack_masks(packed, poses.shape[-3])
-    return batch_ball_crop(backproject(depth, Ks), masks, poses, scales,
+    with span(CANDIDATES):
+        depth = depth_metres(depths)
+        if train_aug:
+            depth = augment_depth(cfg, depth, aug_draws, generator)
+        masks = unpack_masks(packed, poses.shape[-3])
+        cloud = backproject(depth, Ks)
+    return batch_ball_crop(cloud, masks, poses, scales,
                            cfg.depth_sample_ball_ratio, cfg.num_pcl, fps_sample=cfg.fps_sample,
                            window_size=cfg.sample_window, priorities=priorities,
                            generator=generator)
@@ -326,9 +333,11 @@ def make_group_sampler(cfg: LoaderConfig, train_aug: bool, device="cuda"):
 
     def sample(depths, Ks, packed, poses, scales, mask_bboxes, priorities=None,
                aug_draws=None, generator=None):
-        args = [to_device(a, device) for a in (depths, Ks, packed, poses, scales, mask_bboxes)]
-        return sample_group(cfg, train_aug, *args, priorities=priorities,
-                            aug_draws=aug_draws, generator=generator)
+        with span("catre.sampler"):
+            args = [to_device(a, device)
+                    for a in (depths, Ks, packed, poses, scales, mask_bboxes)]
+            return sample_group(cfg, train_aug, *args, priorities=priorities,
+                                aug_draws=aug_draws, generator=generator)
 
     return sample
 
@@ -342,11 +351,12 @@ def make_cached_group_sampler(cfg: LoaderConfig, train_aug: bool, device="cuda")
 
     def sample(depth_all, packed_all, K_all, pose_all, scale_all, bbox_all, idx,
                priorities=None, aug_draws=None, generator=None):
-        idx = to_device(idx, device)
-        rows = [to_device(a, device)[idx]
-                for a in (depth_all, K_all, packed_all, pose_all, scale_all, bbox_all)]
-        return sample_group(cfg, train_aug, *rows, priorities=priorities,
-                            aug_draws=aug_draws, generator=generator)
+        with span("catre.sampler"):
+            idx = to_device(idx, device)
+            rows = [to_device(a, device)[idx]
+                    for a in (depth_all, K_all, packed_all, pose_all, scale_all, bbox_all)]
+            return sample_group(cfg, train_aug, *rows, priorities=priorities,
+                                aug_draws=aug_draws, generator=generator)
 
     return sample
 
@@ -376,11 +386,14 @@ def make_presampled_group_sampler(cfg: LoaderConfig, img_w: int, wsw: int, devic
     equals the cached sampler."""
 
     def sample(pts_all, inside_all, nin_all, org_all, idx, priorities=None, generator=None):
-        idx = to_device(idx, device)
-        pts, inside, n_in, org = [to_device(a, device)[idx]
-                                  for a in (pts_all, inside_all, nin_all, org_all)]
-        return batch_select_from_candidates(pts, inside, n_in, org, cfg.num_pcl, img_w, wsw,
-                                            priorities, generator)
+        with span("catre.sampler"):
+            with span(CANDIDATES):
+                idx = to_device(idx, device)
+                pts, inside, n_in, org = [to_device(a, device)[idx]
+                                          for a in (pts_all, inside_all, nin_all, org_all)]
+            with span(SELECT):
+                return batch_select_from_candidates(pts, inside, n_in, org, cfg.num_pcl, img_w,
+                                                    wsw, priorities, generator)
 
     return sample
 

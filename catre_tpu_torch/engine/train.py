@@ -7,9 +7,11 @@ Counterpart of `catre_tpu/engine/train.py`: `InputNoiseConfig` (:26),
 `make_train_step` (:173, `with_vis` :175-254). The JAX package runs the inner
 iterations as one jitted `lax.scan`; here they are a Python loop that updates
 the model's parameters in place, and the metrics come back stacked over the
-iterations as the scan stacks them. Each iteration's forward + loss, backward
-and optimizer step are `torch.profiler` ranges (train.forward,
-train.backward, train.optimizer). The step splits in two:
+iterations as the scan stacks them. Under a profiler a step is the span
+train.step, its augmentation and iteration-0 draws train.prepare, and each
+iteration's forward + loss (the loss alone train.loss), backward, optimizer
+step and metrics are train.forward, train.backward, train.optimizer and
+train.metrics; the stacked metrics are train.metrics too. The step splits in two:
 `prepare_train_batch` draws the augmentation and the init estimates from a
 `torch.Generator`, and `TrainStep.step_on_prepared` is the deterministic
 rest, so a test can hand it the batch the JAX package prepared.
@@ -49,7 +51,6 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ..data.aug import aug_3d_bbox, aug_poses_normal, aug_rt, aug_scale_normal, maybe_apply
 from ..geom.errors import rotation_error_deg, translation_error
@@ -60,6 +61,7 @@ from ..losses.common import masked_mean
 from ..models.catre import CATREDisRShared, refine_forward
 from ..parallel import comm
 from ..solver.optimizer import PortOptimizer
+from ..utils.profiler import span
 
 INIT_MODES = ("gt_noise", "random", "canonical", "last_frame")
 
@@ -242,8 +244,11 @@ class TrainStep:
         self.with_vis = with_vis
 
     def __call__(self, state: TrainState, batch: dict, generator: torch.Generator, lr: float):
-        return self.step_on_prepared(state, prepare_global_rows(
-            generator, batch, self.noise_cfg, comm.get_rank(), comm.get_world_size()), lr)
+        with span("train.step"):
+            with span("train.prepare"):
+                batch = prepare_global_rows(generator, batch, self.noise_cfg, comm.get_rank(),
+                                            comm.get_world_size())
+            return self.step_on_prepared(state, batch, lr)
 
     def step_on_prepared(self, state: TrainState, batch: dict, lr: float):
         cfg = self.model.cfg
@@ -271,40 +276,44 @@ class TrainStep:
         per_iter, vis = [], []
         for _ in range(self.n_iter):
             optimizer.zero_grad(set_to_none=True)
-            with record_function("train.forward"):
+            with span("train.forward"):
                 pose, scale = refine_forward(self.model, batch["pcl"], batch["obj_kps"],
                                              pose_est, scale_est, batch["K"],
                                              batch.get("obj_mean_scales"))
-                loss_dict = catre_loss(
-                    self.loss_cfg, out_rot=pose[:, :3, :3], out_trans=pose[:, :3, 3],
-                    out_scale=scale, gt_rot=gt_rot, gt_trans=gt_t, gt_scale=batch["obj_scale"],
-                    obj_kps=batch["obj_kps"], sym_flags=batch["sym_flag"],
-                    sym_bank=self.sym_bank, valid_mask=valid, counts=counts)
-                total = sum(loss_dict.values())
-            with record_function("train.backward"):
+                with span("train.loss"):
+                    loss_dict = catre_loss(
+                        self.loss_cfg, out_rot=pose[:, :3, :3], out_trans=pose[:, :3, 3],
+                        out_scale=scale, gt_rot=gt_rot, gt_trans=gt_t,
+                        gt_scale=batch["obj_scale"], obj_kps=batch["obj_kps"],
+                        sym_flags=batch["sym_flag"], sym_bank=self.sym_bank, valid_mask=valid,
+                        counts=counts)
+                    total = sum(loss_dict.values())
+            with span("train.backward"):
                 total.backward()
                 comm.all_reduce_grads_(params)
-            with record_function("train.optimizer"):
+            with span("train.optimizer"):
                 for p in params:
                     if p.grad is not None:
                         torch.nan_to_num(p.grad, out=p.grad)
                 optimizer.step()
-            pose_est, scale_est = pose.detach(), scale.detach()
-            metrics = {k: v.detach() for k, v in loss_dict.items()}
-            metrics["loss_total"] = total.detach()
-            n_valid = counts.get("valid")
-            metrics["error_R"] = masked_mean(rotation_error_deg(pose_est[:, :3, :3], gt_rot), w,
-                                             n_valid)
-            metrics["error_t"] = masked_mean(translation_error(pose_est[:, :3, 3], gt_t), w,
-                                             n_valid)
-            per_iter.append(metrics)
-            if self.with_vis:
-                vis.append((pose_est, scale_est))
-        stacked = {k: torch.stack([m[k] for m in per_iter]) for k in per_iter[0]}
-        if counts:          # the processes' shares summed: the global batch's metrics
-            names = list(stacked)
-            summed = comm.all_reduce_(torch.stack([stacked[k] for k in names]))
-            stacked = dict(zip(names, summed.unbind(0)))
+            with span("train.metrics"):
+                pose_est, scale_est = pose.detach(), scale.detach()
+                metrics = {k: v.detach() for k, v in loss_dict.items()}
+                metrics["loss_total"] = total.detach()
+                n_valid = counts.get("valid")
+                metrics["error_R"] = masked_mean(rotation_error_deg(pose_est[:, :3, :3], gt_rot),
+                                                 w, n_valid)
+                metrics["error_t"] = masked_mean(translation_error(pose_est[:, :3, 3], gt_t), w,
+                                                 n_valid)
+                per_iter.append(metrics)
+                if self.with_vis:
+                    vis.append((pose_est, scale_est))
+        with span("train.metrics"):
+            stacked = {k: torch.stack([m[k] for m in per_iter]) for k in per_iter[0]}
+            if counts:          # the processes' shares summed: the global batch's metrics
+                names = list(stacked)
+                summed = comm.all_reduce_(torch.stack([stacked[k] for k in names]))
+                stacked = dict(zip(names, summed.unbind(0)))
         if self.with_vis:
             stacked["_vis"] = {
                 "pose": torch.stack([v[0] for v in vis]), "scale": torch.stack([v[1] for v in vis]),

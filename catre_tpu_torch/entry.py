@@ -26,7 +26,6 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .config.build import (FLAGSHIP_CONFIG, loader_config_from, loss_config_from,
                            model_config_from, noise_config_from)
@@ -43,6 +42,7 @@ from .geom.symmetry import axis_symmetry_rotation_bank
 from .models.catre import CATREConfig, CATREDisRShared, init_model
 from .ops.limits import check_model_limits
 from .solver.build import optimizer_from_config
+from .utils.profiler import span
 
 N_ITER = 4
 # NOCS-REAL intrinsics of a 640 x 480 frame
@@ -417,7 +417,7 @@ def train_from_split(records: list, steps: int, device="cuda", cfg=None, callbac
     def batches():
         raw = iter(loader)                      # a train loader has no end
         while True:
-            with record_function("train.loader"):
+            with span("train.loader"):
                 batch = batch_to_device(
                     next(raw), device, max_objs=int(cfg.DATALOADER.get("MAX_OBJS_TRAIN", 120)),
                     kps_type=lcfg.kps_type, num_kps=lcfg.num_kps,

@@ -31,6 +31,11 @@ The JAX package prefers `fused_heads_train` over `fused_heads` whatever the
 call (`catre.py:353`), so its test-time refine under the shipped TPU config
 runs the training delta path; the math is the same. On a CPU tensor every
 kernel wrapper runs its plain twin.
+
+Under a profiler an iteration's parts are the spans `catre.inputs`
+(`prepare_inputs` and the casts), `catre.encoder` (the PointNet over both
+clouds), `catre.ts_head`, `catre.rot_head` (the plain head or its kernel's
+call, with their glue) and `catre.compose`, in training and in inference.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from ..ops.encoder_epilogue import ENCODER_TAIL_KERNELS, ENCODER_TAIL_TWINS
 from ..ops.encoder_epilogue_train import ENCODER_TAIL_TRAIN
 from ..ops.rot_head import fused_conv_per_rot_head, fused_conv_per_rot_head_blocked
 from ..ops.rot_head_train import rot_head_train
+from ..utils.profiler import span
 from .compose import pose_scale_from_delta_init
 from .heads import ConvOutPerRotHead, FCTransSizeHead
 from .pointnet import PointNetFeat
@@ -160,39 +166,43 @@ class CATREDisRShared(nn.Module):
             def encode(clouds):
                 return self.pcl_net(clouds, tails)
         # one encoder call over both clouds (2B) when the point counts match
-        if x.shape[1] == tfd_kps.shape[1]:
-            pf, gf = encode(torch.cat([x, tfd_kps], dim=0))
-            pcl_pf, kps_pf, g_pcl, g_kps = pf[:B], pf[B:], gf[:B], gf[B:]
-        else:
-            pcl_pf, g_pcl = encode(x)
-            kps_pf, g_kps = encode(tfd_kps)
-
-        # flat feature = max over points of [global ⊕ point] = [g, max(point)]
-        ts_parts = [g_pcl, pcl_pf.amax(dim=1).float()]
-        if cfg.ts_with_kps_feature:
-            ts_parts += [g_kps, kps_pf.amax(dim=1).float()]
-        if cfg.ts_with_init_scale:
-            ts_parts.append(init_scale.float())
-        if cfg.ts_with_init_trans:
-            if init_trans is None:
-                raise ValueError("ts_with_init_trans needs init_trans")
-            ts_parts.append(init_trans.float())
-        trans_deltas, scale_deltas = self.ts_head(torch.cat(ts_parts, dim=1))
-
-        point_feats = torch.cat([pcl_pf, kps_pf], dim=1)              # (B, P+K, 64)
-        n_pcl = x.shape[1]
-        if training and cfg.uses_rot_head_train_kernels:
-            rot_deltas = rot_head_train(point_feats, g_pcl, g_kps, self.rot_head, n_pcl, cdt)
-        elif not training and cfg.uses_rot_head_kernel:
-            if cfg.fused_block_size > 1 and B % cfg.fused_block_size == 0:
-                rot_deltas = fused_conv_per_rot_head_blocked(
-                    point_feats, g_pcl, g_kps, self.rot_head, n_pcl, cdt, cfg.fused_block_size)
+        with span("catre.encoder"):
+            if x.shape[1] == tfd_kps.shape[1]:
+                pf, gf = encode(torch.cat([x, tfd_kps], dim=0))
+                pcl_pf, kps_pf, g_pcl, g_kps = pf[:B], pf[B:], gf[:B], gf[B:]
             else:
-                rot_deltas = fused_conv_per_rot_head(point_feats, g_pcl, g_kps, self.rot_head,
-                                                     n_pcl, cdt)
-        else:
-            rot_deltas = self.rot_head(point_feats, g_pcl, g_kps, n_pcl)
-        return rot_deltas.float(), trans_deltas.float(), scale_deltas.float()
+                pcl_pf, g_pcl = encode(x)
+                kps_pf, g_kps = encode(tfd_kps)
+
+        with span("catre.ts_head"):
+            # flat feature = max over points of [global ⊕ point] = [g, max(point)]
+            ts_parts = [g_pcl, pcl_pf.amax(dim=1).float()]
+            if cfg.ts_with_kps_feature:
+                ts_parts += [g_kps, kps_pf.amax(dim=1).float()]
+            if cfg.ts_with_init_scale:
+                ts_parts.append(init_scale.float())
+            if cfg.ts_with_init_trans:
+                if init_trans is None:
+                    raise ValueError("ts_with_init_trans needs init_trans")
+                ts_parts.append(init_trans.float())
+            trans_deltas, scale_deltas = self.ts_head(torch.cat(ts_parts, dim=1))
+
+        with span("catre.rot_head"):
+            point_feats = torch.cat([pcl_pf, kps_pf], dim=1)              # (B, P+K, 64)
+            n_pcl = x.shape[1]
+            if training and cfg.uses_rot_head_train_kernels:
+                rot_deltas = rot_head_train(point_feats, g_pcl, g_kps, self.rot_head, n_pcl, cdt)
+            elif not training and cfg.uses_rot_head_kernel:
+                if cfg.fused_block_size > 1 and B % cfg.fused_block_size == 0:
+                    rot_deltas = fused_conv_per_rot_head_blocked(
+                        point_feats, g_pcl, g_kps, self.rot_head, n_pcl, cdt,
+                        cfg.fused_block_size)
+                else:
+                    rot_deltas = fused_conv_per_rot_head(point_feats, g_pcl, g_kps,
+                                                         self.rot_head, n_pcl, cdt)
+            else:
+                rot_deltas = self.rot_head(point_feats, g_pcl, g_kps, n_pcl)
+            return rot_deltas.float(), trans_deltas.float(), scale_deltas.float()
 
 
 def init_model(cfg: CATREConfig, seed: int = 0,
@@ -218,25 +228,27 @@ def refine_forward(model: CATREDisRShared, pcl, obj_kps, pose_est, scale_est, K,
     """One refine iteration: inputs -> deltas -> composed (pose (B, 3, 4),
     scale (B, 3))."""
     cfg = model.cfg
-    x, tfd_kps = prepare_inputs(cfg, pcl, obj_kps, pose_est, scale_est)
-    if cfg.dtype is not None:
-        x, tfd_kps = x.to(cfg.dtype), tfd_kps.to(cfg.dtype)
+    with span("catre.inputs"):
+        x, tfd_kps = prepare_inputs(cfg, pcl, obj_kps, pose_est, scale_est)
+        if cfg.dtype is not None:
+            x, tfd_kps = x.to(cfg.dtype), tfd_kps.to(cfg.dtype)
     rot_deltas, trans_deltas, scale_deltas = model(x, tfd_kps, scale_est, pose_est[:, :3, 3])
-    pred_rot, pred_trans, pred_scale = pose_scale_from_delta_init(
-        rot_deltas=rot_rep_to_mat(rot_deltas, cfg.rot_type),
-        trans_deltas=trans_deltas,
-        scale_deltas=scale_deltas,
-        rot_inits=pose_est[:, :3, :3],
-        trans_inits=pose_est[:, :3, 3],
-        scale_inits=scale_est if "iter" in cfg.scale_type else mean_scales,
-        Ks=K,
-        K_aware=cfg.t_transform_k_aware,
-        delta_T_space=cfg.delta_t_space,
-        delta_T_weight=cfg.delta_t_weight,
-        delta_z_style=cfg.delta_z_style,
-        is_allo=cfg.is_allo,
-        scale_type=cfg.scale_type,
-    )
-    if not cfg.refine_scale:
-        pred_scale = scale_est
-    return torch.cat([pred_rot, pred_trans[:, :, None]], dim=-1), pred_scale
+    with span("catre.compose"):
+        pred_rot, pred_trans, pred_scale = pose_scale_from_delta_init(
+            rot_deltas=rot_rep_to_mat(rot_deltas, cfg.rot_type),
+            trans_deltas=trans_deltas,
+            scale_deltas=scale_deltas,
+            rot_inits=pose_est[:, :3, :3],
+            trans_inits=pose_est[:, :3, 3],
+            scale_inits=scale_est if "iter" in cfg.scale_type else mean_scales,
+            Ks=K,
+            K_aware=cfg.t_transform_k_aware,
+            delta_T_space=cfg.delta_t_space,
+            delta_T_weight=cfg.delta_t_weight,
+            delta_z_style=cfg.delta_z_style,
+            is_allo=cfg.is_allo,
+            scale_type=cfg.scale_type,
+        )
+        if not cfg.refine_scale:
+            pred_scale = scale_est
+        return torch.cat([pred_rot, pred_trans[:, :, None]], dim=-1), pred_scale

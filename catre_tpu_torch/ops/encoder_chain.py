@@ -22,6 +22,9 @@ block per cloud, the weights repacked per call as 16 KB stages by
 persistent grid, `stn_tail_grid`, the weights staged by the kernel from
 their own layout). The f32 build (`gemm_tile`) takes any widths in multiples
 of 64 -> 128 -> 128 after the first, for checks.
+
+On the kernel path each call is the profiler span `catre.op.K9`, and its
+weights' casts and repack `catre.op.pack`.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiler import span
 from . import _build
 from .encoder_epilogue import _sm_count, pack_panels, stn_tail_grid
 
@@ -129,6 +133,11 @@ def chain3_max(x, w1, b1, w2, b2, w3, b3, cdt, relu_last: bool = False):
     No (points x channels) activation reaches device memory."""
     if x.device.type == "cpu":
         return chain3_max_twin(x, w1, b1, w2, b2, w3, b3, cdt, relu_last)
+    with span("catre.op.K9"):
+        return _chain3_max(x, w1, b1, w2, b2, w3, b3, cdt, relu_last)
+
+
+def _chain3_max(x, w1, b1, w2, b2, w3, b3, cdt, relu_last):
     name = "chain3_max"
     _build.refuse_grad(name, "the plain encoder layers under autograd, or "
                        "ops.encoder_epilogue_train.ENCODER_TAIL_TRAIN (kernels K5/K6)",
@@ -148,8 +157,9 @@ def chain3_max(x, w1, b1, w2, b2, w3, b3, cdt, relu_last: bool = False):
                          f"{tuple(w3.shape)} do not chain from x {tuple(x.shape)}")
     check_k9_widths(name, cin, c1, c2, c3)
     x = x.to(cdt).contiguous()
-    ws = [w.to(device=x.device, dtype=cdt).contiguous() for w in (w1, w2, w3)]
-    bs = [b.to(device=x.device, dtype=torch.float32).contiguous() for b in (b1, b2, b3)]
+    with span("catre.op.pack"):
+        ws = [w.to(device=x.device, dtype=cdt).contiguous() for w in (w1, w2, w3)]
+        bs = [b.to(device=x.device, dtype=torch.float32).contiguous() for b in (b1, b2, b3)]
     if cdt == torch.bfloat16:
         design = check_k9_bf16(name, x, cin, c1, c2, c3)
         ws = bf16_weights(design, *ws)
@@ -160,8 +170,10 @@ def chain3_max(x, w1, b1, w2, b2, w3, b3, cdt, relu_last: bool = False):
                              "fit a block's shared memory")
         # W1 zero-padded to the 128 x 64 granule of `gemm_tile` (x is padded in shared
         # memory, never in device memory)
-        w1p = torch.zeros(-(-c1 // 128) * 128, -(-cin // 64) * 64, device=x.device, dtype=cdt)
-        w1p[:c1, :cin] = ws[0]
+        with span("catre.op.pack"):
+            w1p = torch.zeros(-(-c1 // 128) * 128, -(-cin // 64) * 64, device=x.device,
+                              dtype=cdt)
+            w1p[:c1, :cin] = ws[0]
         ws[0], grid = w1p, 0
     args = [x, ws[0], bs[0], ws[1], bs[1], ws[2], bs[2]]
     _build.cuda_inputs(name, *args)

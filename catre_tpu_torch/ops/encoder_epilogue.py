@@ -30,6 +30,9 @@ a persistent grid of blocks that each keep one group of output channels for
 the whole launch (`stn_tail_grid`, `stn_tail_schedule`). The bf16 bodies of
 K1 and K2 are also the bf16 training forwards K6 and K5, which take their
 limits (`check_k1_bf16`, `check_k2_bf16`).
+
+On the kernel path each call is the profiler span `catre.op.K1` or
+`catre.op.K2`, and its weights' casts and repack `catre.op.pack`.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layers import dense
+from ..utils.profiler import span
 from . import _build
 
 LAUNCHES = {"dense_relu_max": 0, "dense_relu_dense_max": 0}
@@ -90,10 +94,11 @@ def pack_panels(w):
     n, k = w.shape
     if n % 128 or k % 64:
         raise ValueError(f"pack_panels: weight {tuple(w.shape)} is not 128-row x 64-column blocks")
-    v = w.reshape(n // 128, 128, k // 64, 8, 8).permute(0, 2, 1, 3, 4)    # (nb, kp, r, c, e)
-    r = torch.arange(128, device=w.device)[:, None]
-    chunk = torch.arange(8, device=w.device)[None, :] ^ (r & 7)          # stored at position p
-    return v[:, :, r, chunk].contiguous()
+    with span("catre.op.pack"):
+        v = w.reshape(n // 128, 128, k // 64, 8, 8).permute(0, 2, 1, 3, 4)    # (nb, kp, r, c, e)
+        r = torch.arange(128, device=w.device)[:, None]
+        chunk = torch.arange(8, device=w.device)[None, :] ^ (r & 7)       # stored at position p
+        return v[:, :, r, chunk].contiguous()
 
 
 def stn_tail_grid(n, cout, n_sms, chunks):
@@ -148,8 +153,9 @@ def _kernel_operands(name, x, cdt, weights, biases):
         raise ValueError(f"{name}: compute dtype {cdt} is not float32 or bfloat16")
     if x.dtype != cdt or x.dim() != 3:
         raise ValueError(f"{name}: x must be (N, P, C) {cdt}, got {tuple(x.shape)} {x.dtype}")
-    ws = [w.to(device=x.device, dtype=cdt).contiguous() for w in weights]
-    bs = [b.to(device=x.device, dtype=cdt).float().contiguous() for b in biases]
+    with span("catre.op.pack"):
+        ws = [w.to(device=x.device, dtype=cdt).contiguous() for w in weights]
+        bs = [b.to(device=x.device, dtype=cdt).float().contiguous() for b in biases]
     _build.cuda_inputs(name, x, *ws, *bs)
     return ws, bs
 
@@ -196,6 +202,11 @@ def dense_relu_max(x, w, b, cdt):
     are copied 16 bytes at a time)."""
     if x.device.type == "cpu":
         return dense_relu_max_twin(x, w, b, cdt)
+    with span("catre.op.K2"):
+        return _dense_relu_max(x, w, b, cdt)
+
+
+def _dense_relu_max(x, w, b, cdt):
     (w,), (b,) = _kernel_operands("dense_relu_max", x, cdt, [w], [b])
     N, P, cin = x.shape
     cout = w.shape[0]
@@ -224,6 +235,11 @@ def dense_relu_dense_max(x, w3, b3, w4, b4, cdt):
     flagship widths) and x starts on a 16-byte boundary."""
     if x.device.type == "cpu":
         return dense_relu_dense_max_twin(x, w3, b3, w4, b4, cdt)
+    with span("catre.op.K1"):
+        return _dense_relu_dense_max(x, w3, b3, w4, b4, cdt)
+
+
+def _dense_relu_dense_max(x, w3, b3, w4, b4, cdt):
     (w3, w4), (b3, b4) = _kernel_operands("dense_relu_dense_max", x, cdt, [w3, w4], [b3, b4])
     N, P, cin = x.shape
     chid, cout = w3.shape[0], w4.shape[0]

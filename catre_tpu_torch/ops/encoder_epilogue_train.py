@@ -65,6 +65,11 @@ takes K2's limits (cin 64 or 128, x on a 16-byte boundary) and a cout whose
 64-column chunk of W fits a block's shared memory, and allocates beside its
 outputs d (N, cout) and one buffer that holds the per-group partials of dW
 and db, then K6's routing rows of the gated d.
+
+On the kernel path each call is the profiler span `catre.op.K5.fwd`,
+`catre.op.K5.bwd`, `catre.op.K6.fwd` or `catre.op.K6.bwd` (the backwards on
+autograd's device thread), and its weights' casts and repack
+`catre.op.pack`.
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ import functools
 import torch
 
 from ..models.layers import dense
+from ..utils.profiler import span
 from . import _build
 from .encoder_epilogue import (_check_widths, _sm_count, check_k1_bf16, check_k2_bf16,
                                pack_panels, stn_tail_grid)
@@ -322,8 +328,9 @@ def _operands(name, x, cdt, shapes, f32=()):
 
 def _cast(x, cdt, weights, biases=()):
     """(weights in cdt, biases rounded to cdt as f32), contiguous on x's device."""
-    return ([w.detach().to(device=x.device, dtype=cdt).contiguous() for w in weights],
-            [b.detach().to(device=x.device, dtype=cdt).float().contiguous() for b in biases])
+    with span("catre.op.pack"):
+        return ([w.detach().to(device=x.device, dtype=cdt).contiguous() for w in weights],
+                [b.detach().to(device=x.device, dtype=cdt).float().contiguous() for b in biases])
 
 
 def k6_bwd_schedule(n, chid, cout, n_sms):
@@ -354,6 +361,11 @@ def dense_relu_max_fwd(x, w, b, cdt):
     and 1 <= P <= ARGMAX_MAX_ROWS."""
     if x.device.type == "cpu":
         return dense_relu_max_fwd_plain(x, w, b, cdt)
+    with span("catre.op.K5.fwd"):
+        return _dense_relu_max_fwd(x, w, b, cdt)
+
+
+def _dense_relu_max_fwd(x, w, b, cdt):
     name = "dense_relu_max_train_fwd"
     _build.refuse_grad(name, "dense_relu_max_train (the autograd Function around it)", x, w, b)
     N, P, cin = x.shape if x.dim() == 3 else (0, 0, 0)
@@ -382,6 +394,11 @@ def dense_relu_dense_max_fwd(x, w3, b3, w4, b4, cdt):
     128 -> 512 -> 4096, x on a 16-byte boundary) and 1 <= P <= ARGMAX_MAX_ROWS."""
     if x.device.type == "cpu":
         return dense_relu_dense_max_fwd_plain(x, w3, b3, w4, b4, cdt)
+    with span("catre.op.K6.fwd"):
+        return _dense_relu_dense_max_fwd(x, w3, b3, w4, b4, cdt)
+
+
+def _dense_relu_dense_max_fwd(x, w3, b3, w4, b4, cdt):
     name = "dense_relu_dense_max_train_fwd"
     _build.refuse_grad(name, "dense_relu_dense_max_train (the autograd Function around it)", x,
                        w3, b3, w4, b4)
@@ -422,6 +439,11 @@ def dense_relu_max_bwd(x, w, b, idx, d_out, cdt):
     if x.device.type == "cpu":
         dx, dw, db = dense_relu_max_bwd_plain(x, w, b, idx, d_out, cdt)
         return dx.to(x.dtype), dw, db
+    with span("catre.op.K5.bwd"):
+        return _dense_relu_max_bwd(x, w, b, idx, d_out, cdt)
+
+
+def _dense_relu_max_bwd(x, w, b, idx, d_out, cdt):
     name = "dense_relu_max_train_bwd"
     N, P, cin = x.shape if x.dim() == 3 else (0, 0, 0)
     cout = w.shape[0]
@@ -484,6 +506,11 @@ def dense_relu_dense_max_bwd(x, w3, b3, w4, b4, idx, d_out, cdt):
     if x.device.type == "cpu":
         dx, *grads = dense_relu_dense_max_bwd_plain(x, w3, b3, w4, b4, idx, d_out, cdt)
         return (dx.to(x.dtype), *grads)
+    with span("catre.op.K6.bwd"):
+        return _dense_relu_dense_max_bwd(x, w3, b3, w4, b4, idx, d_out, cdt)
+
+
+def _dense_relu_dense_max_bwd(x, w3, b3, w4, b4, idx, d_out, cdt):
     name = "dense_relu_dense_max_train_bwd"
     N, P, cin = x.shape if x.dim() == 3 else (0, 0, 0)
     chid, cout = w3.shape[0], w4.shape[0]
@@ -533,8 +560,9 @@ def k6_bwd_launch(lib, x, w3, b3, w4, idx, d_out, cdt):
     else:
         grid, groups = 0, min(N, CLOUD_GROUPS)
         splits = max(1, min(128, -(-(N * P) // SPLIT_ROWS)))
-        w3t = torch.zeros(cin_pad, chid, device=dev, dtype=cdt)   # W3^T, zero rows past cin
-        w3t[:cin] = w3c.T
+        with span("catre.op.pack"):
+            w3t = torch.zeros(cin_pad, chid, device=dev, dtype=cdt)   # W3^T, zero rows past cin
+            w3t[:cin] = w3c.T
         bufs.update(w3t=w3t, dh3=empty(N, P, chid, dtype=cdt), pdb3=empty(N, chid),
                     gpart=empty(splits, chid, cin))
     bufs.update(part_w4=empty(groups, cout, chid), part_b4=empty(groups, cout))

@@ -17,6 +17,11 @@ The kernel hard-codes the flagship widths: 64-d point features, 1024-d
 globals, two layers of 256 per head, 32 GroupNorm groups per head and a
 3 + 3 rot6d neck. Anything else raises; the plain module path serves it.
 
+On a CUDA tensor a call of `fused_conv_per_rot_head` or
+`fused_conv_per_rot_head_blocked` is the profiler span `catre.op.K3`,
+`catre.op.K7` or `catre.op.K8`, and its packing and gterm product
+`catre.op.pack`.
+
 Numerics: matmul operands in the compute dtype with f32 accumulation; biases,
 GroupNorm (eps 1e-5), exact-erf GELU, the point reduction and the neck in
 f32. The JAX package runs this head in bf16 whatever the model's dtype
@@ -32,6 +37,7 @@ from dataclasses import dataclass
 import torch
 
 from ..models.layers import gelu_exact, group_norm
+from ..utils.profiler import span
 from . import _build
 
 LAUNCHES = {"rot_head": 0}
@@ -204,8 +210,9 @@ def wgmma_chain(x, w0, w1):
 
 def _packed_inputs(point_feats, g_pcl, g_kps, head, cdt):
     """-> (pf in cdt, gterm (B, 2, 512) f32, pack) for the packed-parameter ops."""
-    p = pack_rot_head(head, cdt)
-    gterm = torch.stack([g_pcl.float(), g_kps.float()], dim=1) @ p.w_g.T
+    with span("catre.op.pack", point_feats.is_cuda):
+        p = pack_rot_head(head, cdt)
+        gterm = torch.stack([g_pcl.float(), g_kps.float()], dim=1) @ p.w_g.T
     return point_feats.to(cdt).contiguous(), gterm.contiguous(), p
 
 
@@ -215,11 +222,13 @@ def fused_conv_per_rot_head(point_feats, g_pcl, g_kps, head, n_pcl: int, cdt: to
     g_kps (B, 1024) -> (B, 6) f32 rotation deltas [rx | ry]. `group` > 1 runs
     that many objects per block (K7) when it divides B, and K3 when it does
     not (`pallas_heads.py:334`)."""
-    pf, gterm, p = _packed_inputs(point_feats, g_pcl, g_kps, head, cdt)
-    if group > 1 and pf.shape[0] % group == 0:
-        from .rot_head_multi import rot_head_grouped    # it imports this module
-        return rot_head_grouped(pf, gterm, p, n_pcl, group)
-    return rot_head(pf, gterm, p, n_pcl)
+    grouped = group > 1 and point_feats.shape[0] % group == 0
+    with span("catre.op.K7" if grouped else "catre.op.K3", point_feats.is_cuda):
+        pf, gterm, p = _packed_inputs(point_feats, g_pcl, g_kps, head, cdt)
+        if grouped:
+            from .rot_head_multi import rot_head_grouped    # it imports this module
+            return rot_head_grouped(pf, gterm, p, n_pcl, group)
+        return rot_head(pf, gterm, p, n_pcl)
 
 
 def fused_conv_per_rot_head_blocked(point_feats, g_pcl, g_kps, head, n_pcl: int,
@@ -227,5 +236,6 @@ def fused_conv_per_rot_head_blocked(point_feats, g_pcl, g_kps, head, n_pcl: int,
     """The blocked form (K8): `block_size` objects per block; raises unless it
     divides B (`pallas_heads_blocked.py:120` asserts)."""
     from .rot_head_multi import rot_head_blocked
-    pf, gterm, p = _packed_inputs(point_feats, g_pcl, g_kps, head, cdt)
-    return rot_head_blocked(pf, gterm, p, n_pcl, block_size)
+    with span("catre.op.K8", point_feats.is_cuda):
+        pf, gterm, p = _packed_inputs(point_feats, g_pcl, g_kps, head, cdt)
+        return rot_head_blocked(pf, gterm, p, n_pcl, block_size)

@@ -25,6 +25,10 @@ scratch (8 bytes per point and channel) and transposed weight copies.
 The Function takes the packed weights in f32 and casts them to the compute
 dtype inside, so the weight gradients stay f32 (`prep`, :284-289); d_pf comes
 back in pf's dtype (:374).
+
+On a CUDA tensor `rot_head_train` is the profiler span `catre.op.K3` and
+`rot_head_bwd` `catre.op.K4` (on autograd's device thread), each with its
+weights' packing and casts as `catre.op.pack`.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import functools
 
 import torch
 
+from ..utils.profiler import span
 from . import _build
 from .rot_head import FEAT, IN_POINT, RotHeadPack, pack_rot_head, rot_head, rot_head_twin
 
@@ -103,6 +108,11 @@ def rot_head_bwd(pf, gterm, p: RotHeadPack, n_pcl: int, d_out) -> dict:
         return rot_head_bwd_twin(pf, gterm, p, n_pcl, d_out)
     if pf.device.type != "cuda":
         raise ValueError(f"rot_head_bwd: no kernel for device {pf.device}")
+    with span("catre.op.K4"):
+        return _rot_head_bwd(pf, gterm, p, n_pcl, d_out)
+
+
+def _rot_head_bwd(pf, gterm, p: RotHeadPack, n_pcl: int, d_out) -> dict:
     B, P, cin = pf.shape
     cdt = p.cdt
     if cdt not in (torch.float32, torch.bfloat16) or pf.dtype != cdt:
@@ -126,8 +136,9 @@ def rot_head_bwd(pf, gterm, p: RotHeadPack, n_pcl: int, d_out) -> dict:
         return torch.empty(*shape, device=dev, dtype=dtype)
 
     bf16 = cdt == torch.bfloat16
-    w_pt = p.w_pt.to(cdt).contiguous()
-    w1 = p.w1.to(cdt).contiguous()
+    with span("catre.op.pack"):
+        w_pt = p.w_pt.to(cdt).contiguous()
+        w1 = p.w1.to(cdt).contiguous()
     splits = max(1, min(128, -(-(B * P) // SPLIT_ROWS)))
     bufs = dict(
         pf=pf, gterm=gterm, dout=d_out, w_pt=w_pt, w1=w1,
@@ -142,10 +153,11 @@ def rot_head_bwd(pf, gterm, p: RotHeadPack, n_pcl: int, d_out) -> dict:
     if bf16:
         bufs["pfpart"] = empty(2, B, P, IN_POINT)
     else:
-        w_pt_t = torch.zeros(128, C, device=dev, dtype=cdt)   # W_pt^T, zero rows 64..127
-        w_pt_t[:IN_POINT] = w_pt.T
-        bufs.update(w1t=w1.transpose(1, 2).contiguous(), w_pt_t=w_pt_t,
-                    x0=empty(B, P, C), x2=empty(B, P, C))
+        with span("catre.op.pack"):
+            w_pt_t = torch.zeros(128, C, device=dev, dtype=cdt)   # W_pt^T, zero rows 64..127
+            w_pt_t[:IN_POINT] = w_pt.T
+            w1t = w1.transpose(1, 2).contiguous()
+        bufs.update(w1t=w1t, w_pt_t=w_pt_t, x0=empty(B, P, C), x2=empty(B, P, C))
     absent = F32_ONLY if bf16 else BF16_ONLY
     ptrs = (ctypes.c_void_p * len(SLOTS))(*[None if n in absent else bufs[n].data_ptr()
                                             for n in SLOTS])
@@ -197,8 +209,10 @@ class RotHeadTrain(torch.autograd.Function):
         ctx.save_for_backward(pf, gterm, w_pt, b0, gn0s, gn0b, w1, b1, gn1s, gn1b, pw, neck,
                               bias6)
         ctx.n_pcl, ctx.cdt = n_pcl, cdt
-        return rot_head(pf, gterm, _pack(w_pt.to(cdt), w1.to(cdt), b0, gn0s, gn0b, b1, gn1s, gn1b,
-                                         pw, neck, bias6, cdt), n_pcl)
+        with span("catre.op.pack", pf.is_cuda):
+            p = _pack(w_pt.to(cdt), w1.to(cdt), b0, gn0s, gn0b, b1, gn1s, gn1b, pw, neck, bias6,
+                      cdt)
+        return rot_head(pf, gterm, p, n_pcl)
 
     @staticmethod
     def backward(ctx, d_out):
@@ -218,8 +232,11 @@ def rot_head_train(point_feats, g_pcl, g_kps, head, n_pcl: int, cdt: torch.dtype
     """Differentiable fused `ConvOutPerRotHead` forward: point_feats (B, P+K,
     64), g_pcl and g_kps (B, 1024) -> (B, 6) f32 rotation deltas [rx | ry];
     K3 forward, K4 backward."""
-    p = pack_rot_head(head, cdt, weight_dtype=torch.float32)
-    gterm = torch.stack([g_pcl.float(), g_kps.float()], dim=1) @ p.w_g.T   # (B, 2, 512)
-    return RotHeadTrain.apply(point_feats.to(cdt).contiguous(), gterm.contiguous(), p.w_pt, p.b0,
-                              p.gn0s, p.gn0b, p.w1, p.b1, p.gn1s, p.gn1b, p.pw, p.neck, p.bias6,
-                              n_pcl, cdt)
+    on = point_feats.is_cuda
+    with span("catre.op.K3", on):
+        with span("catre.op.pack", on):
+            p = pack_rot_head(head, cdt, weight_dtype=torch.float32)
+            gterm = torch.stack([g_pcl.float(), g_kps.float()], dim=1) @ p.w_g.T   # (B, 2, 512)
+        return RotHeadTrain.apply(point_feats.to(cdt).contiguous(), gterm.contiguous(), p.w_pt,
+                                  p.b0, p.gn0s, p.gn0b, p.w1, p.b1, p.gn1s, p.gn1b, p.pw, p.neck,
+                                  p.bias6, n_pcl, cdt)

@@ -32,11 +32,19 @@ multiplication by its reciprocal.
 Not ported (ROADMAP item 15): `gather_points_mxu`, `cycle_indices_mxu` and
 `_FORCE_MXU_FORM` (:31-119), the TPU's one-hot gathers, are native indexing
 here; `selection="packed_sort"` (:189) is dropped.
+
+Under a profiler each image-level crop is two spans: `catre.sampler.candidates`
+(the window gathers or the full-frame candidates, and the in-ball mask) and
+`catre.sampler.select` (the draw among them and the gathers).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..utils.profiler import span
+
+CANDIDATES, SELECT = "catre.sampler.candidates", "catre.sampler.select"
 
 BIG = 1e30
 MIN_RADIUS = 0.05
@@ -291,33 +299,37 @@ def batch_ball_crop(cloud, masks, poses, scales, ratio: float, num_points: int,
         cloud, masks, poses, scales = _group(cloud, masks, poses, scales)
         priorities = None if priorities is None else priorities.unsqueeze(0)
     g, h, w = cloud.shape[:3]
-    if window_size and not fps_sample and (window_size < h or window_size < w):
-        wsh, wsw = _window_sizes(window_size, h, w)
-        r_min, r_max, c_min, c_max = _mask_bbox_from_masks(masks)
-        r0, c0 = window_origin(r_min, r_max, c_min, c_max, wsh, wsw, h, w)
-        rows, cols = _window_grid(r0, c0, wsh, wsw)
-        gi = _image_index(g, cloud.device)
-        mi = torch.arange(masks.shape[1], device=cloud.device)[None, :, None, None]
-        pts = cloud[gi, rows, cols].flatten(-3, -2)                        # (G, M, n, 3)
-        valid = masks[gi, mi, rows, cols].flatten(-2) & (pts[..., 2] > 0)
-        sampled, idx_w, n_in = crop_ball_from_cloud(pts, valid, poses, scales, ratio,
-                                                    num_points, priorities, generator)
-        return _squeeze((sampled, window_to_flat_idx(idx_w, r0, c0, wsw, w), n_in), per_image)
-
-    pts = cloud.reshape(g, 1, h * w, 3)
-    valid = masks.flatten(-2) & (pts[..., 2] > 0)
-    if not fps_sample:
-        return _squeeze(crop_ball_from_cloud(pts, valid, poses, scales, ratio, num_points,
-                                             priorities, generator), per_image)
-    n_cand = 4 * num_points
-    cand_idx, n_in = ball_crop_indices(pts, valid, poses[..., :, 3],
-                                       ball_radius(poses, scales, ratio), n_cand,
-                                       priorities=priorities, generator=generator)
-    cand = _gather_points(pts, cand_idx)
-    cand_valid = torch.arange(n_cand, device=cand.device) < torch.clamp(n_in, max=n_cand)[..., None]
-    fps_idx = farthest_point_indices(cand, num_points, valid=cand_valid)
-    return _squeeze((_gather_points(cand, fps_idx), torch.gather(cand_idx, -1, fps_idx), n_in),
-                    per_image)
+    windowed = bool(window_size) and not fps_sample and (window_size < h or window_size < w)
+    with span(CANDIDATES):
+        if windowed:
+            wsh, wsw = _window_sizes(window_size, h, w)
+            r_min, r_max, c_min, c_max = _mask_bbox_from_masks(masks)
+            r0, c0 = window_origin(r_min, r_max, c_min, c_max, wsh, wsw, h, w)
+            rows, cols = _window_grid(r0, c0, wsh, wsw)
+            gi = _image_index(g, cloud.device)
+            mi = torch.arange(masks.shape[1], device=cloud.device)[None, :, None, None]
+            pts = cloud[gi, rows, cols].flatten(-3, -2)                    # (G, M, n, 3)
+            valid = masks[gi, mi, rows, cols].flatten(-2) & (pts[..., 2] > 0)
+        else:
+            pts = cloud.reshape(g, 1, h * w, 3)
+            valid = masks.flatten(-2) & (pts[..., 2] > 0)
+        inside, n_in = ball_inside_mask(pts, valid, poses[..., :, 3],
+                                        ball_radius(poses, scales, ratio))
+    with span(SELECT):
+        if not fps_sample:
+            idx = select_inside(inside, n_in, num_points, priorities, generator)
+            sampled = _gather_points(pts, idx)
+            if windowed:
+                idx = window_to_flat_idx(idx, r0, c0, wsw, w)
+            return _squeeze((sampled, idx, n_in), per_image)
+        n_cand = 4 * num_points
+        cand_idx = select_inside(inside, n_in, n_cand, priorities, generator)
+        cand = _gather_points(pts, cand_idx)
+        cand_valid = (torch.arange(n_cand, device=cand.device)
+                      < torch.clamp(n_in, max=n_cand)[..., None])
+        fps_idx = farthest_point_indices(cand, num_points, valid=cand_valid)
+        return _squeeze((_gather_points(cand, fps_idx), torch.gather(cand_idx, -1, fps_idx),
+                         n_in), per_image)
 
 
 def batch_ball_crop_candidates(depth, K, packed, mask_bbox, poses, scales, ratio: float,
@@ -384,11 +396,13 @@ def batch_ball_crop_from_depth(depth, K, packed, mask_bbox, poses, scales, ratio
     `batch_ball_crop_candidates`): no full-frame cloud, unpacked masks or
     full-frame bbox reduction. Equal to `batch_ball_crop(..., window_size)`
     on `backproject(depth_metres(depth), K)` and the unpacked masks."""
-    pts, inside, n_inside, origin = batch_ball_crop_candidates(
-        depth, K, packed, mask_bbox, poses, scales, ratio, window_size)
+    with span(CANDIDATES):
+        pts, inside, n_inside, origin = batch_ball_crop_candidates(
+            depth, K, packed, mask_bbox, poses, scales, ratio, window_size)
     wsw = _window_sizes(window_size, *depth.shape[-2:])[1]
-    return batch_select_from_candidates(pts, inside, n_inside, origin, num_points,
-                                        depth.shape[-1], wsw, priorities, generator)
+    with span(SELECT):
+        return batch_select_from_candidates(pts, inside, n_inside, origin, num_points,
+                                            depth.shape[-1], wsw, priorities, generator)
 
 
 # ---- farthest-point and plain random sampling
